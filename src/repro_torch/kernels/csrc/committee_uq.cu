@@ -1,0 +1,160 @@
+// committee_uq.cu — fused committee uncertainty statistics for Hopper (sm_90a).
+//
+// Replaces: src/repro/kernels/committee_uq.py::committee_uq, the Pallas TPU
+// kernel (`_kernel`) that folds the committee axis with a streaming Welford
+// recurrence.
+//
+// Computes, for every row i of preds (K, n, d) fp32, contiguous:
+//   mean[i, :]        mean over the members whose row i is finite   (n, d) f32
+//   scalar_std[i]     max over d of the ddof=1 std                  (n,)   f32
+//   component_std[i]  mean over d of the same std                   (n,)   f32
+//   mask[i]           scalar_std > threshold && finite[i] > 0       (n,)   bool
+//   finite[i]         members whose row had every component finite  (n,)   i32
+// A member with any non-finite component in row i is left out of row i
+// (quarantine); with fewer than 2 finite members the std is 0.
+//
+// Bound on this card: the kernel reads K*n*d*4 bytes and writes
+// n*(d+3)*4 + n bytes, doing about 6 fp32 operations per element read --
+// far below the card's fp32 rate per byte of bandwidth, so at large n it is
+// bound by memory bandwidth.  At serving sizes (K=4, n~64, d=24: about
+// 25 KB in all) it is bound by launch latency.
+//
+// Design: one pass and one launch.  One warp owns one row.  Each lane keeps
+// the running mean and M2 of up to V = ceil(d/32) components in registers
+// while the warp loops over the K members, so nothing but the outputs goes
+// back to device memory.  The TPU grid carried this state across a
+// sequential K axis; here the loop inside the warp takes its place.  Member
+// k joins row i only if every lane agrees its components are finite
+// (__all_sync).  The fold is the TPU kernel's recurrence, in the same member
+// order:
+//   cnt += fin;  delta = fin ? x - mean : 0;  mean += delta / max(cnt, 1);
+//   M2 += delta * (fin ? x - mean : 0)
+// Rows past n are masked inside the kernel, so the caller makes no padded
+// copy.  Lanes past d load nothing and hold zeros.
+//
+// Build without --use_fast_math: the isfinite tests the quarantine depends
+// on, and IEEE division and sqrt, must keep their exact semantics.
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+//        -Xcompiler -fPIC -o libcommittee_uq.so committee_uq.cu
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kWarpsPerBlock = 8;
+constexpr unsigned kFullMask = 0xffffffffu;
+
+template <int V>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+committee_uq_kernel(const float* __restrict__ preds, int K, int n, int d,
+                    float threshold, float* __restrict__ mean_out,
+                    float* __restrict__ sstd_out,
+                    float* __restrict__ cstd_out,
+                    uint8_t* __restrict__ mask_out,
+                    int32_t* __restrict__ finite_out) {
+  const int lane = threadIdx.x & 31;
+  const long long row =
+      (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (row >= n) return;  // the whole warp leaves together
+
+  float mean[V];
+  float m2[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    mean[v] = 0.0f;
+    m2[v] = 0.0f;
+  }
+  float cnt = 0.0f;
+
+  const size_t member_stride = (size_t)n * (size_t)d;
+  const float* p = preds + (size_t)row * (size_t)d;
+  for (int k = 0; k < K; ++k) {
+    float x[V];
+    bool ok = true;
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const int c = lane + 32 * v;
+      x[v] = (c < d) ? p[c] : 0.0f;
+      ok = ok && isfinite(x[v]);
+    }
+    p += member_stride;
+    const bool fin = __all_sync(kFullMask, ok) != 0;
+    cnt += fin ? 1.0f : 0.0f;
+    const float denom = fmaxf(cnt, 1.0f);
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const float delta = fin ? x[v] - mean[v] : 0.0f;
+      mean[v] = mean[v] + delta / denom;
+      m2[v] += delta * (fin ? x[v] - mean[v] : 0.0f);
+    }
+  }
+
+  const float var_denom = fmaxf(cnt - 1.0f, 1.0f);
+  float smax = 0.0f;
+  float ssum = 0.0f;
+  float* mrow = mean_out + (size_t)row * (size_t)d;
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    const int c = lane + 32 * v;
+    if (c < d) {
+      const float var = cnt >= 2.0f ? m2[v] / var_denom : 0.0f;
+      const float s = sqrtf(var);
+      mrow[c] = mean[v];
+      smax = fmaxf(smax, s);
+      ssum += s;
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    smax = fmaxf(smax, __shfl_xor_sync(kFullMask, smax, off));
+    ssum += __shfl_xor_sync(kFullMask, ssum, off);
+  }
+  if (lane == 0) {
+    sstd_out[row] = smax;
+    cstd_out[row] = ssum / (float)d;
+    mask_out[row] = (smax > threshold && cnt > 0.0f) ? 1 : 0;
+    finite_out[row] = (int32_t)cnt;
+  }
+}
+
+template <int V>
+void launch(const float* preds, int K, int n, int d, float threshold,
+            float* mean, float* sstd, float* cstd, uint8_t* mask,
+            int32_t* finite, cudaStream_t stream) {
+  const unsigned blocks =
+      (unsigned)((n + kWarpsPerBlock - 1) / kWarpsPerBlock);
+  committee_uq_kernel<V><<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
+      preds, K, n, d, threshold, mean, sstd, cstd, mask, finite);
+}
+
+}  // namespace
+
+// Plain C entry point, bound with ctypes.  Returns cudaGetLastError() after
+// the launch (0 on success); cudaErrorInvalidValue for shapes the kernel
+// does not take (K < 1, n < 1, d < 1 or d > 256).
+extern "C" int committee_uq_launch(const void* preds, int K, int n, int d,
+                                   float threshold, void* mean, void* sstd,
+                                   void* cstd, void* mask, void* finite,
+                                   void* stream) {
+  if (K < 1 || n < 1 || d < 1 || d > 256) return (int)cudaErrorInvalidValue;
+  const float* p = static_cast<const float*>(preds);
+  float* m = static_cast<float*>(mean);
+  float* s = static_cast<float*>(sstd);
+  float* c = static_cast<float*>(cstd);
+  uint8_t* mk = static_cast<uint8_t*>(mask);
+  int32_t* f = static_cast<int32_t*>(finite);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch ((d + 31) / 32) {
+    case 1: launch<1>(p, K, n, d, threshold, m, s, c, mk, f, st); break;
+    case 2: launch<2>(p, K, n, d, threshold, m, s, c, mk, f, st); break;
+    case 3: launch<3>(p, K, n, d, threshold, m, s, c, mk, f, st); break;
+    case 4: launch<4>(p, K, n, d, threshold, m, s, c, mk, f, st); break;
+    case 5: launch<5>(p, K, n, d, threshold, m, s, c, mk, f, st); break;
+    case 6: launch<6>(p, K, n, d, threshold, m, s, c, mk, f, st); break;
+    case 7: launch<7>(p, K, n, d, threshold, m, s, c, mk, f, st); break;
+    case 8: launch<8>(p, K, n, d, threshold, m, s, c, mk, f, st); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}

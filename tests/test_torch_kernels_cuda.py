@@ -1,0 +1,117 @@
+"""The hand-written CUDA kernels against their plain PyTorch versions, on
+the card.  Needs a CUDA card and ``nvcc`` (the kernels have no CPU or
+interpret mode), so every test here is marked ``cuda`` and skips without
+one.  This file imports no JAX, so it also runs where JAX is absent:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
+
+Tolerances are the reference's committee_uq ones: mean rtol 1e-5 atol 1e-6;
+both stds rtol 1e-4 atol 1e-6; mask and finite counts exact."""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ops, ref
+
+MEAN_TOL = dict(rtol=1e-5, atol=1e-6)
+STD_TOL = dict(rtol=1e-4, atol=1e-6)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the committee_uq kernel has no CPU "
+                    "or interpret mode")
+    return torch.device("cuda")
+
+
+def _preds(K, n, d, seed=9):
+    preds = np.random.RandomState(seed).randn(K, n, d).astype(np.float32)
+    preds[:, 5 % n] = np.nan                  # a row with no finite member
+    if K > 1 and n > 7:
+        preds[0, 7, 0] = np.inf               # one quarantined member
+        preds[1:, 3] = -np.inf                # a row with one finite member
+    return preds
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,n,d", [(4, 64, 24), (1, 33, 3), (2, 1, 1),
+                                   (64, 4096, 200), (8, 65536, 24)])
+def test_committee_uq_kernel_matches_plain_version(cuda_device, K, n, d):
+    from repro_torch.kernels import committee_uq as kernel
+
+    preds = _preds(K, n, d)
+    x = torch.from_numpy(preds).to(cuda_device)
+    before = kernel.launches
+    got = [o.cpu().numpy() for o in ops.committee_uq(x, 0.9)]
+    assert kernel.launches == before + 1
+    want = [o.numpy() for o in ref.committee_uq_ref(
+        torch.from_numpy(preds), 0.9)]
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+    np.testing.assert_allclose(got[0], want[0], **MEAN_TOL)
+    np.testing.assert_allclose(got[1], want[1], **STD_TOL)
+    np.testing.assert_allclose(got[2], want[2], **STD_TOL)
+    np.testing.assert_array_equal(got[4], want[4])
+    away = np.abs(want[1] - 0.9) > STD_TOL["atol"] + STD_TOL["rtol"] * 0.9
+    np.testing.assert_array_equal(got[3][away], want[3][away])
+
+
+def _syncs(fn):
+    """Messages of the synchronizing CUDA operations ``fn`` performs, as
+    PyTorch's sync debug mode reports them."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [str(w.message).splitlines()[0] for w in caught
+            if "synchroniz" in str(w.message)]
+
+
+@pytest.mark.cuda
+def test_engine_score_syncs_only_for_its_two_transfers(cuda_device):
+    """One upload of the padded batch and one download of the five outputs
+    per score: the stateful rules, TopFractionRule's ranking and
+    DiversityRule's loop over the bucket never wait on the host.  Counted
+    in steady state (the first measured call may carry one-time syncs)."""
+    from repro_torch.core import acquisition as acq
+    from repro_torch.core import budget
+    from repro_torch.core.committee import params_from_numpy
+
+    rng = np.random.RandomState(0)
+    cparams = params_from_numpy(
+        {"w": rng.randn(4, 6, 3).astype(np.float32)}, cuda_device)
+    rows = [r.astype(np.float32) for r in rng.randn(40, 6)]
+    apply = lambda p, x: x @ p["w"]                        # noqa: E731
+    plain = acq.FusedEngine(apply, cparams, 0.5, device=cuda_device)
+    full = acq.FusedEngine(apply, cparams, 0.5, device=cuda_device, rules=(
+        budget.RollingReweightRule(n_buckets=16),
+        budget.BudgetRule(target=0.3, thr_init=0.5),
+        acq.TopFractionRule(0.5), acq.DiversityRule(0.3)))
+    seen = {}
+    for name, eng in (("plain", plain), ("full", full)):
+        seen[name] = [_syncs(lambda: eng.score(rows)) for _ in range(3)]
+    steady = {name: runs[-1] for name, runs in seen.items()}
+    assert len(steady["full"]) == len(steady["plain"]) <= 2, seen
+
+
+@pytest.mark.cuda
+def test_committee_uq_kernel_rejects_what_it_does_not_take(cuda_device):
+    from repro_torch.kernels import committee_uq as kernel
+
+    with pytest.raises(TypeError):
+        kernel.committee_uq(torch.zeros(2, 4, 3, dtype=torch.float64,
+                                        device=cuda_device), 0.1,
+                            device=cuda_device)
+    with pytest.raises(ValueError, match="d <= 256"):
+        kernel.committee_uq(torch.zeros(2, 4, 257, device=cuda_device), 0.1,
+                            device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernel.committee_uq(torch.zeros(2, 3, 4, device=cuda_device)
+                            .transpose(1, 2), 0.1, device=cuda_device)
