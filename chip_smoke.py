@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's committee serving path on one CUDA card.
+"""Drive the PyTorch/CUDA port's serving paths on one CUDA card.
 
     PYTHONPATH=src python3 chip_smoke.py
 
@@ -7,15 +7,29 @@ Phases (each raises on a failed check; the script exits non-zero):
 
 1. describe the card and build every CUDA kernel from ``src/repro_torch/
    kernels/csrc`` (one ``nvcc`` per source, all started together);
-2. kernel phase: every kernel against its plain PyTorch version on the same
-   CUDA tensors, over a sweep of shapes including non-finite members, and
-   timed beside its plain version, its bound and the nearest one-call
-   PyTorch yardstick;
-3. serving phase at ``PotentialConfig()`` full width: a K=4 committee
-   behind ``make_engine`` -> ``CommitteeServer`` -> ``ServingQueue``, fed
-   by 4 client threads, then the same microbatches replayed through a CPU
-   engine with the same weights; the kernel's launch count must equal the
-   engine's dispatch count.
+2. committee kernel phase: ``committee_uq`` against its plain PyTorch
+   version on the same CUDA tensors, over a sweep of shapes including
+   non-finite members, and timed beside its plain version, its bound and
+   the nearest one-call PyTorch yardstick;
+3. committee serving phase at ``PotentialConfig()`` full width: a K=4
+   committee behind ``make_engine`` -> ``CommitteeServer`` ->
+   ``ServingQueue``, fed by 4 client threads, then the same microbatches
+   replayed through a CPU engine with the same weights; the kernel's launch
+   count must equal the engine's dispatch count;
+4. flash phase: ``flash_attention`` against its plain version on the same
+   CUDA tensors over the reference's sweep, decode with ``kv_len``, the
+   sliding-window decode, ragged T and S, head dims 16 and 120 and the two
+   llama3.2-1b serving shapes, timed there beside its plain version, its
+   bound and ``scaled_dot_product_attention``;
+5. LM serving phase: ``ServeEngine.generate`` on llama3.2-1b at full
+   width (random weights from a seed), 8 prompts of 512 tokens, 64 new
+   tokens; the kernel must launch once per layer per prefill and decode
+   step, and match the plain attention on every attention call of a
+   teacher-forced run over the generated tokens, on the model's own
+   activations;
+6. card against CPU: llama3.2-1b at full width cut to 2 layers, in fp32,
+   prefill + 8 decode steps on the card (kernel) and on the CPU (plain
+   path) with the same weights.
 
 The last lines are one ``{"kernels": [...]}`` object, the card's name and
 power limit from ``nvidia-smi``, and ``{"ok": true, "device": {...}}``.
@@ -34,26 +48,37 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.configs.pal_potential import PALRunConfig, PotentialConfig  # noqa: E402
 from repro_torch.core import acquisition as acq  # noqa: E402
 from repro_torch.core import committee as cmte  # noqa: E402
 from repro_torch.core.buffers import OracleInputBuffer  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import committee_uq as cuq_kernel  # noqa: E402
+from repro_torch.kernels import flash_attention as fa_kernel  # noqa: E402
 from repro_torch.launch import platform  # noqa: E402
+from repro_torch.models import model_zoo  # noqa: E402
 from repro_torch.models import potential as pot  # noqa: E402
-from repro_torch.serving import CommitteeServer, QueueConfig, ServingQueue  # noqa: E402
+from repro_torch.serving import (  # noqa: E402
+    CommitteeServer, QueueConfig, ServeEngine, ServingQueue,
+)
 
 SEED = 0
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12           # fp32 outside the tensor cores
+PEAK_BF16_PER_S = 989e12          # bf16 tensor cores, dense
 # the reference's own committee_uq tolerances (tests/test_committee_uq.py)
 MEAN_RTOL, MEAN_ATOL = 1e-5, 1e-6
 STD_RTOL, STD_ATOL = 1e-4, 1e-6
 # forces and engine results, kernel path (card) vs plain path (CPU)
 ENGINE_RTOL, ENGINE_ATOL = 1e-4, 1e-5
 SERVE_SHAPE = (4, 64, 24)         # K, rows per microbatch, 3 * n_atoms
+# flash_attention: the reference's TOL (tests/test_kernels.py)
+FA_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+# the LM serving phase: llama3.2-1b, 8 prompts of 512 tokens, 64 new ones
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "llama3.2-1b", 8, 512, 64
+CPU_RTOL, CPU_ATOL = 1e-3, 1e-3   # fp32 card (kernel) vs CPU (plain)
 
 
 def _max_err(got, want, rtol, atol, what):
@@ -380,13 +405,387 @@ def phase_serving(smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 4. flash_attention against its plain version
+# ---------------------------------------------------------------------------
+
+
+def _fa_inputs(B, T, S, H, KV, D, dtype, gen, kv_len=None):
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+               for shape in ((B, T, H, D), (B, S, KV, D), (B, S, KV, D)))
+    kvl = (None if kv_len is None else
+           torch.tensor(kv_len, dtype=torch.int32, device="cuda"))
+    return q, k, v, kvl
+
+
+def _check_fa(B, T, S, H, KV, D, dtype, gen, causal=True, window=None,
+              q_offset=0, kv_len=None):
+    """Kernel vs plain version on one input; returns the worst abs error."""
+    q, k, v, kvl = _fa_inputs(B, T, S, H, KV, D, dtype, gen, kv_len)
+    kw = dict(causal=causal, window=window, q_offset=q_offset, kv_len=kvl)
+    got = ops.attention(q, k, v, **kw)
+    want = ref.attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    tag = (f"flash B={B} T={T} S={S} H={H} KV={KV} D={D} {dtype} "
+           f"causal={causal} window={window} q_offset={q_offset} "
+           f"kv_len={kv_len}")
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{tag}: output {tuple(got.shape)} {got.dtype} "
+                             f"vs {tuple(want.shape)} {want.dtype}")
+    tol = FA_TOL[dtype]
+    return _max_err(got.float(), want.float(), tol, tol, tag)
+
+
+def fa_bound(B, T, H, KV, D, dtype, causal, kv_len):
+    """Least time for the work, in ms: q, o and the visible K/V rows moved
+    once (per batch row, ``kv_len`` keys), against the scores and the AV
+    product over the visible keys (causal prefill: 2*B*H*T^2*D, half of
+    4*B*H*T^2*D), at the peak rate of the inputs' type."""
+    esize = torch.tensor([], dtype=dtype).element_size()
+    keys = sum(kv_len)                            # summed over the batch
+    nbytes = esize * (2 * B * T * H * D + 2 * keys * KV * D)
+    flops = (2 * B * H * T * T * D if causal else 4 * H * T * D * keys)
+    peak = PEAK_BF16_PER_S if dtype == torch.bfloat16 else PEAK_FP32_PER_S
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _sdpa_inputs(q, k, v, kvl, causal):
+    """The same attention for ``scaled_dot_product_attention``: heads
+    second, K/V expanded to H heads, a boolean key mask for ``kv_len``."""
+    G = q.shape[2] // k.shape[2]
+    qs = q.transpose(1, 2).contiguous()
+    ks = k.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+    vs = v.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+    mask = None
+    if kvl is not None:
+        S = k.shape[1]
+        mask = (torch.arange(S, device=q.device)[None, :]
+                < kvl[:, None])[:, None, None, :]
+    return qs, ks, vs, mask
+
+
+def _time_fa(name, B, T, S, H, KV, D, dtype, gen, causal, q_offset, kv_len,
+             smi):
+    q, k, v, kvl = _fa_inputs(B, T, S, H, KV, D, dtype, gen, kv_len)
+    kw = dict(causal=causal, q_offset=q_offset, kv_len=kvl)
+    qs, ks, vs, mask = _sdpa_inputs(q, k, v, kvl, causal)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def library():
+        return sdpa(qs, ks, vs, attn_mask=mask, is_causal=causal)
+
+    # the yardstick must compute the same function
+    lib_out = library().transpose(1, 2)
+    _max_err(lib_out.float(), ref.attention_ref(q, k, v, **kw).float(),
+             FA_TOL[dtype], FA_TOL[dtype], f"{name}: sdpa yardstick")
+    fns = {"ms": lambda: ops.attention(q, k, v, **kw),
+           "plain_ms": lambda: ref.attention_ref(q, k, v, **kw),
+           "library_ms": library}
+    t = {key: graph_ms(f, calls=10, replays=10) for key, f in fns.items()}
+    t.update({key.replace("ms", "eager_ms"): time_ms(f, iters=50)
+              for key, f in fns.items()})
+    keys = kv_len if kv_len is not None else [S] * B
+    t["bound_ms"], t["bound_by"] = fa_bound(B, T, H, KV, D, dtype, causal,
+                                            keys)
+    print(f"flash_attention {name} (B,T,S,H,KV,D)=({B},{T},{S},{H},{KV},{D}) "
+          f"{dtype}: device time per call (CUDA graph) kernel "
+          f"{t['ms']:.6f} ms, plain {t['plain_ms']:.6f} ms, "
+          f"scaled_dot_product_attention {t['library_ms']:.6f} ms; eager "
+          f"per call kernel {t['eager_ms']:.6f} ms, plain "
+          f"{t['plain_eager_ms']:.6f} ms, sdpa "
+          f"{t['library_eager_ms']:.6f} ms; bound {t['bound_ms']:.6f} ms "
+          f"({t['bound_by']}) [{smi}]")
+    return t
+
+
+def phase_flash(smi):
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    worst, cases = 0.0, 0
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def check(*args, **kw):
+        nonlocal worst, cases
+        worst = max(worst, _check_fa(*args, gen=gen, **kw))
+        cases += 1
+
+    for dtype in (f32, bf16):
+        # the reference's sweep (tests/test_kernels.py)
+        for B, T, H, KV, D in ((1, 128, 4, 4, 64), (2, 256, 8, 2, 64),
+                               (1, 128, 4, 1, 128)):
+            for causal, window in ((True, None), (True, 64), (False, None)):
+                check(B, T, T, H, KV, D, dtype, causal=causal, window=window)
+        # decode with kv_len, and the sliding-window decode
+        check(3, 1, 192, 8, 4, 64, dtype, causal=False, q_offset=191,
+              kv_len=[50, 192, 1])
+        check(2, 1, 256, 4, 4, 64, dtype, causal=False, window=64,
+              q_offset=255, kv_len=[200, 256])
+        # ragged T and S
+        check(2, 100, 100, 8, 2, 64, dtype)
+        check(2, 200, 577, 8, 2, 64, dtype, causal=False)
+        check(1, 577, 577, 4, 4, 64, dtype, window=200)
+        check(2, 1, 577, 8, 2, 64, dtype, causal=False, q_offset=576,
+              kv_len=[577, 300])
+        # head dims 16 and 120
+        check(2, 64, 64, 4, 2, 16, dtype)
+        check(2, 1, 100, 4, 2, 16, dtype, causal=False, q_offset=99,
+              kv_len=[100, 37])
+        check(1, 200, 200, 8, 8, 120, dtype, window=64)
+        check(2, 1, 300, 8, 8, 120, dtype, causal=False, q_offset=299,
+              kv_len=[300, 123])
+        # the two llama3.2-1b serving shapes
+        check(8, 512, 512, 32, 8, 64, dtype)
+        check(8, 1, 576, 32, 8, 64, dtype, causal=False, q_offset=511,
+              kv_len=list(range(512, 576, 9)))
+    print(f"flash_attention: kernel == plain version on {cases} cases "
+          f"(fp32 and bf16; causal, window, kv_len, ragged T and S, "
+          f"D in 16/64/120/128); worst |err| {worst:.3e} (tol fp32 "
+          f"{FA_TOL[f32]}, bf16 {FA_TOL[bf16]})")
+    timings = {
+        "prefill": _time_fa("prefill", 8, 512, 512, 32, 8, 64, bf16, gen,
+                            True, 0, None, smi),
+        "decode": _time_fa("decode", 8, 1, 576, 32, 8, 64, bf16, gen, False,
+                           511, list(range(512, 576, 9)), smi),
+    }
+    return worst, timings
+
+
+# ---------------------------------------------------------------------------
+# 5. the LM serving path at llama3.2-1b full width
+# ---------------------------------------------------------------------------
+
+
+def teacher_forced(model, params, prompt, gen_tokens, max_seq):
+    """Last-position logits (fp32) of a prefill of ``prompt`` and of one
+    decode step per token of ``gen_tokens`` but the last, fed those
+    tokens: the logits that chose each generated token."""
+    B = prompt.shape[0]
+    cache = model.init_cache(B, max_seq, device=prompt.device)
+    logits, cache = model.prefill(params, prompt, cache)
+    out = [logits.float()]
+    for i in range(gen_tokens.shape[1] - 1):
+        logits, cache = model.decode_step(params, gen_tokens[:, i:i + 1],
+                                          cache, prompt.shape[1] + i)
+        out.append(logits.float())
+    return torch.stack(out, dim=1)                  # (B, gen, V)
+
+
+def _margin_tokens_agree(tokens, logits, tol_abs, what):
+    """Tokens must be the argmax of ``logits`` wherever their top-2 margin
+    exceeds ``tol_abs``; returns (positions checked, positions)."""
+    top2 = logits.topk(2, dim=-1).values
+    sure = (top2[..., 0] - top2[..., 1]) > tol_abs
+    want = logits.argmax(dim=-1)
+    bad = sure & (want != tokens)
+    if bool(bad.any()):
+        raise AssertionError(f"{what}: {int(bad.sum())} tokens differ from "
+                             f"the plain path where its margin exceeds "
+                             f"{tol_abs:.3e}")
+    return int(sure.sum()), sure.numel()
+
+
+def _attention_f64(q, k, v, *, causal=True, window=None, q_offset=0,
+                   kv_len=None, q_chunk=None):
+    """Attention with the semantics of ``ref.attention_ref``, taken in
+    float64 and rounded once to ``v.dtype``: a second correct version
+    whose roundings differ from the plain one's."""
+    B, T, H, D = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    qd = q.double().reshape(B, T, KV, H // KV, D)
+    s = torch.einsum("btkgd,bskd->bkgts", qd, k.double()) / np.sqrt(D)
+    qpos = q_offset + torch.arange(T, device=q.device)[:, None]
+    kpos = torch.arange(S, device=q.device)[None, :]
+    m = torch.ones((T, S), dtype=torch.bool, device=q.device)
+    if causal:
+        m &= kpos <= qpos
+    if window is not None:
+        m &= kpos > qpos - window
+    m = m[None, None, None]
+    if kv_len is not None:
+        m = m & (kpos < kv_len[:, None])[:, None, None, None, :]
+    p = torch.softmax(s.masked_fill(~m, float("-inf")), -1).nan_to_num(0.0)
+    out = torch.einsum("bkgts,bskd->btkgd", p, v.double())
+    return out.reshape(B, T, H, D).to(v.dtype)
+
+
+def phase_lm(smi):
+    cfg = get_arch(LM_ARCH).model
+    max_seq = LM_PROMPT + LM_GEN
+    model = model_zoo.build_model(cfg, max_seq=max_seq)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED),
+                        device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in cmte.tree_leaves(params))
+    eng = ServeEngine(model, params, max_seq=max_seq, batch=LM_BATCH,
+                      device="cuda")
+    prompt = np.random.RandomState(SEED).randint(
+        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT)).astype(np.int32)
+    eng.generate({"tokens": prompt}, max_new_tokens=2)   # warm-up, not counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    fa_kernel.launches = 0                       # main path starts here
+    res = eng.generate({"tokens": prompt}, max_new_tokens=LM_GEN)
+    launches = fa_kernel.launches
+    peak = torch.cuda.max_memory_allocated()
+    want = cfg.num_layers * (1 + LM_GEN - 1)
+    if launches != want:
+        raise AssertionError(f"flash_attention launches {launches} != "
+                             f"{cfg.num_layers} layers x (1 prefill + "
+                             f"{LM_GEN - 1} decode steps) = {want}")
+    toks = res.tokens
+    if toks.shape != (LM_BATCH, max_seq) or \
+            not np.array_equal(toks[:, :LM_PROMPT], prompt) or \
+            toks.min() < 0 or toks.max() >= cfg.padded_vocab:
+        raise AssertionError(f"generated tokens misshapen or out of range: "
+                             f"{toks.shape}")
+    print(f"LM serving {LM_ARCH} full width ({cfg.num_layers} layers, d "
+          f"{cfg.d_model}, {cfg.num_heads} heads, kv {cfg.num_kv_heads}, "
+          f"vocab {cfg.vocab_size}, {n_params} params fp32, {cfg.dtype} "
+          f"activations), init {t_init:.2f} s: B={LM_BATCH} prompt "
+          f"{LM_PROMPT} + {LM_GEN} new tokens: prefill "
+          f"{res.prefill_seconds:.4f} s, decode {res.decode_seconds:.4f} s "
+          f"= {res.decode_tokens_per_s:.1f} tokens/s, peak memory "
+          f"{peak / 2**30:.3f} GiB; flash_attention launches {launches} == "
+          f"{cfg.num_layers} x (1 + {LM_GEN - 1}) [{smi}]")
+
+    # teacher-forced runs over the generated tokens, on the card
+    prompt_t = torch.from_numpy(prompt).to("cuda")
+    gen_t = torch.from_numpy(toks[:, LM_PROMPT:].astype(np.int32)).to("cuda")
+    lk = teacher_forced(model, eng.params, prompt_t, gen_t, max_seq)
+    if not torch.isfinite(lk).all():
+        raise AssertionError("kernel path: non-finite logits")
+    scale = float(lk.abs().max())
+    checked, total = _margin_tokens_agree(gen_t, lk, 1e-3 * scale,
+                                          "generate vs its own replay")
+
+    # every attention call of the plain path (prefill + 63 decode steps x
+    # 16 layers), on the model's own activations, also through the kernel
+    plain = model_zoo.build_model(cfg, impl="plain")
+    calls, worst = 0, 0.0
+    plain_attention = ops.plain_attention
+
+    def shadowed(q, k, v, **kw):
+        nonlocal calls, worst
+        out = plain_attention(q, k, v, **kw)
+        kw.pop("q_chunk", None)
+        got = fa_kernel.flash_attention(q, k, v, device=q.device, **kw)
+        tol = FA_TOL[q.dtype]
+        worst = max(worst, _max_err(got.float(), out.float(), tol, tol,
+                                    f"attention call {calls}"))
+        calls += 1
+        return out
+
+    ops.plain_attention = shadowed
+    try:
+        lp = teacher_forced(plain, eng.params, prompt_t, gen_t, max_seq)
+    finally:
+        ops.plain_attention = plain_attention
+    if calls != want:
+        raise AssertionError(f"{calls} attention calls shadowed, not {want}")
+
+    # A control for the end-to-end logits: the plain path again with its
+    # attention taken in float64 (the same function, other roundings).
+    # Random-weight layers amplify any rounding difference (see PERF.md),
+    # so the logits of two correct attentions drift apart over 16 layers;
+    # the drift of the kernel path is printed beside the control's.
+    ops.plain_attention = _attention_f64
+    try:
+        l64 = teacher_forced(plain, eng.params, prompt_t, gen_t, max_seq)
+    finally:
+        ops.plain_attention = plain_attention
+    p_scale = float(lp.abs().max())
+    drift = float((lk - lp).abs().max()) / p_scale
+    drift64 = float((l64 - lp).abs().max()) / p_scale
+    print(f"LM serving: the kernel == plain attention on all {calls} "
+          f"attention calls of a teacher-forced plain run over the "
+          f"generated tokens (the model's own bf16 activations; worst "
+          f"|err| {worst:.4e} at rtol = atol = {FA_TOL[torch.bfloat16]}); "
+          f"generate's tokens == the argmax of its own teacher-forced "
+          f"replay at {checked} of {total} positions whose top-2 margin "
+          f"exceeds 1e-3 "
+          f"x max|logit|; end-to-end logit drift from the plain path "
+          f"(max |err| / max|logit| {p_scale:.4e}): kernel path "
+          f"{drift:.4e}, float64-attention control {drift64:.4e}")
+    del lk, lp, l64, eng, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# 6. card (kernel) against CPU (plain path), fp32, 2 layers
+# ---------------------------------------------------------------------------
+
+
+def _greedy_logits(model, params, prompt, steps, max_seq):
+    """Greedy prefill + ``steps`` decode steps; (tokens (B, steps+1),
+    logits (B, steps+1, V) fp32) — the logits that chose each token."""
+    cache = model.init_cache(prompt.shape[0], max_seq, device=prompt.device)
+    logits, cache = model.prefill(params, prompt, cache)
+    toks, outs = [], []
+    for i in range(steps + 1):
+        outs.append(logits.float())
+        toks.append(torch.argmax(logits, dim=-1).to(torch.int32))
+        if i == steps:
+            break
+        logits, cache = model.decode_step(params, toks[-1][:, None], cache,
+                                          prompt.shape[1] + i)
+    return torch.stack(toks, dim=1), torch.stack(outs, dim=1)
+
+
+def phase_card_vs_cpu():
+    cfg = get_arch(LM_ARCH).model.replace(num_layers=2, dtype="float32")
+    B, P, steps = 2, 128, 8
+    max_seq = P + steps + 1
+    model = model_zoo.build_model(cfg, max_seq=max_seq)
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED + 1),
+                        device="cuda")
+    prompt = torch.from_numpy(np.random.RandomState(SEED + 1).randint(
+        0, cfg.vocab_size, (B, P)).astype(np.int32))
+    toks_g, logits_g = _greedy_logits(model, params, prompt.to("cuda"),
+                                      steps, max_seq)
+    before = fa_kernel.launches
+    params_c = cmte.tree_map(lambda t: t.cpu(), params)
+    del params
+    torch.cuda.empty_cache()
+    # the CPU plain path, teacher-forced with the card's tokens
+    cache = model.init_cache(B, max_seq, device="cpu")
+    logits, cache = model.prefill(params_c, prompt, cache)
+    outs = [logits]
+    for i in range(steps):
+        logits, cache = model.decode_step(params_c, toks_g[:, i:i + 1].cpu(),
+                                          cache, P + i)
+        outs.append(logits)
+    logits_c = torch.stack(outs, dim=1)
+    if fa_kernel.launches != before:
+        raise AssertionError("the CPU plain path launched the kernel")
+    err = _max_err(logits_g.cpu(), logits_c, CPU_RTOL, CPU_ATOL,
+                   "card vs CPU logits")
+    checked, total = _margin_tokens_agree(
+        toks_g.cpu(), logits_c, CPU_ATOL + CPU_RTOL * float(
+            logits_c.abs().max()), "card vs CPU tokens")
+    print(f"card vs CPU: {LM_ARCH} full width cut to {cfg.num_layers} "
+          f"layers, fp32, B={B} prompt {P} + {steps} decode steps: logits "
+          f"match (worst |err| {err:.3e} at rtol {CPU_RTOL} atol "
+          f"{CPU_ATOL}); greedy tokens identical at {checked} of {total} "
+          f"positions whose margin allows")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     info = phase_describe()
+    smi = info["nvidia_smi"]
     worst, t = phase_kernels()
-    launches = phase_serving(info["nvidia_smi"])
+    launches = phase_serving(smi)
+    fa_worst, fa_t = phase_flash(smi)
+    fa_launches = phase_lm(smi)
+    phase_card_vs_cpu()
+    fd, fp = fa_t["decode"], fa_t["prefill"]
     print(json.dumps({"kernels": [{
         "name": "committee_uq", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/committee_uq.cu",
@@ -395,8 +794,22 @@ def main() -> int:
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         "eager_ms": t["eager_ms"], "plain_eager_ms": t["plain_eager_ms"],
-        "library_eager_ms": t["library_eager_ms"]}]}))
-    print(info["nvidia_smi"])
+        "library_eager_ms": t["library_eager_ms"]}, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:108",
+        "launches": fa_launches, "max_abs_err": fa_worst,
+        "ms": fd["ms"], "plain_ms": fd["plain_ms"],
+        "bound_ms": fd["bound_ms"], "bound_by": fd["bound_by"],
+        "library_ms": fd["library_ms"], "eager_ms": fd["eager_ms"],
+        "plain_eager_ms": fd["plain_eager_ms"],
+        "library_eager_ms": fd["library_eager_ms"],
+        "prefill_ms": fp["ms"], "prefill_plain_ms": fp["plain_ms"],
+        "prefill_bound_ms": fp["bound_ms"],
+        "prefill_bound_by": fp["bound_by"],
+        "prefill_library_ms": fp["library_ms"],
+        "prefill_eager_ms": fp["eager_ms"]}]}))
+    print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -58,12 +58,21 @@ def tree_paths(tree: Any, prefix: tuple = ()) -> List[tuple]:
     return [prefix]
 
 
+def _leaf_from_numpy(a) -> torch.Tensor:
+    arr = np.array(a, copy=True)
+    if arr.dtype.name == "bfloat16":
+        # numpy's bfloat16 (ml_dtypes) has no torch counterpart to share
+        # memory with: go through float32, which holds every bf16 value
+        return torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
 def params_from_numpy(tree: Any, device: DeviceLike = None) -> Any:
     """A tree of array-likes -> the same keys and shapes as tensors on
-    ``device`` (default: the CUDA device).  Copies; dtypes are kept."""
+    ``device`` (default: the CUDA device).  Copies; dtypes are kept
+    (bfloat16 leaves included)."""
     dev = resolve_device(device)
-    return tree_map(
-        lambda a: torch.from_numpy(np.array(a, copy=True)).to(dev), tree)
+    return tree_map(lambda a: _leaf_from_numpy(a).to(dev), tree)
 
 
 # ---------------------------------------------------------------------------

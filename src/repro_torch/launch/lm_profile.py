@@ -1,0 +1,179 @@
+"""Where one dense-LM ``generate`` spends its time, on the CUDA card.
+
+    PYTHONPATH=src python -m repro_torch.launch.lm_profile [--out F]
+
+Builds ``--arch`` (default llama3.2-1b) at full width, with random weights
+from ``--seed``, behind ``ServeEngine``, and reports, each line with the
+card's name and power limit:
+
+* one ``generate`` of ``--batch`` prompts of ``--prompt-len`` tokens and
+  ``--gen`` new tokens: prefill seconds, decode seconds per step, decode
+  tokens/s (host clock around synchronized work), peak device memory;
+* a ``torch.profiler`` table of the device kernels of one prefill and of
+  ``--profile-steps`` decode steps: device time of the flash-attention
+  kernel, of the matrix products (cuBLAS's ``nvjet``/``gemm`` kernels) and
+  of the rest, and the attention kernel's share of device time;
+* the device's busy share: that device time over the host-clock wall of
+  the same work run again without the profiler (the profiler's own host
+  overhead would inflate the wall it sees).
+
+Writes the numbers as JSON to ``--out`` (default
+``results/torch_lm_profile.json``).  Needs CUDA.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_arch
+from repro_torch.launch import platform
+from repro_torch.models import model_zoo
+from repro_torch.serving import ServeEngine
+
+GROUPS = (("flash_attention", ("flash_attention_kernel",)),
+          ("matmul", ("nvjet", "gemm", "cutlass", "xmma", "sm90_")))
+
+
+def _group(name: str) -> str:
+    for group, keys in GROUPS:
+        if any(k in name for k in keys):
+            return group
+    return "other"
+
+
+def _wall_us(fn) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e6
+
+
+def _profile(fn, what: str, card: str):
+    """Run ``fn`` once under the profiler (device time by kernel group),
+    then once without it (host-clock wall)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall_us = _wall_us(fn)
+    groups = {g: 0.0 for g, _ in GROUPS}
+    groups["other"] = 0.0
+    kernels, top = 0, []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0)
+        groups[_group(ev.key)] += dev_us
+        kernels += ev.count
+        top.append((dev_us, ev.count, ev.key[:100]))
+    busy = sum(groups.values())
+    top.sort(reverse=True)
+    out = {"wall_us": wall_us, "device_us": busy, "kernels": kernels,
+           "groups_us": groups,
+           "attention_share": groups["flash_attention"] / busy if busy
+           else None,
+           "busy_share": busy / wall_us,
+           "top": [{"device_us": u, "count": c, "name": k}
+                   for u, c, k in top[:12]]}
+    if busy == 0:
+        print(f"{what}: the profiler recorded no device time (not "
+              f"measured) [{card}]")
+        return out
+    print(f"{what}: {wall_us:.1f} us wall unprofiled, {busy:.1f} us of device "
+          f"kernels ({kernels} kernels; busy {100 * busy / wall_us:.2f} %): "
+          + ", ".join(f"{g} {u:.1f} us ({100 * u / busy:.2f} %)"
+                      for g, u in groups.items()) + f" [{card}]")
+    for u, c, k in top[:12]:
+        print(f"  {u:11.1f} us  x{c:<5d} {k}")
+    return out
+
+
+def profile(arch: str, batch: int, prompt_len: int, gen: int,
+            profile_steps: int, seed: int):
+    info = platform.describe()
+    card = info["nvidia_smi"]
+    platform.set_reference_precision()
+    cfg = get_arch(arch).model
+    max_seq = prompt_len + gen
+    model = model_zoo.build_model(cfg, max_seq=max_seq)
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed),
+                        device="cuda")
+    eng = ServeEngine(model, params, max_seq=max_seq, batch=batch,
+                      device="cuda")
+    prompt = np.random.RandomState(seed).randint(
+        0, cfg.vocab_size, (batch, prompt_len)).astype(np.int32)
+    eng.generate({"tokens": prompt}, max_new_tokens=4)          # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    res = eng.generate({"tokens": prompt}, max_new_tokens=gen)
+    out = {"device": info, "arch": arch, "batch": batch,
+           "prompt_len": prompt_len, "gen": gen,
+           "prefill_s": res.prefill_seconds,
+           "decode_s_per_step": res.decode_seconds / max(gen - 1, 1),
+           "decode_tokens_per_s": res.decode_tokens_per_s,
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    print(f"{arch} B={batch} prompt={prompt_len} gen={gen}: prefill "
+          f"{res.prefill_seconds * 1e3:.4f} ms, decode "
+          f"{out['decode_s_per_step'] * 1e3:.4f} ms per step "
+          f"({res.decode_tokens_per_s:.1f} tokens/s), peak "
+          f"{out['peak_bytes'] / 2**30:.3f} GiB [{card}]")
+
+    tokens = torch.from_numpy(prompt).to("cuda")
+    state = {}
+
+    def prefill():
+        cache = model.init_cache(batch, max_seq, device="cuda")
+        state["logits"], state["cache"] = model.prefill(eng.params, tokens,
+                                                        cache)
+
+    def decode():
+        cur = torch.argmax(state["logits"], -1).to(torch.int32)[:, None]
+        for i in range(profile_steps):
+            logits, _ = model.decode_step(eng.params, cur, state["cache"],
+                                          prompt_len + i)
+            cur = torch.argmax(logits, -1).to(torch.int32)[:, None]
+
+    from torch.profiler import profile as tprofile
+    with tprofile():                     # the profiler's one-time start-up
+        prefill()
+    out["prefill_profile"] = _profile(prefill, "prefill", card)
+    out["decode_profile"] = _profile(
+        decode, f"{profile_steps} decode steps", card)
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="llama3.2-1b")
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=512)
+    ap.add_argument("--gen", type=int, default=64)
+    ap.add_argument("--profile-steps", type=int, default=16)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default="results/torch_lm_profile.json")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("lm_profile: CUDA is not available", file=sys.stderr)
+        return 1
+    out = profile(args.arch, args.batch, args.prompt_len, args.gen,
+                  args.profile_steps, args.seed)
+    path = Path(args.out)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(out, indent=1, default=str))
+    print(f"wrote {path}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

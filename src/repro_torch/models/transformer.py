@@ -1,0 +1,347 @@
+"""Dense decoder-only transformer (GQA, optional SWA / qk-norm / tied embed).
+
+The backbone of llama3.2-1b, minicpm-2b, h2o-danube-3-4b and
+mistral-nemo-12b, ported from ``repro/models/transformer.py``.  Functional
+style: ``param_specs(cfg)`` builds a ParamSpec tree and ``DenseLM`` consumes
+the materialized tree, in the reference's layout and keys (``wq``/``wk``/
+``wv`` are (D, heads, hd), ``wo`` is (H, hd, D); every product is a 2-D
+matmul on reshaped weights, never a transpose of a stored one).  Weights
+are cast to the activation dtype at each product, as the reference's
+``p["wq"].astype(h.dtype)``; ``DenseLM.compute_params`` does that cast
+once ahead, which gives the same bits.
+
+Layers are stacked on a leading axis (as the reference's scanned layers);
+a Python loop over that axis takes the place of ``jax.lax.scan``.  The
+reference's sharding hints and remat policy have no counterpart here (this
+path is inference only).
+
+The KV cache is updated IN PLACE: one (L, B, max_seq, KV, hd) tensor each
+for ``k`` and ``v``; layer ``i`` writes its rows ``[:, index:index+T]``
+of its slice, and ``prefill`` / ``decode_step`` return the same dict they
+were given.  The reference's functional ``dynamic_update_slice`` returns a
+new cache; here nothing is copied.
+
+``impl``: "auto" runs ``ops.attention``, which follows the tensors' device
+(the CUDA kernel on the card, the plain version on the CPU); "plain" runs
+the plain version on any device — only tests and ``chip_smoke.py`` set it,
+to hold the kernel path against the plain one on the card.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.configs import base as ax
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.launch.platform import DeviceLike, resolve_device
+from repro_torch.models import common as cm
+from repro_torch.models.common import ParamSpec
+
+Params = Dict[str, Any]
+IMPLS = ("auto", "plain")
+# leaves the model casts to the activation dtype before use (norm weights
+# are read in fp32 and stay as they are)
+MATMUL_KEYS = ("wq", "wk", "wv", "wo", "wi", "wg", "embedding", "lm_head")
+
+
+# ---------------------------------------------------------------------------
+# Param specs
+# ---------------------------------------------------------------------------
+
+
+def attn_specs(cfg: ModelConfig) -> Params:
+    D, H, KV, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                    cfg.resolved_head_dim)
+    s: Params = {
+        "ln": ParamSpec((D,), (ax.EMBED,), init="ones"),
+        "wq": ParamSpec((D, H, hd), (ax.EMBED, ax.HEADS, ax.HEAD_DIM)),
+        "wk": ParamSpec((D, KV, hd), (ax.EMBED, ax.KV_HEADS, ax.HEAD_DIM)),
+        "wv": ParamSpec((D, KV, hd), (ax.EMBED, ax.KV_HEADS, ax.HEAD_DIM)),
+        "wo": ParamSpec((H, hd, D), (ax.HEADS, ax.HEAD_DIM, ax.EMBED)),
+    }
+    if cfg.qk_norm:
+        s["q_norm"] = ParamSpec((hd,), (ax.HEAD_DIM,), init="ones")
+        s["k_norm"] = ParamSpec((hd,), (ax.HEAD_DIM,), init="ones")
+    return s
+
+
+def mlp_specs(cfg: ModelConfig, d_ff: Optional[int] = None) -> Params:
+    D = cfg.d_model
+    F = d_ff if d_ff is not None else cfg.d_ff
+    return {
+        "ln": ParamSpec((D,), (ax.EMBED,), init="ones"),
+        "wi": ParamSpec((D, F), (ax.EMBED, ax.MLP)),
+        "wg": ParamSpec((D, F), (ax.EMBED, ax.MLP)),
+        "wo": ParamSpec((F, D), (ax.MLP, ax.EMBED)),
+    }
+
+
+def layer_specs(cfg: ModelConfig) -> Params:
+    return {"attn": attn_specs(cfg), "mlp": mlp_specs(cfg)}
+
+
+def embed_specs(cfg: ModelConfig) -> Params:
+    V, D = cfg.padded_vocab, cfg.d_model
+    s: Params = {
+        "embedding": ParamSpec((V, D), (ax.VOCAB, ax.EMBED), scale=1.0),
+        "final_ln": ParamSpec((D,), (ax.EMBED,), init="ones"),
+    }
+    if not cfg.tie_embeddings:
+        s["lm_head"] = ParamSpec((D, V), (ax.EMBED, ax.VOCAB))
+    return s
+
+
+def param_specs(cfg: ModelConfig) -> Params:
+    return {
+        "layers": cm.stack_tree(layer_specs(cfg), cfg.num_layers),
+        **embed_specs(cfg),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Blocks
+# ---------------------------------------------------------------------------
+
+
+def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (..., K) @ w (K, *out) -> (..., *out), in x's dtype."""
+    w = w.to(x.dtype)
+    K = x.shape[-1]
+    out = x.reshape(-1, K) @ w.reshape(K, -1)
+    return out.reshape(*x.shape[:-1], *w.shape[1:])
+
+
+def _attend(q, k, v, impl: str, kv_seq_shard: bool = False,
+            **kw) -> torch.Tensor:
+    if impl == "plain" and not kv_seq_shard:
+        return ops.plain_attention(q, k, v, **kw)
+    return ops.attention(q, k, v, kv_seq_shard=kv_seq_shard, **kw)
+
+
+def attention_block(
+    p: Params,
+    x: torch.Tensor,                   # (B, T, D)
+    cfg: ModelConfig,
+    *,
+    positions: torch.Tensor,           # (T,) or (B, T)
+    cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # (B,S,KV,hd)
+    index: Optional[int] = None,       # write offset (decode), a host int
+    impl: str = "auto",
+    kv_seq_shard: bool = False,
+    rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+):
+    """Pre-norm attention block.  Returns (out, cache); the cache views
+    are written in place.  ``rope``: the (cos, sin) tables of
+    ``positions`` when the caller computed them once for every layer."""
+    B, T, D = x.shape
+    H, hd = cfg.num_heads, cfg.resolved_head_dim
+    h = cm.rms_norm(x, p["ln"], cfg.norm_eps)
+    q = _proj(h, p["wq"])
+    k = _proj(h, p["wk"])
+    v = _proj(h, p["wv"])
+    if cfg.qk_norm:
+        q = cm.rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = cm.rms_norm(k, p["k_norm"], cfg.norm_eps)
+    if cfg.rope_theta:
+        cos, sin = rope if rope is not None else cm.rope_tables(
+            positions, hd, cfg.rope_theta)
+        q = cm.apply_rope(q, cos, sin)
+        k = cm.apply_rope(k, cos, sin)
+
+    if cache is not None:
+        ck, cv = cache
+        if index is not None:  # decode: write T new tokens at `index`
+            ck[:, index:index + T] = k.to(ck.dtype)
+            cv[:, index:index + T] = v.to(cv.dtype)
+            kv_len = torch.full((B,), index + T, dtype=torch.int32,
+                                device=x.device)
+            o = _attend(q, ck, cv, impl, causal=False,
+                        window=cfg.sliding_window, q_offset=index,
+                        kv_len=kv_len, kv_seq_shard=kv_seq_shard)
+        else:  # prefill: write at 0, causal within
+            ck[:, :T] = k.to(ck.dtype)
+            cv[:, :T] = v.to(cv.dtype)
+            o = _attend(q, k, v, impl, causal=True,
+                        window=cfg.sliding_window)
+    else:
+        o = _attend(q, k, v, impl, causal=True, window=cfg.sliding_window)
+    out = _proj(o.reshape(B, T, H * hd),
+                p["wo"].reshape(H * hd, D))
+    return out, cache
+
+
+def mlp_block(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    h = cm.rms_norm(x, p["ln"], cfg.norm_eps)
+    act = cm.activation(cfg.act)
+    g = _proj(h, p["wg"])
+    u = _proj(h, p["wi"])
+    return _proj(act(g) * u, p["wo"])
+
+
+def dense_layer(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
+                positions, cache=None, index=None, impl="auto",
+                kv_seq_shard=False, rope=None):
+    a, new_cache = attention_block(
+        p["attn"], x, cfg, positions=positions, cache=cache, index=index,
+        impl=impl, kv_seq_shard=kv_seq_shard, rope=rope)
+    x = x + a
+    x = x + mlp_block(p["mlp"], x, cfg)
+    return x, new_cache
+
+
+def layer_params(params: Params, num_layers: int) -> List[Params]:
+    """Per-layer views of the stacked ``params["layers"]`` (or the list as
+    it is, when a caller split the stack once ahead)."""
+    layers = params["layers"]
+    if isinstance(layers, (list, tuple)):
+        return list(layers)
+
+    def take(tree, i):
+        if isinstance(tree, dict):
+            return {k: take(v, i) for k, v in tree.items()}
+        return tree[i]
+
+    return [take(layers, i) for i in range(num_layers)]
+
+
+# ---------------------------------------------------------------------------
+# The model
+# ---------------------------------------------------------------------------
+
+
+def unembed(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    x = cm.rms_norm(x, p["final_ln"], cfg.norm_eps)
+    if cfg.tie_embeddings:
+        # x @ embedding.T over the padded vocab, in the activation dtype
+        B, T, D = x.shape
+        logits = (x.reshape(B * T, D) @ p["embedding"].to(x.dtype).T
+                  ).reshape(B, T, -1)
+    else:
+        logits = _proj(x, p["lm_head"])
+    return cm.softcap(logits, cfg.logit_softcap)
+
+
+def embed(p: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    return cm.take_embedding(p["embedding"], tokens).to(
+        cm.torch_dtype(cfg.dtype))
+
+
+@dataclasses.dataclass
+class DenseLM:
+    """Decoder-only dense LM (see the module docstring for ``impl``)."""
+
+    cfg: ModelConfig
+    impl: str = "auto"
+
+    def __post_init__(self):
+        if self.impl not in IMPLS:
+            raise ValueError(f"impl must be one of {IMPLS}, got "
+                             f"{self.impl!r}")
+
+    # ------------------------------------------------------------- specs
+    def param_specs(self) -> Params:
+        return param_specs(self.cfg)
+
+    def init(self, generator: torch.Generator,
+             device: DeviceLike = None) -> Params:
+        """Random parameters drawn from ``generator`` (on its device; pass
+        a CUDA generator for a full-width model), placed on ``device``
+        (default: the CUDA device; raises without it)."""
+        dev = resolve_device(device)
+        return cm.init_params(self.param_specs(), generator, device=dev)
+
+    def _layers(self, params: Params) -> List[Params]:
+        return layer_params(params, self.cfg.num_layers)
+
+    def _rope(self, positions: torch.Tensor):
+        """The rotary tables of one step, shared by every layer."""
+        cfg = self.cfg
+        if not cfg.rope_theta:
+            return None
+        return cm.rope_tables(positions, cfg.resolved_head_dim,
+                              cfg.rope_theta)
+
+    def compute_params(self, params: Params) -> Params:
+        """The tree a server keeps: every leaf the model casts to the
+        activation dtype (``MATMUL_KEYS``) cast once ahead, norm weights
+        left as they are, and the layer stack split into per-layer views.
+        The model's per-product casts then do nothing, and the bits are
+        those of casting at each product."""
+        dt = cm.torch_dtype(self.cfg.dtype)
+
+        def cast(tree):
+            return {k: (cast(v) if isinstance(v, dict)
+                        else v.to(dt) if k in MATMUL_KEYS else v)
+                    for k, v in tree.items()}
+
+        out = cast({k: v for k, v in params.items() if k != "layers"})
+        out["layers"] = [cast(pl) for pl in self._layers(params)]
+        return out
+
+    # ------------------------------------------------------------- forward
+    def forward(self, params: Params,
+                batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        x = embed(params, tokens, cfg)
+        positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                                 device=tokens.device)
+        rope = self._rope(positions)
+        for pl in self._layers(params):
+            x, _ = dense_layer(pl, x, cfg, positions=positions,
+                               impl=self.impl, rope=rope)
+        return unembed(params, x, cfg)
+
+    # ------------------------------------------------------------- serving
+    def cache_specs(self, batch: int, max_seq: int) -> Params:
+        cfg = self.cfg
+        kv_axes = (ax.LAYERS, ax.BATCH, ax.CACHE_SEQ, ax.KV_HEADS,
+                   ax.HEAD_DIM)
+        shape = (cfg.num_layers, batch, max_seq, cfg.num_kv_heads,
+                 cfg.resolved_head_dim)
+        dt = cm.torch_dtype(cfg.dtype)
+        return {"k": ParamSpec(shape, kv_axes, init="zeros", dtype=dt),
+                "v": ParamSpec(shape, kv_axes, init="zeros", dtype=dt)}
+
+    def init_cache(self, batch: int, max_seq: int,
+                   device: DeviceLike = None) -> Params:
+        """Zeroed KV cache on ``device`` (default: the CUDA device)."""
+        dev = resolve_device(device)
+        return {k: torch.zeros(s.shape, dtype=s.dtype, device=dev)
+                for k, s in self.cache_specs(batch, max_seq).items()}
+
+    def prefill(self, params: Params, tokens: torch.Tensor, cache: Params):
+        """Fill the cache with T prompt tokens; return (last_logits, cache)."""
+        cfg = self.cfg
+        x = embed(params, tokens, cfg)
+        positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                                 device=tokens.device)
+        rope = self._rope(positions)
+        for i, pl in enumerate(self._layers(params)):
+            x, _ = dense_layer(pl, x, cfg, positions=positions,
+                               cache=(cache["k"][i], cache["v"][i]),
+                               impl=self.impl, rope=rope)
+        logits = unembed(params, x[:, -1:, :], cfg)
+        return logits[:, 0, :], cache
+
+    def decode_step(self, params: Params, tokens: torch.Tensor,
+                    cache: Params, index: int, *,
+                    kv_seq_shard: bool = False):
+        """One decode step: tokens (B, T) written at ``index`` (a host
+        int, so the step adds no host sync)."""
+        cfg = self.cfg
+        index = int(index)
+        x = embed(params, tokens, cfg)
+        positions = index + torch.arange(tokens.shape[1], dtype=torch.int32,
+                                         device=tokens.device)
+        rope = self._rope(positions)
+        for i, pl in enumerate(self._layers(params)):
+            x, _ = dense_layer(pl, x, cfg, positions=positions,
+                               cache=(cache["k"][i], cache["v"][i]),
+                               index=index, impl=self.impl,
+                               kv_seq_shard=kv_seq_shard, rope=rope)
+        logits = unembed(params, x, cfg)
+        return logits[:, -1, :], cache

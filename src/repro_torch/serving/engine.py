@@ -1,23 +1,46 @@
-"""Committee serving with batch-level UQ.
+"""Batched serving engines.
 
-``CommitteeServer`` scores every request batch through the SAME
+``ServeEngine`` — LM prefill + decode loop over the model zoo's cache API
+(the dense family's in-place KV cache).  ``generate`` runs greedy
+(``argmax``) or temperature sampling (``torch.multinomial`` over
+``softmax(logits / T)`` with the engine's own ``torch.Generator``).  The
+decode index is a host int, so the loop adds no host sync of its own; the
+only syncs are the timers' and the final copy of the tokens.
+
+``CommitteeServer`` — committee serving with batch-level UQ: it scores every request batch through the SAME
 ``core/acquisition.UQEngine`` the exchange loop uses (one program per
 shape bucket: committee forward + ``committee_uq`` statistics + rule
 pipeline), returns a ``UQResult`` per batch and — when given an oracle
 buffer — routes high-uncertainty requests to labeling through the same
 cross-round budget controller (``core/budget.BudgetRule``).
-
-The LM ``ServeEngine`` comes with the model-zoo slice.
 """
 from __future__ import annotations
 
-from typing import Any, Sequence, Tuple
+import dataclasses
+import time
+from typing import Any, Dict, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core import acquisition as acq
+from repro_torch.core import committee as cmte
 from repro_torch.launch.platform import DeviceLike, resolve_device
+from repro_torch.models import model_zoo
+
+
+@dataclasses.dataclass
+class GenerationResult:
+    tokens: np.ndarray          # (B, prompt+gen)
+    prefill_seconds: float
+    decode_seconds: float
+    steps: int
+
+    @property
+    def decode_tokens_per_s(self) -> float:
+        if self.decode_seconds == 0:
+            return float("inf")
+        return self.tokens.shape[0] * self.steps / self.decode_seconds
 
 
 class CommitteeServer:
@@ -100,3 +123,80 @@ class CommitteeServer:
                 self.monitor.incr("serve.routed_to_oracle", len(picked))
         return uq.mean, uq
 
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class ServeEngine:
+    """Prefill a prompt batch, then decode one token per step.
+
+    ``params`` must already lie on ``device`` (default: the CUDA device;
+    raises without it).  The engine keeps ``model.compute_params(params)``:
+    the matmul weights cast once to the activation dtype (the bits of the
+    model's per-product casts) and the layer stack split into views."""
+
+    def __init__(self, model, params, max_seq: int, batch: int,
+                 temperature: float = 0.0, seed: int = 0,
+                 device: DeviceLike = None):
+        self.device = resolve_device(device)
+        for leaf in cmte.tree_leaves(params):
+            if leaf.device != self.device:
+                raise ValueError(f"ServeEngine on {self.device} got a "
+                                 f"parameter on {leaf.device}")
+        self.model = model
+        self.params = model.compute_params(params)
+        self.max_seq = max_seq
+        self.batch = batch
+        self.temperature = temperature
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        cfg = model.cfg
+        self._n_prefix = cfg.vision_tokens if cfg.family == "vlm" else 0
+        self._prefill = model_zoo.make_prefill_fn(model)
+        self._decode = model_zoo.make_decode_fn(model)
+
+    def _sample(self, logits: torch.Tensor) -> torch.Tensor:
+        if self.temperature <= 0.0:
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        probs = torch.softmax(logits.to(torch.float32) / self.temperature,
+                              dim=-1)
+        return torch.multinomial(probs, 1, generator=self.generator)[
+            :, 0].to(torch.int32)
+
+    def generate(self, batch_inputs: Dict[str, Any],
+                 max_new_tokens: int) -> GenerationResult:
+        tokens = torch.as_tensor(np.asarray(batch_inputs["tokens"]),
+                                 dtype=torch.int32).to(self.device)
+        B, T = tokens.shape
+        n_prefix = self._n_prefix
+        if n_prefix + T + max_new_tokens - 1 > self.max_seq:
+            raise ValueError(f"prompt {T} + {max_new_tokens} new tokens do "
+                             f"not fit max_seq={self.max_seq}")
+        cache = self.model.init_cache(B, self.max_seq, device=self.device)
+        batch = dict(batch_inputs, tokens=tokens)
+
+        _sync(self.device)
+        t0 = time.perf_counter()
+        logits, cache = self._prefill(self.params, batch, cache)
+        _sync(self.device)
+        t_prefill = time.perf_counter() - t0
+
+        out = [tokens]
+        cur = self._sample(logits)[:, None]
+        t1 = time.perf_counter()
+        for i in range(max_new_tokens):
+            out.append(cur)
+            if i == max_new_tokens - 1:
+                break
+            index = n_prefix + T + i
+            logits, cache = self._decode(self.params, cur, cache, index)
+            cur = self._sample(logits)[:, None]
+        _sync(self.device)
+        t_decode = time.perf_counter() - t1
+        return GenerationResult(
+            tokens=torch.cat(out, dim=1).cpu().numpy(),
+            prefill_seconds=t_prefill,
+            decode_seconds=t_decode,
+            steps=max_new_tokens,
+        )

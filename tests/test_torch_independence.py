@@ -1,7 +1,7 @@
 """The port stands alone: no ``repro_torch`` module and not
 ``chip_smoke.py`` imports JAX or the reference package, its entry points
 default to the CUDA device and raise without it (no silent CPU fallback),
-and the CPU path of ``ops.committee_uq`` never touches the kernel loader."""
+and the CPU paths of ``ops`` never touch the kernel loader."""
 import os
 import pkgutil
 import re
@@ -43,7 +43,7 @@ def test_every_module_imports_with_jax_blocked():
                          text=True, timeout=120, env=env, cwd=str(ROOT))
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.startswith("ok")
-    assert len(MODULES) >= 20
+    assert len(MODULES) >= 40
 
 
 def test_no_source_imports_jax_or_the_reference():
@@ -53,7 +53,7 @@ def test_no_source_imports_jax_or_the_reference():
     hits = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
             for f in files for m in pat.finditer(f.read_text())]
     assert not hits, hits
-    assert len(files) > 20
+    assert len(files) > 40
 
 
 def _no_cuda(monkeypatch):
@@ -76,6 +76,31 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         tcmte.params_from_numpy({"w": np.ones(2)})
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         kernel.committee_uq(torch.zeros(2, 4, 3), 0.1)
+
+
+def test_lm_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve
+    from repro_torch.launch.train import reduced_config
+    from repro_torch.models import model_zoo
+    from repro_torch.serving import ServeEngine
+
+    cfg = reduced_config(get_arch("llama3.2-1b").model, "smoke")
+    model = model_zoo.build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        model.init(torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        model.init_cache(1, 8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ServeEngine(model, params, max_seq=8, batch=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--preset", "smoke"])
+    q = torch.zeros(1, 2, 4, 16)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fa.flash_attention(q, q, q)
 
 
 def test_kernel_wrapper_rejects_cpu_tensors():
@@ -102,7 +127,9 @@ def test_cpu_path_never_touches_the_kernel_loader(monkeypatch):
 
 def test_kernel_build_paths_stay_inside_the_checkout():
     assert _build.BUILD_DIR == ROOT / "build" / "repro_torch_kernels"
-    assert (_build.CSRC / "committee_uq.cu").is_file()
+    assert _build.SOURCES == ("committee_uq", "flash_attention")
     assert "--use_fast_math" not in _build.NVCC_FLAGS
-    lib = _build.library_path("committee_uq")
-    assert lib.parent == _build.BUILD_DIR and lib.suffix == ".so"
+    for name in _build.SOURCES:
+        assert (_build.CSRC / f"{name}.cu").is_file()
+        lib = _build.library_path(name)
+        assert lib.parent == _build.BUILD_DIR and lib.suffix == ".so"

@@ -5,8 +5,10 @@ one.  This file imports no JAX, so it also runs where JAX is absent:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
-Tolerances are the reference's committee_uq ones: mean rtol 1e-5 atol 1e-6;
-both stds rtol 1e-4 atol 1e-6; mask and finite counts exact."""
+Tolerances are the reference's: for committee_uq mean rtol 1e-5 atol 1e-6,
+both stds rtol 1e-4 atol 1e-6, mask and finite counts exact; for
+flash_attention its TOL, 2e-4 in fp32 and 2e-2 in bf16 (rtol and atol),
+against the plain version on the same CUDA tensors."""
 import numpy as np
 import pytest
 import torch
@@ -20,8 +22,8 @@ STD_TOL = dict(rtol=1e-4, atol=1e-6)
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the committee_uq kernel has no CPU "
-                    "or interpret mode")
+        pytest.skip("needs a CUDA card: the hand-written kernels have no "
+                    "CPU or interpret mode")
     return torch.device("cuda")
 
 
@@ -115,3 +117,75 @@ def test_committee_uq_kernel_rejects_what_it_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         kernel.committee_uq(torch.zeros(2, 3, 4, device=cuda_device)
                             .transpose(1, 2), 0.1, device=cuda_device)
+
+
+FA_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("B,T,S,H,KV,D,kw", [
+    (2, 256, 256, 8, 2, 64, dict(causal=True)),
+    (1, 128, 128, 4, 1, 128, dict(causal=True, window=64)),
+    (1, 128, 128, 4, 4, 64, dict(causal=False)),
+    (3, 1, 192, 8, 4, 64, dict(causal=False, kv_len=[50, 192, 1],
+                               q_offset=191)),
+    (2, 1, 256, 4, 4, 64, dict(causal=False, window=64, kv_len=[200, 256],
+                               q_offset=255)),
+    (2, 100, 200, 4, 2, 16, dict(causal=True, q_offset=100)),
+    (1, 577, 577, 8, 8, 120, dict(causal=True, window=200)),
+], ids=["gqa-causal", "mqa-window-d128", "mha-full", "decode-kv_len",
+        "decode-window", "ragged-d16", "ragged-d120"])
+def test_flash_attention_kernel_matches_plain_version(cuda_device, dtype, B,
+                                                      T, S, H, KV, D, kw):
+    from repro_torch.kernels import flash_attention as kernel
+
+    rng = np.random.RandomState(11)
+    q, k, v = (torch.from_numpy(rng.randn(*s).astype(np.float32)).to(
+        cuda_device, dtype) for s in ((B, T, H, D), (B, S, KV, D),
+                                      (B, S, KV, D)))
+    kw = dict(kw)
+    if "kv_len" in kw:
+        kw["kv_len"] = torch.tensor(kw["kv_len"], dtype=torch.int32,
+                                    device=cuda_device)
+    before = kernel.launches
+    got = ops.attention(q, k, v, **kw)
+    assert kernel.launches == before + 1
+    want = ref.attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               rtol=FA_TOL[dtype], atol=FA_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_rejects_what_it_does_not_take(cuda_device):
+    from repro_torch.kernels import flash_attention as kernel
+
+    def qkv(D=64, dtype=torch.float32):
+        return (torch.zeros(1, 8, 4, D, dtype=dtype, device=cuda_device),
+                torch.zeros(1, 8, 2, D, dtype=dtype, device=cuda_device))
+
+    q, k = qkv(D=32)
+    with pytest.raises(ValueError, match="head dims"):
+        kernel.flash_attention(q, k, k, device=cuda_device)
+    q, k = qkv(dtype=torch.float16)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        kernel.flash_attention(q, k, k, device=cuda_device)
+    q, k = qkv()
+    with pytest.raises(TypeError):
+        kernel.flash_attention(q, k.to(torch.bfloat16), k,
+                               device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernel.flash_attention(q.transpose(1, 2).contiguous().transpose(
+            1, 2), k, k, device=cuda_device)
+    with pytest.raises(ValueError, match="H % KV"):
+        kernel.flash_attention(torch.zeros(1, 8, 3, 64, device=cuda_device),
+                               k, k, device=cuda_device)
+    before = kernel.launches
+    kernel.flash_attention(q, k, k, device=cuda_device)
+    kernel.flash_attention(q, k, k, causal=False, device=cuda_device)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2

@@ -1,0 +1,338 @@
+"""Port parity for the dense-LM serving path: ``repro_torch.models.common``
+numerics, ``transformer.DenseLM`` (forward, prefill with both caches,
+decode steps) and ``serving.ServeEngine`` against the JAX package on the
+same weights (the reference's ``init`` carried across by
+``params_from_numpy``) and the same numpy inputs.  Mirrors
+tests/test_models.py and tests/test_serving_and_dryrun.py:21-42.
+
+Tolerances: fp32 rtol 2e-4 / atol 2e-4 (the reference's fp32 attention
+TOL; the two frameworks sum in other orders); bf16 rtol 2e-2 / atol 2e-2
+(its bf16 TOL); greedy tokens exact in fp32.  The bf16 model case has one
+layer: the two frameworks round bf16 at different points (XLA's CPU
+lowering rounds after every step of its bf16 logistic, PyTorch's silu
+rounds once), and a second random layer amplifies that to about 2 % of the
+logits' max-abs, past the 2e-2 bound, while one layer stays near 0.5 %."""
+import json
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from conftest import tiny_config
+from repro.models import common as jcm
+from repro.models import transformer as jtfm
+from repro.models.model_zoo import build_model as jbuild_model
+from repro.serving import ServeEngine as JServeEngine
+from repro_torch.configs import base as tbase
+from repro_torch.configs import get_arch, list_archs
+from repro_torch.core.committee import params_from_numpy
+from repro_torch.launch.train import PRESETS, reduced_config
+from repro_torch.models import common as tcm
+from repro_torch.models import model_zoo
+from repro_torch.serving import ServeEngine
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FP32 = dict(rtol=2e-4, atol=2e-4)
+BF16 = dict(rtol=2e-2, atol=2e-2)
+
+
+def _np(x):
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+def _t(x):
+    return x.to(torch.float32).numpy()
+
+
+def _tcfg(jcfg):
+    """The same ModelConfig as the port's dataclass."""
+    return tbase.ModelConfig(**{f: getattr(jcfg, f) for f in
+                                jcfg.__dataclass_fields__})
+
+
+# ---------------------------------------------------------------------------
+# common numerics
+# ---------------------------------------------------------------------------
+
+
+def test_rms_norm_and_layer_norm_match_reference():
+    rng = np.random.RandomState(0)
+    x = rng.randn(3, 5, 32).astype(np.float32) * 3
+    w = rng.randn(32).astype(np.float32)
+    b = rng.randn(32).astype(np.float32)
+    np.testing.assert_allclose(
+        _t(tcm.rms_norm(torch.from_numpy(x), torch.from_numpy(w), 1e-6)),
+        _np(jcm.rms_norm(x, w, 1e-6)), **FP32)
+    np.testing.assert_allclose(
+        _t(tcm.layer_norm(torch.from_numpy(x), torch.from_numpy(w),
+                          torch.from_numpy(b))),
+        _np(jcm.layer_norm(x, w, b)), **FP32)
+    # bf16 activations: computed in fp32, cast back
+    got = tcm.rms_norm(torch.from_numpy(x).to(torch.bfloat16),
+                       torch.from_numpy(w), 1e-6)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(
+        _t(got), _np(jcm.rms_norm(jnp.asarray(x, jnp.bfloat16), w, 1e-6)),
+        **BF16)
+
+
+@pytest.mark.parametrize("theta", [10_000.0, 500_000.0])
+def test_rope_matches_reference(theta):
+    rng = np.random.RandomState(1)
+    x = rng.randn(2, 12, 3, 16).astype(np.float32)
+    pos = np.arange(40, 52, dtype=np.int32)
+    np.testing.assert_allclose(
+        _t(tcm.rope(torch.from_numpy(x), torch.from_numpy(pos), theta)),
+        _np(jcm.rope(x, pos, theta)), **FP32)
+
+
+@pytest.mark.parametrize("name", ["silu", "gelu", "relu_sq"])
+def test_activation_matches_reference(name):
+    """gelu is the tanh approximation (jax.nn.gelu's default)."""
+    x = np.linspace(-6, 6, 301, dtype=np.float32)
+    np.testing.assert_allclose(_t(tcm.activation(name)(torch.from_numpy(x))),
+                               _np(jcm.activation(name)(x)), rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_softcap_matches_reference():
+    x = np.linspace(-200, 200, 101, dtype=np.float32)
+    np.testing.assert_allclose(_t(tcm.softcap(torch.from_numpy(x), 30.0)),
+                               _np(jcm.softcap(x, 30.0)), rtol=1e-6,
+                               atol=1e-5)
+    assert tcm.softcap(torch.from_numpy(x), 0.0) is not None
+    np.testing.assert_array_equal(_t(tcm.softcap(torch.from_numpy(x), 0.0)),
+                                  x)
+
+
+def test_param_specs_and_init_match_reference_tree():
+    """Same keys, shapes and parameter count; init draws ones/zeros where
+    the reference does and a fan-in scaled normal elsewhere."""
+    jcfg = tiny_config("dense", qk_norm=True)
+    jm = jtfm.DenseLM(jcfg)
+    tm = model_zoo.build_model(_tcfg(jcfg))
+    jshapes = jax.tree.map(lambda s: s.shape, jm.param_specs(),
+                           is_leaf=jcm.is_spec)
+    tshapes = tcm.map_specs(lambda s: s.shape, tm.param_specs())
+    assert jshapes == tshapes
+    assert model_zoo.count_params(_tcfg(jcfg)) == \
+        jcm.count_params(jm.param_specs())
+    p = tm.init(torch.Generator().manual_seed(0), device="cpu")
+    assert (p["layers"]["attn"]["ln"] == 1).all()
+    assert (p["layers"]["attn"]["q_norm"] == 1).all()
+    w = p["layers"]["mlp"]["wi"]
+    assert abs(float(w.std()) * np.sqrt(jcfg.d_model) - 1.0) < 0.1
+    u = tcm.ParamSpec((4000,), init="uniform", scale=0.5).materialize(
+        torch.Generator().manual_seed(0))
+    assert float(u.min()) >= -0.5 and float(u.max()) <= 0.5
+
+
+def test_arch_registry_matches_reference():
+    from repro.configs import get_arch as jget_arch, list_archs as jlist
+
+    assert list_archs() == jlist()
+    for name in list_archs():
+        assert get_arch(name).model.__dict__ == jget_arch(name).model.__dict__
+    full = get_arch("llama3.2-1b").model
+    assert model_zoo.count_params(full) == 1_235_814_400
+
+
+# ---------------------------------------------------------------------------
+# DenseLM against the reference
+# ---------------------------------------------------------------------------
+
+VARIANTS = {
+    "base": dict(),
+    "tied": dict(tie_embeddings=True),
+    "swa8": dict(sliding_window=8),
+    "qk_norm": dict(qk_norm=True),
+    "softcap30": dict(logit_softcap=30.0),
+    "bf16": dict(dtype="bfloat16", num_layers=1),
+}
+
+
+def _pair(variant):
+    jcfg = tiny_config("dense", **VARIANTS[variant])
+    jm = jtfm.DenseLM(jcfg, impl="xla")
+    jparams = jm.init(jax.random.PRNGKey(0))
+    tm = model_zoo.build_model(_tcfg(jcfg))
+    tparams = params_from_numpy(jparams, "cpu")
+    return jcfg, jm, jparams, tm, tparams
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_dense_forward_prefill_decode_match_reference(variant):
+    jcfg, jm, jparams, tm, tparams = _pair(variant)
+    tol = BF16 if jcfg.dtype == "bfloat16" else FP32
+    rng = np.random.RandomState(3)
+    B, T, S = 2, 16, 24
+    tokens = rng.randint(0, jcfg.vocab_size, (B, T)).astype(np.int32)
+
+    want = jax.jit(jm.forward)(jparams, {"tokens": jnp.asarray(tokens)})
+    got = tm.forward(tparams, {"tokens": torch.from_numpy(tokens)})
+    assert tuple(got.shape) == want.shape == (B, T, jcfg.padded_vocab)
+    np.testing.assert_allclose(_t(got), _np(want), **tol)
+
+    jcache = jm.init_cache(B, S)
+    tcache = tm.init_cache(B, S, device="cpu")
+    jl, jcache = jax.jit(jm.prefill)(jparams, jnp.asarray(tokens), jcache)
+    tl, tcache = tm.prefill(tparams, torch.from_numpy(tokens), tcache)
+    np.testing.assert_allclose(_t(tl), _np(jl), **tol)
+    for key in ("k", "v"):
+        assert tcache[key].dtype == tcm.torch_dtype(jcfg.dtype)
+        np.testing.assert_allclose(_t(tcache[key]), _np(jcache[key]), **tol)
+
+    # three decode steps, teacher-forced with the reference's greedy tokens
+    jdecode = jax.jit(jm.decode_step)
+    for i in range(3):
+        nxt = np.asarray(jnp.argmax(jl, axis=-1)).astype(np.int32)[:, None]
+        jl, jcache = jdecode(jparams, jnp.asarray(nxt), jcache,
+                             jnp.int32(T + i))
+        tl, tcache = tm.decode_step(tparams, torch.from_numpy(nxt), tcache,
+                                    T + i)
+        np.testing.assert_allclose(_t(tl), _np(jl), **tol)
+    for key in ("k", "v"):
+        np.testing.assert_allclose(_t(tcache[key]), _np(jcache[key]), **tol)
+
+
+def test_plain_impl_equals_auto_on_the_cpu():
+    _, _, _, tm, tparams = _pair("swa8")
+    plain = model_zoo.build_model(tm.cfg, impl="plain")
+    tokens = torch.from_numpy(
+        np.random.RandomState(4).randint(0, 256, (2, 12)).astype(np.int32))
+    assert torch.equal(plain.forward(tparams, {"tokens": tokens}),
+                       tm.forward(tparams, {"tokens": tokens}))
+    with pytest.raises(ValueError, match="impl"):
+        model_zoo.build_model(tm.cfg, impl="xla")
+
+
+def test_compute_params_keep_the_bits():
+    """Casting the matmul weights once ahead (what ServeEngine keeps) gives
+    the bits of the model's per-product casts; norm weights stay fp32."""
+    _, _, _, tm, tparams = _pair("bf16")
+    cp = tm.compute_params(tparams)
+    assert isinstance(cp["layers"], list)
+    assert len(cp["layers"]) == tm.cfg.num_layers
+    assert cp["layers"][0]["attn"]["wq"].dtype == torch.bfloat16
+    assert cp["layers"][0]["attn"]["ln"].dtype == torch.float32
+    assert cp["final_ln"].dtype == torch.float32
+    tokens = torch.from_numpy(
+        np.random.RandomState(5).randint(0, 256, (2, 10)).astype(np.int32))
+    assert torch.equal(tm.forward(cp, {"tokens": tokens}),
+                       tm.forward(tparams, {"tokens": tokens}))
+
+
+def test_params_from_numpy_carries_bf16_leaves():
+    """A bf16 tree of the reference (ml_dtypes leaves) crosses as bf16."""
+    jcfg = tiny_config("dense", dtype="bfloat16")
+    jm = jtfm.DenseLM(jcfg)
+    jcache = jm.init_cache(2, 8)
+    jcache = jax.tree.map(
+        lambda a: a + jnp.arange(a.size, dtype=jnp.float32).reshape(
+            a.shape).astype(a.dtype) * 0.01, jcache)
+    tcache = params_from_numpy(jcache, "cpu")
+    for key in ("k", "v"):
+        assert tcache[key].dtype == torch.bfloat16
+        assert tuple(tcache[key].shape) == jcache[key].shape
+        np.testing.assert_array_equal(_t(tcache[key]), _np(jcache[key]))
+
+
+# ---------------------------------------------------------------------------
+# ServeEngine
+# ---------------------------------------------------------------------------
+
+
+def _engine_pair(**kw):
+    jcfg = tiny_config("dense")
+    jm = jbuild_model(jcfg, max_seq=48)
+    jparams = jm.init(jax.random.PRNGKey(0))
+    tm = model_zoo.build_model(_tcfg(jcfg), max_seq=48)
+    tparams = params_from_numpy(jparams, "cpu")
+    return jm, jparams, tm, tparams
+
+
+def test_serve_engine_greedy_tokens_match_reference():
+    jm, jparams, tm, tparams = _engine_pair()
+    batch = {"tokens": np.random.RandomState(6).randint(
+        0, 256, (2, 16)).astype(np.int32)}
+    want = JServeEngine(jm, jparams, max_seq=48, batch=2).generate(
+        batch, max_new_tokens=8)
+    got = ServeEngine(tm, tparams, max_seq=48, batch=2,
+                      device="cpu").generate(batch, max_new_tokens=8)
+    assert got.tokens.shape == (2, 24) and got.steps == 8
+    np.testing.assert_array_equal(got.tokens, want.tokens)
+    assert got.prefill_seconds > 0 and got.decode_tokens_per_s > 0
+
+
+def test_serve_engine_greedy_deterministic():
+    _, _, tm, tparams = _engine_pair()
+    eng = ServeEngine(tm, tparams, max_seq=48, batch=2, device="cpu")
+    batch = {"tokens": np.ones((2, 16), np.int32) * 5}
+    r1 = eng.generate(batch, max_new_tokens=8)
+    r2 = eng.generate(batch, max_new_tokens=8)
+    np.testing.assert_array_equal(r1.tokens, r2.tokens)
+    assert r1.tokens.shape == (2, 24)
+
+
+def test_serve_engine_temperature_sampling_varies_and_repeats():
+    """Sampling RNGs differ between the frameworks, so this is statistical:
+    two seeds give different tokens, one seed the same tokens."""
+    _, _, tm, tparams = _engine_pair()
+    batch = {"tokens": np.ones((2, 16), np.int32)}
+
+    def run(seed):
+        return ServeEngine(tm, tparams, max_seq=48, batch=2, temperature=1.5,
+                           seed=seed, device="cpu").generate(
+            batch, max_new_tokens=12).tokens
+
+    t1, t2 = run(1), run(2)
+    assert not np.array_equal(t1, t2)
+    np.testing.assert_array_equal(run(1), t1)
+
+
+def test_serve_engine_refuses_params_elsewhere_and_overlong_requests():
+    _, _, tm, tparams = _engine_pair()
+    eng = ServeEngine(tm, tparams, max_seq=20, batch=2, device="cpu")
+    with pytest.raises(ValueError, match="max_seq"):
+        eng.generate({"tokens": np.ones((2, 16), np.int32)},
+                     max_new_tokens=8)
+    with pytest.raises(ValueError, match="parameter on"):
+        ServeEngine(tm, tparams, max_seq=20, batch=2, device="meta")
+
+
+@pytest.mark.parametrize("family", ["moe", "rwkv6", "hybrid", "encdec",
+                                    "vlm"])
+def test_build_model_raises_for_families_not_ported(family):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        model_zoo.build_model(_tcfg(tiny_config(family)))
+
+
+def test_serve_cli_runs_on_the_cpu():
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
+         "--preset", "smoke", "--batch", "2", "--prompt-len", "16",
+         "--gen", "4"],
+        capture_output=True, text=True, timeout=120, env=env, cwd=REPO)
+    assert out.returncode == 0, out.stderr[-2000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["arch"] == "llama3.2-1b" and res["generated"] == 4
+    assert res["device"] == "cpu" and res["decode_tokens_per_s"] > 0
+
+
+def test_reduced_config_matches_reference():
+    from repro.configs import get_arch as jget_arch
+    from repro.launch.train import PRESETS as JPRESETS
+    from repro.launch.train import reduced_config as jreduced
+
+    assert PRESETS == JPRESETS
+    for name in list_archs():
+        for preset in ("smoke", "100m", "full"):
+            want = jreduced(jget_arch(name).model, preset)
+            assert reduced_config(get_arch(name).model, preset).__dict__ \
+                == want.__dict__
