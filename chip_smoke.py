@@ -29,7 +29,21 @@ Phases (each raises on a failed check; the script exits non-zero):
    activations;
 6. card against CPU: llama3.2-1b at full width cut to 2 layers, in fp32,
    prefill + 8 decode steps on the card (kernel) and on the CPU (plain
-   path) with the same weights.
+   path) with the same weights;
+7. wkv6 phase: ``wkv6`` against its plain version on the same CUDA tensors
+   over the reference's sweep, N = 32 and 64, chunks below 64, strong
+   decay, no incoming state and the rwkv6-7b serving shape, timed there
+   beside its plain version and its bound (no single PyTorch call computes
+   WKV6, so there is no library yardstick);
+8. RWKV6 serving phase: ``ServeEngine.generate`` on rwkv6-7b at full width
+   (random weights from a seed), 8 prompts of 512 tokens, 64 new tokens;
+   the kernel must launch once per layer in the prefill and never in
+   decode, and match the plain version (output and state) on every
+   prefill call of a teacher-forced run over the generated tokens, on the
+   model's own activations; the end-to-end logit drift from the plain path
+   is printed beside a sequential-scan control, not gated;
+9. card against CPU: rwkv6-7b at full width cut to 2 layers, in fp32, as
+   phase 6.
 
 The last lines are one ``{"kernels": [...]}`` object, the card's name and
 power limit from ``nvidia-smi``, and ``{"ok": true, "device": {...}}``.
@@ -37,6 +51,7 @@ Without CUDA it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import gc
 import json
 import sys
 import threading
@@ -56,6 +71,7 @@ from repro_torch.core.buffers import OracleInputBuffer  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import committee_uq as cuq_kernel  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_kernel  # noqa: E402
+from repro_torch.kernels import wkv6 as wkv_kernel  # noqa: E402
 from repro_torch.launch import platform  # noqa: E402
 from repro_torch.models import model_zoo  # noqa: E402
 from repro_torch.models import potential as pot  # noqa: E402
@@ -79,6 +95,12 @@ FA_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 # the LM serving phase: llama3.2-1b, 8 prompts of 512 tokens, 64 new ones
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "llama3.2-1b", 8, 512, 64
 CPU_RTOL, CPU_ATOL = 1e-3, 1e-3   # fp32 card (kernel) vs CPU (plain)
+# wkv6: the reference's atol (tests/test_kernels.py), with an rtol for
+# outputs of magnitude above 1, where one bf16 ulp exceeds the atol
+WKV_TOL = {torch.float32: (1e-4, 5e-3), torch.bfloat16: (2e-2, 1e-1)}
+# the RWKV6 serving phase: rwkv6-7b, 8 prompts of 512 tokens, 64 new ones
+RWKV_ARCH = "rwkv6-7b"
+WKV_SERVE = (8, 512, 64, 64)      # (B, T, H, N) of each prefill call
 
 
 def _max_err(got, want, rtol, atol, what):
@@ -736,8 +758,12 @@ def _greedy_logits(model, params, prompt, steps, max_seq):
     return torch.stack(toks, dim=1), torch.stack(outs, dim=1)
 
 
-def phase_card_vs_cpu():
-    cfg = get_arch(LM_ARCH).model.replace(num_layers=2, dtype="float32")
+def phase_card_vs_cpu(arch, kernel):
+    """``arch`` at full width cut to 2 layers, in fp32: greedy prefill + 8
+    decode steps on the card against the CPU plain path, teacher-forced
+    with the card's tokens.  ``kernel``: the wrapper module whose launch
+    counter the CPU path must leave alone."""
+    cfg = get_arch(arch).model.replace(num_layers=2, dtype="float32")
     B, P, steps = 2, 128, 8
     max_seq = P + steps + 1
     model = model_zoo.build_model(cfg, max_seq=max_seq)
@@ -747,7 +773,7 @@ def phase_card_vs_cpu():
         0, cfg.vocab_size, (B, P)).astype(np.int32))
     toks_g, logits_g = _greedy_logits(model, params, prompt.to("cuda"),
                                       steps, max_seq)
-    before = fa_kernel.launches
+    before = kernel.launches
     params_c = cmte.tree_map(lambda t: t.cpu(), params)
     del params
     torch.cuda.empty_cache()
@@ -760,18 +786,249 @@ def phase_card_vs_cpu():
                                           cache, P + i)
         outs.append(logits)
     logits_c = torch.stack(outs, dim=1)
-    if fa_kernel.launches != before:
+    if kernel.launches != before:
         raise AssertionError("the CPU plain path launched the kernel")
     err = _max_err(logits_g.cpu(), logits_c, CPU_RTOL, CPU_ATOL,
                    "card vs CPU logits")
     checked, total = _margin_tokens_agree(
         toks_g.cpu(), logits_c, CPU_ATOL + CPU_RTOL * float(
             logits_c.abs().max()), "card vs CPU tokens")
-    print(f"card vs CPU: {LM_ARCH} full width cut to {cfg.num_layers} "
+    print(f"card vs CPU: {arch} full width cut to {cfg.num_layers} "
           f"layers, fp32, B={B} prompt {P} + {steps} decode steps: logits "
           f"match (worst |err| {err:.3e} at rtol {CPU_RTOL} atol "
           f"{CPU_ATOL}); greedy tokens identical at {checked} of {total} "
           f"positions whose margin allows")
+
+
+# ---------------------------------------------------------------------------
+# 7. wkv6 against its plain version
+# ---------------------------------------------------------------------------
+
+
+def _wkv_inputs(B, T, H, N, dtype, gen, w_const=None, state=True):
+    """r, k, v normal and w uniform in [0.2, 0.999) (or ``w_const``) in
+    ``dtype``; u (H, N) and the incoming state (B, H, N, N) normal fp32
+    (or no state)."""
+    shape = (B, T, H, N)
+    r, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+               for _ in range(3))
+    if w_const is None:
+        w = 0.2 + 0.799 * torch.rand(shape, generator=gen, device="cuda")
+    else:
+        w = torch.full(shape, w_const, device="cuda")
+    u = torch.randn((H, N), generator=gen, device="cuda")
+    s0 = (torch.randn((B, H, N, N), generator=gen, device="cuda") if state
+          else None)
+    return r, k, v, w.to(dtype), u, s0
+
+
+def _check_wkv(B, T, H, N, chunk, dtype, gen, **kw):
+    """Kernel vs plain version on one input; returns the worst abs error
+    over y and the state."""
+    x = _wkv_inputs(B, T, H, N, dtype, gen, **kw)
+    y, s = ops.wkv6(*x, chunk=chunk)
+    y_want, s_want = ops.plain_wkv6(*x, chunk=chunk)
+    torch.cuda.synchronize()
+    tag = f"wkv6 (B,T,H,N)=({B},{T},{H},{N}) chunk {chunk} {dtype} {kw}"
+    for g, w in ((y, y_want), (s, s_want)):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{tag}: output {tuple(g.shape)} {g.dtype} "
+                                 f"vs {tuple(w.shape)} {w.dtype}")
+    rtol, atol = WKV_TOL[dtype]
+    return max(_max_err(y.float(), y_want.float(), rtol, atol, f"{tag} y"),
+               _max_err(s, s_want, rtol, atol, f"{tag} state"))
+
+
+def wkv_bound(B, T, H, N, dtype, state_in=True):
+    """Least time for the work, in ms: r, k, v, w read and y written once
+    in the inputs' dtype, u and the state (in, when given, and out) in
+    fp32, against the recurrence's 4*B*T*H*N^2 operations (the count of
+    ``src/repro/launch/roofline.py``) at the peak of the inputs' type."""
+    esize = torch.tensor([], dtype=dtype).element_size()
+    nbytes = (5 * B * T * H * N * esize + H * N * 4
+              + (2 if state_in else 1) * B * H * N * N * 4)
+    flops = 4 * B * T * H * N * N
+    peak = PEAK_BF16_PER_S if dtype == torch.bfloat16 else PEAK_FP32_PER_S
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def phase_wkv6(smi):
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    worst, cases = 0.0, 0
+    f32, bf16 = torch.float32, torch.bfloat16
+    for dtype in (f32, bf16):
+        for B, T, H, N, chunk, kw in (
+                # the reference's sweep (tests/test_kernels.py)
+                (1, 64, 2, 16, 16, {}), (2, 128, 3, 32, 32, {}),
+                (1, 96, 1, 64, 32, {}),
+                (2, 64, 4, 32, 64, {}),            # the smoke preset's N
+                (1, 96, 2, 64, 48, {}),            # chunks below 64
+                (2, 128, 4, 64, 16, {}),
+                (1, 8, 2, 16, 1, {}),
+                (1, 128, 2, 16, 32, dict(w_const=1e-4)),   # strong decay
+                (2, 64, 2, 32, 64, dict(state=False)),
+                (*WKV_SERVE, 64, {})):             # rwkv6-7b's prefill
+            worst = max(worst, _check_wkv(B, T, H, N, chunk, dtype, gen,
+                                          **kw))
+            cases += 1
+    print(f"wkv6: kernel == plain version on {cases} cases (fp32 and bf16; "
+          f"N 16/32/64, chunks 1, 16, 32, 48, 64, strong decay, no state, "
+          f"the rwkv6-7b serving shape); worst |err| {worst:.3e} (fp32 rtol "
+          f"{WKV_TOL[f32][0]} atol {WKV_TOL[f32][1]}, bf16 rtol "
+          f"{WKV_TOL[bf16][0]} atol {WKV_TOL[bf16][1]})")
+
+    B, T, H, N = WKV_SERVE
+    x = _wkv_inputs(B, T, H, N, bf16, gen)
+    fns = {"ms": lambda: ops.wkv6(*x, chunk=64),
+           "plain_ms": lambda: ops.plain_wkv6(*x, chunk=64)}
+    t = {key: graph_ms(f, calls=10, replays=10) for key, f in fns.items()}
+    t.update({key.replace("ms", "eager_ms"): time_ms(f, iters=20, warmup=3)
+              for key, f in fns.items()})
+    t["bound_ms"], t["bound_by"] = wkv_bound(B, T, H, N, bf16)
+    t["library_ms"] = None            # no single PyTorch call computes WKV6
+    print(f"wkv6 prefill (B,T,H,N)=({B},{T},{H},{N}) bf16, chunk 64: device "
+          f"time per call (CUDA graph) kernel {t['ms']:.6f} ms, plain "
+          f"{t['plain_ms']:.6f} ms; eager per call kernel "
+          f"{t['eager_ms']:.6f} ms, plain {t['plain_eager_ms']:.6f} ms; "
+          f"bound {t['bound_ms']:.6f} ms ({t['bound_by']}); no library "
+          f"call computes WKV6 [{smi}]")
+    return worst, t
+
+
+# ---------------------------------------------------------------------------
+# 8. the RWKV6 serving path at rwkv6-7b full width
+# ---------------------------------------------------------------------------
+
+
+def phase_rwkv(smi):
+    cfg = get_arch(RWKV_ARCH).model
+    L = cfg.num_layers
+    max_seq = LM_PROMPT + LM_GEN
+    model = model_zoo.build_model(cfg, max_seq=max_seq)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED),
+                        device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in cmte.tree_leaves(params))
+    eng = ServeEngine(model, params, max_seq=max_seq, batch=LM_BATCH,
+                      device="cuda")
+    prompt = np.random.RandomState(SEED).randint(
+        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT)).astype(np.int32)
+    eng.generate({"tokens": prompt}, max_new_tokens=2)   # warm-up, not counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    wkv_kernel.launches = 0                      # main path starts here
+    res = eng.generate({"tokens": prompt}, max_new_tokens=LM_GEN)
+    launches = wkv_kernel.launches
+    peak = torch.cuda.max_memory_allocated()
+    if launches != L:
+        raise AssertionError(f"wkv6 launches {launches} != {L} layers x 1 "
+                             f"prefill (and none in {LM_GEN - 1} decode "
+                             f"steps)")
+    toks = res.tokens
+    if toks.shape != (LM_BATCH, max_seq) or \
+            not np.array_equal(toks[:, :LM_PROMPT], prompt) or \
+            toks.min() < 0 or toks.max() >= cfg.padded_vocab:
+        raise AssertionError(f"generated tokens misshapen or out of range: "
+                             f"{toks.shape}")
+    print(f"RWKV6 serving {RWKV_ARCH} full width ({L} layers, d "
+          f"{cfg.d_model}, {cfg.rwkv_num_heads} wkv heads of "
+          f"{cfg.rwkv_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"{n_params} params fp32, {cfg.dtype} activations), init "
+          f"{t_init:.2f} s: B={LM_BATCH} prompt {LM_PROMPT} + {LM_GEN} new "
+          f"tokens: prefill {res.prefill_seconds:.4f} s, decode "
+          f"{res.decode_seconds:.4f} s = {res.decode_tokens_per_s:.1f} "
+          f"tokens/s, peak memory {peak / 2**30:.3f} GiB; wkv6 launches "
+          f"{launches} == {L} layers x 1 prefill [{smi}]")
+
+    # the kernel launches in the prefill of every layer and never in decode
+    prompt_t = torch.from_numpy(prompt).to("cuda")
+    gen_t = torch.from_numpy(toks[:, LM_PROMPT:].astype(np.int32)).to("cuda")
+    cache = model.init_cache(LM_BATCH, max_seq, device="cuda")
+    before = wkv_kernel.launches
+    _, cache = model.prefill(eng.params, prompt_t, cache)
+    n_prefill = wkv_kernel.launches - before
+    model.decode_step(eng.params, gen_t[:, :1], cache, LM_PROMPT)
+    n_decode = wkv_kernel.launches - before - n_prefill
+    if n_prefill != L or n_decode != 0:
+        raise AssertionError(f"wkv6 launched {n_prefill} times in a prefill "
+                             f"and {n_decode} in a decode step")
+    del cache
+
+    # teacher-forced runs over the generated tokens, on the card
+    lk = teacher_forced(model, eng.params, prompt_t, gen_t, max_seq)
+    if not torch.isfinite(lk).all():
+        raise AssertionError("kernel path: non-finite logits")
+    scale = float(lk.abs().max())
+    checked, total = _margin_tokens_agree(gen_t, lk, 1e-3 * scale,
+                                          "generate vs its own replay")
+
+    # every wkv6 call of the plain path (one prefill x 32 layers), on the
+    # model's own activations, also through the kernel
+    plain = model_zoo.build_model(cfg, impl="plain")
+    calls, worst_y, worst_s = 0, 0.0, 0.0
+    plain_wkv6 = ops.plain_wkv6
+
+    def shadowed(r, k, v, w, u, state=None, *, chunk=64, state_out=None):
+        nonlocal calls, worst_y, worst_s
+        # the kernel first: the plain version overwrites the aliased state
+        y_k, s_k = wkv_kernel.wkv6(r, k, v, w, u, state, chunk=chunk,
+                                   device=r.device)
+        y, s = plain_wkv6(r, k, v, w, u, state, chunk=chunk,
+                          state_out=state_out)
+        rtol, atol = WKV_TOL[r.dtype]
+        worst_y = max(worst_y, _max_err(y_k.float(), y.float(), rtol, atol,
+                                        f"wkv6 call {calls} y"))
+        worst_s = max(worst_s, _max_err(s_k, s, rtol, atol,
+                                        f"wkv6 call {calls} state"))
+        calls += 1
+        return y, s
+
+    ops.plain_wkv6 = shadowed
+    try:
+        lp = teacher_forced(plain, eng.params, prompt_t, gen_t, max_seq)
+    finally:
+        ops.plain_wkv6 = plain_wkv6
+    if calls != L:
+        raise AssertionError(f"{calls} wkv6 calls shadowed, not {L}")
+
+    # A control for the end-to-end logits: the plain path again with the
+    # sequential-scan oracle in place of the chunked form (the same
+    # function, other roundings); its drift is printed beside the kernel's.
+    def scan_wkv6(r, k, v, w, u, state=None, *, chunk=64, state_out=None):
+        y, s = ref.wkv6_ref(r, k, v, w, u, state)
+        if state_out is not None:
+            state_out.copy_(s)
+            s = state_out
+        return y, s
+
+    ops.plain_wkv6 = scan_wkv6
+    try:
+        ls = teacher_forced(plain, eng.params, prompt_t, gen_t, max_seq)
+    finally:
+        ops.plain_wkv6 = plain_wkv6
+    p_scale = float(lp.abs().max())
+    drift = float((lk - lp).abs().max()) / p_scale
+    drift_scan = float((ls - lp).abs().max()) / p_scale
+    rtol, atol = WKV_TOL[torch.bfloat16]
+    print(f"RWKV6 serving: the kernel == plain version on all {calls} wkv6 "
+          f"calls of a teacher-forced plain run over the generated tokens "
+          f"(the model's own bf16 activations; worst |err| y {worst_y:.4e}, "
+          f"state {worst_s:.4e} at rtol {rtol} atol {atol}); generate's "
+          f"tokens == the argmax of its own teacher-forced replay at "
+          f"{checked} of {total} positions whose top-2 margin exceeds 1e-3 x "
+          f"max|logit|; end-to-end logit drift of the kernel path from the "
+          f"plain path over {L} layers (not gated; max |err| / max|logit| "
+          f"{p_scale:.4e}): kernel path {drift:.4e}, sequential-scan control "
+          f"{drift_scan:.4e}")
+    del lk, lp, ls, eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main() -> int:
@@ -784,7 +1041,14 @@ def main() -> int:
     launches = phase_serving(smi)
     fa_worst, fa_t = phase_flash(smi)
     fa_launches = phase_lm(smi)
-    phase_card_vs_cpu()
+    phase_card_vs_cpu(LM_ARCH, fa_kernel)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"before the RWKV6 phases: {torch.cuda.memory_allocated() / 2**30:.3f}"
+          f" GiB allocated on the card")
+    wkv_worst, wt = phase_wkv6(smi)
+    wkv_launches = phase_rwkv(smi)
+    phase_card_vs_cpu(RWKV_ARCH, wkv_kernel)
     fd, fp = fa_t["decode"], fa_t["prefill"]
     print(json.dumps({"kernels": [{
         "name": "committee_uq", "route": "cuda",
@@ -808,7 +1072,15 @@ def main() -> int:
         "prefill_bound_ms": fp["bound_ms"],
         "prefill_bound_by": fp["bound_by"],
         "prefill_library_ms": fp["library_ms"],
-        "prefill_eager_ms": fp["eager_ms"]}]}))
+        "prefill_eager_ms": fp["eager_ms"]}, {
+        "name": "wkv6", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/wkv6.cu",
+        "replaces": "src/repro/kernels/wkv6.py:72",
+        "launches": wkv_launches, "max_abs_err": wkv_worst,
+        "ms": wt["ms"], "plain_ms": wt["plain_ms"],
+        "bound_ms": wt["bound_ms"], "bound_by": wt["bound_by"],
+        "library_ms": wt["library_ms"], "eager_ms": wt["eager_ms"],
+        "plain_eager_ms": wt["plain_eager_ms"]}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,8 +9,9 @@ mixed with a stale library.  ``build_all`` starts one ``nvcc`` per source,
 all at once.
 
 No ``--use_fast_math``: the non-finite quarantine of ``committee_uq``
-depends on exact ``isfinite`` and IEEE division/sqrt, and ``flash_attention``
-keeps IEEE ``expf`` and division to stay within the reference's tolerances.
+depends on exact ``isfinite`` and IEEE division/sqrt, ``flash_attention``
+keeps IEEE ``expf`` and division to stay within the reference's tolerances,
+and the decay path of ``wkv6`` needs IEEE ``expf`` and ``logf``.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("committee_uq", "flash_attention")
+SOURCES = ("committee_uq", "flash_attention", "wkv6")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

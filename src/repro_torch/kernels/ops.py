@@ -11,6 +11,7 @@ import torch
 from repro_torch.kernels import committee_uq as _cuq
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref
+from repro_torch.kernels import wkv6 as _wkv6
 
 
 def committee_uq(preds: torch.Tensor, threshold: float, *,
@@ -67,3 +68,46 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                    q_offset=q_offset, kv_len=kv_len,
                                    device=q.device)
     raise ValueError(f"attention: no implementation for device {q.device}")
+
+
+def _wkv6_chunk(T: int, chunk: int) -> int:
+    """The reference's rule: the chunk is cut to T, and must divide it."""
+    chunk = min(chunk, T)
+    if chunk < 1 or T % chunk:
+        raise ValueError(f"T={T} not divisible by chunk={chunk}")
+    return chunk
+
+
+def plain_wkv6(r, k, v, w, u, state=None, *, chunk: int = 64,
+               state_out: Optional[torch.Tensor] = None):
+    """The plain version on any device: ``ref.wkv6_chunked_ref``, its
+    state copied into ``state_out`` when given."""
+    y, s = ref.wkv6_chunked_ref(r, k, v, w, u, state,
+                                chunk=_wkv6_chunk(r.shape[1], chunk))
+    if state_out is not None:
+        state_out.copy_(s)
+        s = state_out
+    return y, s
+
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+         u: torch.Tensor, state: Optional[torch.Tensor] = None, *,
+         chunk: int = 64, state_out: Optional[torch.Tensor] = None):
+    """RWKV6 WKV.  r, k, v, w: (B, T, H, N); u: (H, N); state:
+    (B, H, N, N) fp32 or None.  Returns (y, state); the state is written
+    into ``state_out`` when given (which may be ``state`` itself).  Raises
+    ``ValueError`` unless ``min(chunk, T)`` divides T."""
+    if r.device.type == "cpu":
+        return plain_wkv6(r, k, v, w, u, state, chunk=chunk,
+                          state_out=state_out)
+    if r.device.type == "cuda":
+        return _wkv6.wkv6(r, k, v, w, u, state,
+                          chunk=_wkv6_chunk(r.shape[1], chunk),
+                          state_out=state_out, device=r.device)
+    raise ValueError(f"wkv6: no implementation for device {r.device}")
+
+
+def wkv6_decode(r, k, v, w, u, state):
+    """One recurrent step (r, k, v, w: (B, H, N)): plain PyTorch on every
+    device, as the reference's is plain jnp."""
+    return ref.wkv6_decode_ref(r, k, v, w, u, state)

@@ -135,3 +135,93 @@ def attention_chunked_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           p.to(v.dtype).to(torch.float32), vc)
         outs.append(oc.reshape(B, L, H, D))
     return torch.cat(outs, dim=1).to(v.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 (Finch) WKV — vector decay per key channel
+# ---------------------------------------------------------------------------
+
+
+def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             w: torch.Tensor, u: torch.Tensor,
+             state: Optional[torch.Tensor] = None):
+    """Sequential-scan oracle.  r, k, v, w: (B, T, H, N), w the decay in
+    (0, 1) per key channel; u: (H, N) bonus; state: (B, H, N, N) fp32.
+
+    y_t = r_t @ (S_{t-1} + diag(u) k_t v_t^T);  S_t = diag(w_t) S_{t-1} + k_t v_t^T
+    Returns (y (B, T, H, N) in ``v.dtype``, state_out (B, H, N, N) fp32)."""
+    B, T, H, N = r.shape
+    rf, kf, vf, wf = (x.to(torch.float32) for x in (r, k, v, w))
+    uf = u.to(torch.float32)
+    S = (torch.zeros((B, H, N, N), dtype=torch.float32, device=r.device)
+         if state is None else state.to(torch.float32))
+    ys = []
+    for t in range(T):
+        rt, kt, vt, wt = rf[:, t], kf[:, t], vf[:, t], wf[:, t]
+        kv = kt[..., :, None] * vt[..., None, :]            # (B, H, N, N)
+        ys.append(torch.einsum("bhn,bhnm->bhm", rt,
+                               S + uf[None, :, :, None] * kv))
+        S = wt[..., :, None] * S + kv
+    return torch.stack(ys, dim=1).to(v.dtype), S
+
+
+def wkv6_chunked_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     w: torch.Tensor, u: torch.Tensor,
+                     state: Optional[torch.Tensor] = None, chunk: int = 64):
+    """Chunked (linear-attention) form of ``wkv6_ref``: the plain version
+    of the ``wkv6`` kernel, line for line the reference's.  Intra-chunk
+    decay ratios are exp of log-space differences clipped to [-60, 0]
+    (the factorized exp(excl) * exp(-incl) form overflows under strong
+    decay); inter-chunk terms and the state update are matmuls."""
+    B, T, H, N = r.shape
+    if T % chunk:
+        raise ValueError(f"T={T} not divisible by chunk={chunk}")
+    C = chunk
+    rf, kf, vf = (x.to(torch.float32) for x in (r, k, v))
+    lw = torch.log(w.to(torch.float32).clamp_min(1e-12))   # (B,T,H,N) <= 0
+    uf = u.to(torch.float32)
+    S = (torch.zeros((B, H, N, N), dtype=torch.float32, device=r.device)
+         if state is None else state.to(torch.float32))
+    nC = T // C
+
+    def resh(x):                                         # (nC, B, H, C, N)
+        return x.reshape(B, nC, C, H, N).permute(1, 0, 3, 2, 4)
+
+    rc, kc, vc, lwc = resh(rf), resh(kf), resh(vf), resh(lw)
+    mask = torch.tril(torch.ones((C, C), dtype=torch.bool, device=r.device),
+                      diagonal=-1)
+    ys = []
+    for i in range(nC):
+        rt, kt, vt, lwt = rc[i], kc[i], vc[i], lwc[i]     # (B, H, C, N)
+        incl = torch.cumsum(lwt, dim=2)                   # log prod_{1..t}
+        excl = incl - lwt                                 # log prod_{1..t-1}
+        total = incl[:, :, -1:, :]                        # log prod over chunk
+        # inter-chunk: y_t += (r_t * exp(excl_t)) @ S
+        y = torch.einsum("bhcn,bhnm->bhcm", rt * torch.exp(excl), S)
+        # intra-chunk: A[t,j] = sum_n r[t]k[j] exp(excl_t - incl_j), j < t
+        dec = torch.exp(torch.clamp(
+            excl[:, :, :, None, :] - incl[:, :, None, :, :], -60.0, 0.0))
+        A = torch.einsum("bhtn,bhjn,bhtjn->bhtj", rt, kt, dec)
+        A = torch.where(mask[None, None], A, 0.0)
+        # diagonal bonus u
+        diag = torch.einsum("bhtn,bhtn->bht", rt * uf[None, :, None, :], kt)
+        y = y + torch.einsum("bhtj,bhjm->bhtm", A, vt) + diag[..., None] * vt
+        # S' = diag(prod w) S + sum_j (prod_{j+1..C} w * k_j) v_j^T
+        k_dec = kt * torch.exp(torch.clamp(total - incl, -60.0, 0.0))
+        S = torch.exp(total[:, :, 0, :])[..., None] * S + torch.einsum(
+            "bhjn,bhjm->bhnm", k_dec, vt)
+        ys.append(y)
+    y = torch.stack(ys, dim=0).permute(1, 0, 3, 2, 4).reshape(B, T, H, N)
+    return y.to(v.dtype), S
+
+
+def wkv6_decode_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    w: torch.Tensor, u: torch.Tensor, state: torch.Tensor):
+    """Single-token recurrent step.  r, k, v, w: (B, H, N); state
+    (B, H, N, N) fp32.  Returns (y (B, H, N) in ``v.dtype``, new state)."""
+    rf, kf, vf, wf = (x.to(torch.float32) for x in (r, k, v, w))
+    uf = u.to(torch.float32)
+    kv = kf[..., :, None] * vf[..., None, :]
+    y = torch.einsum("bhn,bhnm->bhm", rf, state + uf[None, :, :, None] * kv)
+    state = wf[..., :, None] * state + kv
+    return y.to(v.dtype), state

@@ -1,18 +1,20 @@
-"""Where one dense-LM ``generate`` spends its time, on the CUDA card.
+"""Where one LM ``generate`` spends its time, on the CUDA card.
 
     PYTHONPATH=src python -m repro_torch.launch.lm_profile [--out F]
+    PYTHONPATH=src python -m repro_torch.launch.lm_profile --arch rwkv6-7b
 
-Builds ``--arch`` (default llama3.2-1b) at full width, with random weights
-from ``--seed``, behind ``ServeEngine``, and reports, each line with the
-card's name and power limit:
+Builds ``--arch`` (default llama3.2-1b; any family ``build_model`` ports)
+at full width, with random weights from ``--seed``, behind ``ServeEngine``,
+and reports, each line with the card's name and power limit:
 
 * one ``generate`` of ``--batch`` prompts of ``--prompt-len`` tokens and
   ``--gen`` new tokens: prefill seconds, decode seconds per step, decode
   tokens/s (host clock around synchronized work), peak device memory;
 * a ``torch.profiler`` table of the device kernels of one prefill and of
-  ``--profile-steps`` decode steps: device time of the flash-attention
-  kernel, of the matrix products (cuBLAS's ``nvjet``/``gemm`` kernels) and
-  of the rest, and the attention kernel's share of device time;
+  ``--profile-steps`` decode steps: device time of the hand-written
+  kernels (``flash_attention``, ``wkv6``), of the matrix products (cuBLAS's
+  ``nvjet``/``gemm`` kernels) and of the rest, and each hand-written
+  kernel's share of device time;
 * the device's busy share: that device time over the host-clock wall of
   the same work run again without the profiler (the profiler's own host
   overhead would inflate the wall it sees).
@@ -36,8 +38,10 @@ from repro_torch.launch import platform
 from repro_torch.models import model_zoo
 from repro_torch.serving import ServeEngine
 
-GROUPS = (("flash_attention", ("flash_attention_kernel",)),
-          ("matmul", ("nvjet", "gemm", "cutlass", "xmma", "sm90_")))
+KERNEL_GROUPS = (("flash_attention", ("flash_attention_kernel",)),
+                 ("wkv6", ("wkv6_kernel",)))
+GROUPS = KERNEL_GROUPS + (
+    ("matmul", ("nvjet", "gemm", "cutlass", "xmma", "sm90_")),)
 
 
 def _group(name: str) -> str:
@@ -82,8 +86,8 @@ def _profile(fn, what: str, card: str):
     top.sort(reverse=True)
     out = {"wall_us": wall_us, "device_us": busy, "kernels": kernels,
            "groups_us": groups,
-           "attention_share": groups["flash_attention"] / busy if busy
-           else None,
+           "kernel_shares": {g: groups[g] / busy if busy else None
+                             for g, _ in KERNEL_GROUPS},
            "busy_share": busy / wall_us,
            "top": [{"device_us": u, "count": c, "name": k}
                    for u, c, k in top[:12]]}

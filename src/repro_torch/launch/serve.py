@@ -4,6 +4,8 @@ with ``--device``; the CUDA device by default, and an error without it).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
       --preset full --batch 8 --prompt-len 512 --gen 64
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \\
+      --preset full --batch 8 --prompt-len 512 --gen 64
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --preset smoke
 """

@@ -1,1 +1,2 @@
-"""Models: the committee MLP potential and its parameter machinery."""
+"""Models: the committee MLP potential, the LM zoo's dense and RWKV6
+families, and their parameter machinery."""

@@ -127,6 +127,19 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return (y * weight.to(torch.float32) + bias.to(torch.float32)).to(dt)
 
 
+def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               groups: int, eps: float = 1e-5) -> torch.Tensor:
+    """Per-head group norm over the last dim (the rwkv6 output norm), in
+    fp32; cast back to x's dtype."""
+    dt = x.dtype
+    *lead, D = x.shape
+    xf = x.to(torch.float32).reshape(*lead, groups, D // groups)
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    y = ((xf - mu) * torch.rsqrt(var + eps)).reshape(*lead, D)
+    return (y * weight.to(torch.float32) + bias.to(torch.float32)).to(dt)
+
+
 def rope_tables(positions: torch.Tensor, head_dim: int,
                 theta: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """(cos, sin) of the rotary angles for positions (..., T) or (T,), in

@@ -235,6 +235,9 @@ class DenseLM:
 
     cfg: ModelConfig
     impl: str = "auto"
+    # leaves ``compute_params`` casts to the activation dtype (a class
+    # attribute, not a field)
+    cast_keys = MATMUL_KEYS
 
     def __post_init__(self):
         if self.impl not in IMPLS:
@@ -266,15 +269,16 @@ class DenseLM:
 
     def compute_params(self, params: Params) -> Params:
         """The tree a server keeps: every leaf the model casts to the
-        activation dtype (``MATMUL_KEYS``) cast once ahead, norm weights
+        activation dtype (``cast_keys``) cast once ahead, norm weights
         left as they are, and the layer stack split into per-layer views.
         The model's per-product casts then do nothing, and the bits are
         those of casting at each product."""
         dt = cm.torch_dtype(self.cfg.dtype)
+        keys = self.cast_keys
 
         def cast(tree):
             return {k: (cast(v) if isinstance(v, dict)
-                        else v.to(dt) if k in MATMUL_KEYS else v)
+                        else v.to(dt) if k in keys else v)
                     for k, v in tree.items()}
 
         out = cast({k: v for k, v in params.items() if k != "layers"})

@@ -1,7 +1,8 @@
 """Batched serving engines.
 
 ``ServeEngine`` — LM prefill + decode loop over the model zoo's cache API
-(the dense family's in-place KV cache).  ``generate`` runs greedy
+(the dense family's in-place KV cache, the rwkv6 family's in-place
+recurrent state, which ignores the decode index).  ``generate`` runs greedy
 (``argmax``) or temperature sampling (``torch.multinomial`` over
 ``softmax(logits / T)`` with the engine's own ``torch.Generator``).  The
 decode index is a host int, so the loop adds no host sync of its own; the

@@ -101,6 +101,14 @@ def test_lm_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     q = torch.zeros(1, 2, 4, 16)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         fa.flash_attention(q, q, q)
+    rwkv = model_zoo.build_model(reduced_config(get_arch("rwkv6-7b").model,
+                                                "smoke"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        rwkv.init(torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        rwkv.init_cache(1, 8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--arch", "rwkv6-7b", "--preset", "smoke"])
 
 
 def test_kernel_wrapper_rejects_cpu_tensors():
@@ -127,7 +135,7 @@ def test_cpu_path_never_touches_the_kernel_loader(monkeypatch):
 
 def test_kernel_build_paths_stay_inside_the_checkout():
     assert _build.BUILD_DIR == ROOT / "build" / "repro_torch_kernels"
-    assert _build.SOURCES == ("committee_uq", "flash_attention")
+    assert _build.SOURCES == ("committee_uq", "flash_attention", "wkv6")
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     for name in _build.SOURCES:
         assert (_build.CSRC / f"{name}.cu").is_file()

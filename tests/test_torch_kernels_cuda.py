@@ -7,8 +7,11 @@ one.  This file imports no JAX, so it also runs where JAX is absent:
 
 Tolerances are the reference's: for committee_uq mean rtol 1e-5 atol 1e-6,
 both stds rtol 1e-4 atol 1e-6, mask and finite counts exact; for
-flash_attention its TOL, 2e-4 in fp32 and 2e-2 in bf16 (rtol and atol),
-against the plain version on the same CUDA tensors."""
+flash_attention its TOL, 2e-4 in fp32 and 2e-2 in bf16 (rtol and atol);
+for wkv6 its atol, 5e-3 in fp32 and 1e-1 in bf16, with an rtol (1e-4 in
+fp32, 2e-2 in bf16) for outputs of magnitude above 1, where one bf16 ulp
+exceeds the atol; all against the plain version on the same CUDA
+tensors."""
 import numpy as np
 import pytest
 import torch
@@ -187,5 +190,109 @@ def test_flash_attention_kernel_rejects_what_it_does_not_take(cuda_device):
     before = kernel.launches
     kernel.flash_attention(q, k, k, device=cuda_device)
     kernel.flash_attention(q, k, k, causal=False, device=cuda_device)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2
+
+
+WKV_TOL = {torch.float32: dict(rtol=1e-4, atol=5e-3),
+           torch.bfloat16: dict(rtol=2e-2, atol=1e-1)}
+
+
+def _wkv_inputs(B, T, H, N, dtype, device, seed=4, w_const=None,
+                state=True):
+    rng = np.random.RandomState(seed)
+    r, k, v = (rng.randn(B, T, H, N).astype(np.float32) for _ in range(3))
+    w = (np.full((B, T, H, N), w_const, np.float32) if w_const is not None
+         else rng.uniform(0.2, 0.999, (B, T, H, N)).astype(np.float32))
+    u = rng.randn(H, N).astype(np.float32)
+    s0 = rng.randn(B, H, N, N).astype(np.float32) if state else None
+    xs = [torch.from_numpy(a).to(device, dtype) for a in (r, k, v, w)]
+    return xs + [torch.from_numpy(u).to(device),
+                 None if s0 is None else torch.from_numpy(s0).to(device)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("B,T,H,N,chunk,kw", [
+    (1, 64, 2, 16, 16, {}),
+    (2, 128, 3, 32, 32, {}),
+    (1, 96, 1, 64, 32, {}),
+    (2, 64, 4, 32, 64, {}),                   # the smoke preset's N = 32
+    (2, 512, 8, 64, 64, {}),                  # rwkv6-7b's N, serving T
+    (1, 96, 2, 64, 48, {}),                   # C < 64, not a power of two
+    (1, 8, 2, 16, 1, {}),                     # C = 1
+    (1, 128, 2, 16, 32, dict(w_const=1e-4)),  # strong decay
+    (2, 64, 2, 32, 64, dict(state=False)),    # no incoming state
+], ids=["sweep-n16", "sweep-n32", "sweep-n64", "smoke-n32", "serve-n64",
+        "c48", "c1", "strong-decay", "no-state"])
+def test_wkv6_kernel_matches_plain_version(cuda_device, dtype, B, T, H, N,
+                                           chunk, kw):
+    from repro_torch.kernels import wkv6 as kernel
+
+    r, k, v, w, u, s0 = _wkv_inputs(B, T, H, N, dtype, cuda_device, **kw)
+    before = kernel.launches
+    y, s = ops.wkv6(r, k, v, w, u, s0, chunk=chunk)
+    assert kernel.launches == before + 1
+    y_want, s_want = ref.wkv6_chunked_ref(r, k, v, w, u, s0, chunk=chunk)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and tuple(y.shape) == (B, T, H, N)
+    assert s.dtype == torch.float32 and tuple(s.shape) == (B, H, N, N)
+    assert torch.isfinite(y.float()).all() and torch.isfinite(s).all()
+    np.testing.assert_allclose(y.float().cpu().numpy(),
+                               y_want.float().cpu().numpy(), **WKV_TOL[dtype])
+    np.testing.assert_allclose(s.cpu().numpy(), s_want.cpu().numpy(),
+                               **WKV_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_wkv6_kernel_state_in_and_out_may_alias(cuda_device):
+    """A layer's cache slice is both the incoming state and the output."""
+    r, k, v, w, u, s0 = _wkv_inputs(2, 128, 4, 64, torch.bfloat16,
+                                    cuda_device, seed=5)
+    y_want, s_want = ops.wkv6(r, k, v, w, u, s0, chunk=64)
+    cache = torch.zeros((3,) + tuple(s0.shape), device=cuda_device)
+    cache[1] = s0
+    y, s = ops.wkv6(r, k, v, w, u, cache[1], chunk=64, state_out=cache[1])
+    torch.cuda.synchronize()
+    assert s.data_ptr() == cache[1].data_ptr()
+    assert torch.equal(y, y_want) and torch.equal(cache[1], s_want)
+    assert not cache[0].any() and not cache[2].any()
+
+
+@pytest.mark.cuda
+def test_wkv6_kernel_rejects_what_it_does_not_take(cuda_device):
+    from repro_torch.kernels import wkv6 as kernel
+
+    r, k, v, w, u, s0 = _wkv_inputs(1, 64, 2, 16, torch.float32,
+                                    cuda_device)
+    with pytest.raises(ValueError, match="head dims"):
+        x = torch.zeros(1, 64, 1, 128, device=cuda_device)
+        kernel.wkv6(x, x, x, x, torch.zeros(1, 128, device=cuda_device),
+                    device=cuda_device)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        kernel.wkv6(r.half(), k.half(), v.half(), w.half(), u,
+                    device=cuda_device)
+    with pytest.raises(TypeError, match="one dtype"):
+        kernel.wkv6(r, k.to(torch.bfloat16), v, w, u, device=cuda_device)
+    with pytest.raises(TypeError, match="float32 u"):
+        kernel.wkv6(r, k, v, w, u.to(torch.bfloat16), device=cuda_device)
+    with pytest.raises(ValueError, match="chunk"):
+        kernel.wkv6(r, k, v, w, u, chunk=128, device=cuda_device)
+    with pytest.raises(ValueError, match="chunk"):
+        kernel.wkv6(r, k, v, w, u, chunk=48, device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        rt = r.transpose(1, 2).contiguous().transpose(1, 2)
+        kernel.wkv6(rt, k, v, w, u, device=cuda_device)
+    with pytest.raises(ValueError, match="state"):
+        kernel.wkv6(r, k, v, w, u, s0[:, :1], device=cuda_device)
+    with pytest.raises(ValueError, match="state_out"):
+        kernel.wkv6(r, k, v, w, u, s0, state_out=s0.to(torch.bfloat16),
+                    device=cuda_device)
+    with pytest.raises(ValueError, match="expected the CUDA device"):
+        kernel.wkv6(r.cpu(), k, v, w, u, device=cuda_device)
+    before = kernel.launches
+    kernel.wkv6(r, k, v, w, u, s0, chunk=16, device=cuda_device)
+    kernel.wkv6(r, k, v, w, u, chunk=64, device=cuda_device)
     torch.cuda.synchronize()
     assert kernel.launches == before + 2
