@@ -43,7 +43,25 @@ Phases (each raises on a failed check; the script exits non-zero):
    model's own activations; the end-to-end logit drift from the plain path
    is printed beside a sequential-scan control, not gated;
 9. card against CPU: rwkv6-7b at full width cut to 2 layers, in fp32, as
-   phase 6.
+   phase 6;
+10. ssd phase: ``ssd`` against its plain version on the same CUDA tensors
+   over the reference's sweep, P = 128, chunks below 64, strong decay,
+   decay near 1, no incoming state, B and C broadcast across the heads and
+   the jamba-1.5-large serving shape, timed there beside its plain version
+   and its bound (no single PyTorch call computes SSD);
+11. Jamba serving phase: ``ServeEngine.generate`` on the one-card cut of
+   jamba-1.5-large (8 layers, 2 experts, every width published; random
+   weights from a seed), 8 prompts of 512 tokens, 64 new tokens; ``ssd``
+   must launch once per Mamba layer in the prefill and never in decode,
+   ``flash_attention`` once per attention layer per prefill and decode
+   step, and both must match their plain versions on every call of a
+   teacher-forced run over the generated tokens, on the model's own
+   activations;
+12. card against CPU: one Jamba group in fp32 at d_model 1024 and d_ff
+   3072 with the published head shapes and 4 experts in groups of 256 (so
+   that the decode steps drop tokens), as phase 6.
+
+Each phase prints its wall time.
 
 The last lines are one ``{"kernels": [...]}`` object, the card's name and
 power limit from ``nvidia-smi``, and ``{"ok": true, "device": {...}}``.
@@ -64,6 +82,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.configs.jamba1p5_large_398b import ONE_CARD_CUT  # noqa: E402
 from repro_torch.configs.pal_potential import PALRunConfig, PotentialConfig  # noqa: E402
 from repro_torch.core import acquisition as acq  # noqa: E402
 from repro_torch.core import committee as cmte  # noqa: E402
@@ -71,9 +90,11 @@ from repro_torch.core.buffers import OracleInputBuffer  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import committee_uq as cuq_kernel  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_kernel  # noqa: E402
+from repro_torch.kernels import ssd as ssd_kernel  # noqa: E402
 from repro_torch.kernels import wkv6 as wkv_kernel  # noqa: E402
 from repro_torch.launch import platform  # noqa: E402
 from repro_torch.models import model_zoo  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import potential as pot  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
     CommitteeServer, QueueConfig, ServeEngine, ServingQueue,
@@ -101,6 +122,17 @@ WKV_TOL = {torch.float32: (1e-4, 5e-3), torch.bfloat16: (2e-2, 1e-1)}
 # the RWKV6 serving phase: rwkv6-7b, 8 prompts of 512 tokens, 64 new ones
 RWKV_ARCH = "rwkv6-7b"
 WKV_SERVE = (8, 512, 64, 64)      # (B, T, H, N) of each prefill call
+# ssd: the reference's atol (tests/test_kernels.py), rtols as wkv6's
+SSD_TOL = WKV_TOL
+# the Jamba serving phase: the one-card cut of jamba-1.5-large, same traffic
+JAMBA_ARCH = "jamba-1.5-large-398b"
+SSD_SERVE = (8, 512, 128, 128, 16)  # (B, T, H, P, N) of each prefill call
+# the card-vs-CPU Jamba cut: one group in fp32, narrow, the published head
+# shapes (SSD P 128, N 16, d_conv 4; attention hd 128, 8 q heads per kv
+# head), 4 experts top-2 in groups of 256
+JAMBA_NARROW = dict(num_layers=8, d_model=1024, d_ff=3072, num_heads=8,
+                    num_kv_heads=1, moe_num_experts=4, moe_group_size=256,
+                    dtype="float32")
 
 
 def _max_err(got, want, rtol, atol, what):
@@ -758,12 +790,39 @@ def _greedy_logits(model, params, prompt, steps, max_seq):
     return torch.stack(toks, dim=1), torch.stack(outs, dim=1)
 
 
-def phase_card_vs_cpu(arch, kernel):
-    """``arch`` at full width cut to 2 layers, in fp32: greedy prefill + 8
-    decode steps on the card against the CPU plain path, teacher-forced
-    with the card's tokens.  ``kernel``: the wrapper module whose launch
-    counter the CPU path must leave alone."""
-    cfg = get_arch(arch).model.replace(num_layers=2, dtype="float32")
+def two_layers(arch):
+    """``arch`` at full width cut to 2 layers, in fp32."""
+    return get_arch(arch).model.replace(num_layers=2, dtype="float32")
+
+
+class _DropCounter:
+    """Counts the MoE choices dropped past their expert's capacity, by
+    wrapping ``moe.route`` (each count syncs the host)."""
+
+    def __init__(self):
+        self.dropped, self.chosen = 0, 0
+        self._route = moe_mod.route
+
+    def __enter__(self):
+        def route(*args, **kw):
+            r = self._route(*args, **kw)
+            self.dropped += r.dropped
+            self.chosen += int(r.sel.sum())
+            return r
+
+        moe_mod.route = route
+        return self
+
+    def __exit__(self, *exc):
+        moe_mod.route = self._route
+
+
+def phase_card_vs_cpu(name, cfg, kernels):
+    """``cfg`` (an fp32 cut of ``name``): greedy prefill + 8 decode steps
+    on the card against the CPU plain path, teacher-forced with the card's
+    tokens.  ``kernels``: the wrapper modules whose launch counters the CPU
+    path must leave alone.  A model with MoE layers must drop the same
+    choices on both."""
     B, P, steps = 2, 128, 8
     max_seq = P + steps + 1
     model = model_zoo.build_model(cfg, max_seq=max_seq)
@@ -771,33 +830,41 @@ def phase_card_vs_cpu(arch, kernel):
                         device="cuda")
     prompt = torch.from_numpy(np.random.RandomState(SEED + 1).randint(
         0, cfg.vocab_size, (B, P)).astype(np.int32))
-    toks_g, logits_g = _greedy_logits(model, params, prompt.to("cuda"),
-                                      steps, max_seq)
-    before = kernel.launches
+    with _DropCounter() as drops_g:
+        toks_g, logits_g = _greedy_logits(model, params, prompt.to("cuda"),
+                                          steps, max_seq)
+    before = [k.launches for k in kernels]
     params_c = cmte.tree_map(lambda t: t.cpu(), params)
     del params
     torch.cuda.empty_cache()
     # the CPU plain path, teacher-forced with the card's tokens
-    cache = model.init_cache(B, max_seq, device="cpu")
-    logits, cache = model.prefill(params_c, prompt, cache)
-    outs = [logits]
-    for i in range(steps):
-        logits, cache = model.decode_step(params_c, toks_g[:, i:i + 1].cpu(),
-                                          cache, P + i)
-        outs.append(logits)
+    with _DropCounter() as drops_c:
+        cache = model.init_cache(B, max_seq, device="cpu")
+        logits, cache = model.prefill(params_c, prompt, cache)
+        outs = [logits]
+        for i in range(steps):
+            logits, cache = model.decode_step(
+                params_c, toks_g[:, i:i + 1].cpu(), cache, P + i)
+            outs.append(logits)
     logits_c = torch.stack(outs, dim=1)
-    if kernel.launches != before:
-        raise AssertionError("the CPU plain path launched the kernel")
+    if [k.launches for k in kernels] != before:
+        raise AssertionError("the CPU plain path launched a kernel")
+    if (drops_g.dropped, drops_g.chosen) != (drops_c.dropped, drops_c.chosen):
+        raise AssertionError(f"MoE drops differ: card {drops_g.dropped} of "
+                             f"{drops_g.chosen}, CPU {drops_c.dropped} of "
+                             f"{drops_c.chosen}")
     err = _max_err(logits_g.cpu(), logits_c, CPU_RTOL, CPU_ATOL,
                    "card vs CPU logits")
     checked, total = _margin_tokens_agree(
         toks_g.cpu(), logits_c, CPU_ATOL + CPU_RTOL * float(
             logits_c.abs().max()), "card vs CPU tokens")
-    print(f"card vs CPU: {arch} full width cut to {cfg.num_layers} "
-          f"layers, fp32, B={B} prompt {P} + {steps} decode steps: logits "
-          f"match (worst |err| {err:.3e} at rtol {CPU_RTOL} atol "
+    moe_note = (f"; MoE choices dropped past capacity: {drops_c.dropped} of "
+                f"{drops_c.chosen} on both" if drops_c.chosen else "")
+    print(f"card vs CPU: {name} cut to {cfg.num_layers} layers, d "
+          f"{cfg.d_model}, fp32, B={B} prompt {P} + {steps} decode steps: "
+          f"logits match (worst |err| {err:.3e} at rtol {CPU_RTOL} atol "
           f"{CPU_ATOL}); greedy tokens identical at {checked} of {total} "
-          f"positions whose margin allows")
+          f"positions whose margin allows{moe_note}")
 
 
 # ---------------------------------------------------------------------------
@@ -1031,24 +1098,305 @@ def phase_rwkv(smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 10. ssd against its plain version
+# ---------------------------------------------------------------------------
+
+
+def _ssd_inputs(B, T, H, P, N, dtype, gen, a_lo=0.3, a_hi=1.0, state=True,
+                broadcast=False):
+    """x, B, C normal and a uniform in [a_lo, a_hi), in ``dtype``; the
+    incoming state (B, H, N, P) normal fp32 (or none).  ``broadcast``: B
+    and C one (B, T, N) projection expanded across the heads (stride 0),
+    as Jamba's mixer makes them."""
+    x = torch.randn((B, T, H, P), generator=gen, device="cuda").to(dtype)
+    a = a_lo + (a_hi - a_lo) * torch.rand((B, T, H), generator=gen,
+                                          device="cuda")
+    hb = 1 if broadcast else H
+    Bm, Cm = (torch.randn((B, T, hb, N), generator=gen,
+                          device="cuda").to(dtype) for _ in range(2))
+    if broadcast:
+        Bm, Cm = Bm.expand(B, T, H, N), Cm.expand(B, T, H, N)
+    s0 = (torch.randn((B, H, N, P), generator=gen, device="cuda") if state
+          else None)
+    return x, a.to(dtype), Bm, Cm, s0
+
+
+def _check_ssd(B, T, H, P, N, chunk, dtype, gen, **kw):
+    """Kernel vs plain version on one input; returns the worst abs error
+    over y and the state."""
+    x = _ssd_inputs(B, T, H, P, N, dtype, gen, **kw)
+    y, s = ops.ssd(*x, chunk=chunk)
+    y_want, s_want = ops.plain_ssd(*x, chunk=chunk)
+    torch.cuda.synchronize()
+    tag = f"ssd (B,T,H,P,N)=({B},{T},{H},{P},{N}) chunk {chunk} {dtype} {kw}"
+    for g, w in ((y, y_want), (s, s_want)):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{tag}: output {tuple(g.shape)} {g.dtype} "
+                                 f"vs {tuple(w.shape)} {w.dtype}")
+    rtol, atol = SSD_TOL[dtype]
+    return max(_max_err(y.float(), y_want.float(), rtol, atol, f"{tag} y"),
+               _max_err(s, s_want, rtol, atol, f"{tag} state"))
+
+
+def _stored_bytes(t):
+    """Bytes of the distinct elements of ``t`` (a broadcast dimension,
+    stride 0, counts once): what a kernel reading it through its strides
+    must move."""
+    n = 1
+    for size, stride in zip(t.shape, t.stride()):
+        if stride:
+            n *= size
+    return n * t.element_size()
+
+
+def ssd_bound(x, a, Bm, Cm, state):
+    """Least time for the work, in ms: x, a, B, C read (B and C as the
+    kernel receives them) and y written once in their dtype, the state in
+    (when given) and out in fp32, against the recurrence's 4*B*T*H*N*P
+    operations (the count of ``src/repro/launch/roofline.py``) at the peak
+    of the inputs' type."""
+    B, T, H, P = x.shape
+    N = Bm.shape[-1]
+    nbytes = (2 * _stored_bytes(x) + _stored_bytes(a) + _stored_bytes(Bm)
+              + _stored_bytes(Cm) + (2 if state is not None else 1)
+              * B * H * N * P * 4)
+    flops = 4 * B * T * H * N * P
+    peak = PEAK_BF16_PER_S if x.dtype == torch.bfloat16 else PEAK_FP32_PER_S
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def phase_ssd(smi):
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    worst, cases = 0.0, 0
+    f32, bf16 = torch.float32, torch.bfloat16
+    for dtype in (f32, bf16):
+        for B, T, H, P, N, chunk, kw in (
+                # the reference's sweep (tests/test_kernels.py)
+                (1, 64, 2, 16, 8, 16, {}), (2, 128, 4, 32, 16, 32, {}),
+                (1, 128, 2, 128, 16, 64, {}),      # Jamba's head shape
+                (2, 64, 8, 32, 8, 64, dict(broadcast=True)),  # smoke preset
+                (1, 96, 2, 128, 16, 48, {}),       # chunks below 64
+                (2, 128, 4, 16, 16, 16, {}),
+                (1, 8, 2, 16, 8, 1, {}),
+                (1, 128, 2, 32, 16, 32, dict(a_lo=1e-4, a_hi=2e-4)),
+                (1, 128, 2, 32, 16, 64, dict(a_lo=0.999, a_hi=1.0)),
+                (2, 64, 2, 128, 8, 64, dict(state=False)),
+                (*SSD_SERVE, 64, dict(broadcast=True))):  # Jamba's prefill
+            worst = max(worst, _check_ssd(B, T, H, P, N, chunk, dtype, gen,
+                                          **kw))
+            cases += 1
+    print(f"ssd: kernel == plain version on {cases} cases (fp32 and bf16; "
+          f"P 16/32/128, N 8/16, chunks 1, 16, 32, 48, 64, strong decay, "
+          f"decay near 1, no state, B and C broadcast, the jamba serving "
+          f"shape); worst |err| {worst:.3e} (fp32 rtol {SSD_TOL[f32][0]} "
+          f"atol {SSD_TOL[f32][1]}, bf16 rtol {SSD_TOL[bf16][0]} atol "
+          f"{SSD_TOL[bf16][1]})")
+
+    B, T, H, P, N = SSD_SERVE
+    x = _ssd_inputs(B, T, H, P, N, bf16, gen, broadcast=True)
+    fns = {"ms": lambda: ops.ssd(*x, chunk=64),
+           "plain_ms": lambda: ops.plain_ssd(*x, chunk=64)}
+    t = {key: graph_ms(f, calls=10, replays=10) for key, f in fns.items()}
+    t.update({key.replace("ms", "eager_ms"): time_ms(f, iters=20, warmup=3)
+              for key, f in fns.items()})
+    t["bound_ms"], t["bound_by"] = ssd_bound(*x)
+    t["library_ms"] = None             # no single PyTorch call computes SSD
+    print(f"ssd prefill (B,T,H,P,N)=({B},{T},{H},{P},{N}) bf16, B and C "
+          f"broadcast, chunk 64: device time per call (CUDA graph) kernel "
+          f"{t['ms']:.6f} ms, plain {t['plain_ms']:.6f} ms; eager per call "
+          f"kernel {t['eager_ms']:.6f} ms, plain {t['plain_eager_ms']:.6f} "
+          f"ms; bound {t['bound_ms']:.6f} ms ({t['bound_by']}); no library "
+          f"call computes SSD [{smi}]")
+    return worst, t
+
+
+# ---------------------------------------------------------------------------
+# 11. the Jamba serving path: the one-card cut of jamba-1.5-large
+# ---------------------------------------------------------------------------
+
+
+def phase_jamba(smi):
+    cfg = get_arch(JAMBA_ARCH).model.replace(**ONE_CARD_CUT)
+    groups = cfg.num_layers // 8
+    n_ssd, n_attn = 7 * groups, groups
+    max_seq = LM_PROMPT + LM_GEN
+    model = model_zoo.build_model(cfg, max_seq=max_seq)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED),
+                        device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in cmte.tree_leaves(params))
+    eng = ServeEngine(model, params, max_seq=max_seq, batch=LM_BATCH,
+                      device="cuda")
+    prompt = np.random.RandomState(SEED).randint(
+        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT)).astype(np.int32)
+    eng.generate({"tokens": prompt}, max_new_tokens=2)   # warm-up, not counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    ssd_kernel.launches = 0                      # main path starts here
+    fa_kernel.launches = 0
+    res = eng.generate({"tokens": prompt}, max_new_tokens=LM_GEN)
+    launches, fa_launches = ssd_kernel.launches, fa_kernel.launches
+    peak = torch.cuda.max_memory_allocated()
+    if launches != n_ssd or fa_launches != n_attn * LM_GEN:
+        raise AssertionError(
+            f"ssd launches {launches} != {n_ssd} Mamba layers x 1 prefill, "
+            f"or flash_attention launches {fa_launches} != {n_attn} "
+            f"attention layers x (1 prefill + {LM_GEN - 1} decode steps)")
+    toks = res.tokens
+    if toks.shape != (LM_BATCH, max_seq) or \
+            not np.array_equal(toks[:, :LM_PROMPT], prompt) or \
+            toks.min() < 0 or toks.max() >= cfg.padded_vocab:
+        raise AssertionError(f"generated tokens misshapen or out of range: "
+                             f"{toks.shape}")
+    print(f"Jamba serving {JAMBA_ARCH} one-card cut ({cfg.num_layers} "
+          f"layers, {cfg.moe_num_experts} experts top-{cfg.moe_top_k}; d "
+          f"{cfg.d_model}, d_ff {cfg.d_ff}, {cfg.num_heads} heads over "
+          f"{cfg.num_kv_heads} kv, {cfg.mamba_num_heads} SSD heads of P "
+          f"{cfg.mamba_head_dim}, N {cfg.mamba_d_state}, vocab "
+          f"{cfg.vocab_size}; {n_params} params fp32, {cfg.dtype} "
+          f"activations), init {t_init:.2f} s: B={LM_BATCH} prompt "
+          f"{LM_PROMPT} + {LM_GEN} new tokens: prefill "
+          f"{res.prefill_seconds:.4f} s, decode {res.decode_seconds:.4f} s = "
+          f"{res.decode_seconds / (LM_GEN - 1) * 1e3:.4f} ms per step, "
+          f"{res.decode_tokens_per_s:.1f} tokens/s, peak memory "
+          f"{peak / 2**30:.3f} GiB; ssd launches {launches} == {n_ssd} "
+          f"Mamba layers x 1 prefill, flash_attention launches "
+          f"{fa_launches} == {n_attn} x (1 + {LM_GEN - 1}) [{smi}]")
+
+    # a separate prefill launches each kernel once per layer; a decode
+    # step launches flash_attention only
+    prompt_t = torch.from_numpy(prompt).to("cuda")
+    gen_t = torch.from_numpy(toks[:, LM_PROMPT:].astype(np.int32)).to("cuda")
+    cache = model.init_cache(LM_BATCH, max_seq, device="cuda")
+    counts = []
+    for step in (lambda: model.prefill(eng.params, prompt_t, cache),
+                 lambda: model.decode_step(eng.params, gen_t[:, :1], cache,
+                                           LM_PROMPT)):
+        before = (ssd_kernel.launches, fa_kernel.launches)
+        step()
+        counts.append((ssd_kernel.launches - before[0],
+                       fa_kernel.launches - before[1]))
+    if counts != [(n_ssd, n_attn), (0, n_attn)]:
+        raise AssertionError(f"(ssd, flash_attention) launches in a prefill "
+                             f"and a decode step: {counts}")
+    del cache
+
+    # teacher-forced runs over the generated tokens, on the card
+    lk = teacher_forced(model, eng.params, prompt_t, gen_t, max_seq)
+    if not torch.isfinite(lk).all():
+        raise AssertionError("kernel path: non-finite logits")
+    scale = float(lk.abs().max())
+    checked, total = _margin_tokens_agree(gen_t, lk, 1e-3 * scale,
+                                          "generate vs its own replay")
+
+    # every ssd and attention call of the plain path (7 ssd calls in the
+    # prefill; one attention call per prefill and decode step), on the
+    # model's own activations, also through the kernels
+    plain = model_zoo.build_model(cfg, impl="plain")
+    n = {"ssd": 0, "fa": 0}
+    worst = {"y": 0.0, "s": 0.0, "fa": 0.0}
+    plain_ssd, plain_attention = ops.plain_ssd, ops.plain_attention
+
+    def shadow_ssd(x, a, Bm, Cm, state=None, *, chunk=64, state_out=None):
+        # the kernel first: the plain version overwrites the aliased state
+        y_k, s_k = ssd_kernel.ssd(x, a, Bm, Cm, state, chunk=chunk,
+                                  device=x.device)
+        y, s = plain_ssd(x, a, Bm, Cm, state, chunk=chunk,
+                         state_out=state_out)
+        rtol, atol = SSD_TOL[x.dtype]
+        worst["y"] = max(worst["y"], _max_err(y_k.float(), y.float(), rtol,
+                                              atol, f"ssd call {n['ssd']} y"))
+        worst["s"] = max(worst["s"], _max_err(s_k, s, rtol, atol,
+                                              f"ssd call {n['ssd']} state"))
+        n["ssd"] += 1
+        return y, s
+
+    def shadow_attention(q, k, v, **kw):
+        out = plain_attention(q, k, v, **kw)
+        kw.pop("q_chunk", None)
+        got = fa_kernel.flash_attention(q, k, v, device=q.device, **kw)
+        tol = FA_TOL[q.dtype]
+        worst["fa"] = max(worst["fa"], _max_err(
+            got.float(), out.float(), tol, tol, f"attention call {n['fa']}"))
+        n["fa"] += 1
+        return out
+
+    ops.plain_ssd, ops.plain_attention = shadow_ssd, shadow_attention
+    try:
+        lp = teacher_forced(plain, eng.params, prompt_t, gen_t, max_seq)
+    finally:
+        ops.plain_ssd, ops.plain_attention = plain_ssd, plain_attention
+    if (n["ssd"], n["fa"]) != (n_ssd, n_attn * LM_GEN):
+        raise AssertionError(f"{n} calls shadowed, not ssd {n_ssd} and "
+                             f"attention {n_attn * LM_GEN}")
+    p_scale = float(lp.abs().max())
+    drift = float((lk - lp).abs().max()) / p_scale
+    rtol, atol = SSD_TOL[torch.bfloat16]
+    print(f"Jamba serving: the kernels == their plain versions on every "
+          f"call of a teacher-forced plain run over the generated tokens "
+          f"(the model's own bf16 activations): ssd on all {n['ssd']} "
+          f"prefill calls (worst |err| y {worst['y']:.4e}, state "
+          f"{worst['s']:.4e} at rtol {rtol} atol {atol}), flash_attention "
+          f"(hd {cfg.resolved_head_dim}, {cfg.num_heads // cfg.num_kv_heads}"
+          f" q heads per kv head) on all {n['fa']} calls (worst |err| "
+          f"{worst['fa']:.4e} at rtol = atol = {FA_TOL[torch.bfloat16]}); "
+          f"generate's tokens == the argmax of its own teacher-forced replay "
+          f"at {checked} of {total} positions whose top-2 margin exceeds "
+          f"1e-3 x max|logit|; end-to-end logit drift of the kernel path "
+          f"from the plain path (not gated; max |err| / max|logit| "
+          f"{p_scale:.4e}): {drift:.4e}")
+    del lk, lp, eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, fa_launches
+
+
+def _timed(name, fn, *args):
+    """Run one phase; print its wall time."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"phase {name}: {time.perf_counter() - t0:.2f} s wall")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    info = phase_describe()
+    t_start = time.perf_counter()
+    info = _timed("describe and build", phase_describe)
     smi = info["nvidia_smi"]
-    worst, t = phase_kernels()
-    launches = phase_serving(smi)
-    fa_worst, fa_t = phase_flash(smi)
-    fa_launches = phase_lm(smi)
-    phase_card_vs_cpu(LM_ARCH, fa_kernel)
+    worst, t = _timed("committee_uq", phase_kernels)
+    launches = _timed("committee serving", phase_serving, smi)
+    fa_worst, fa_t = _timed("flash_attention", phase_flash, smi)
+    fa_launches = _timed("llama serving", phase_lm, smi)
+    _timed("llama card vs CPU", phase_card_vs_cpu, LM_ARCH,
+           two_layers(LM_ARCH), (fa_kernel,))
     gc.collect()
     torch.cuda.empty_cache()
     print(f"before the RWKV6 phases: {torch.cuda.memory_allocated() / 2**30:.3f}"
           f" GiB allocated on the card")
-    wkv_worst, wt = phase_wkv6(smi)
-    wkv_launches = phase_rwkv(smi)
-    phase_card_vs_cpu(RWKV_ARCH, wkv_kernel)
+    wkv_worst, wt = _timed("wkv6", phase_wkv6, smi)
+    wkv_launches = _timed("rwkv6 serving", phase_rwkv, smi)
+    _timed("rwkv6 card vs CPU", phase_card_vs_cpu, RWKV_ARCH,
+           two_layers(RWKV_ARCH), (wkv_kernel,))
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"before the Jamba phases: {torch.cuda.memory_allocated() / 2**30:.3f}"
+          f" GiB allocated on the card")
+    ssd_worst, st = _timed("ssd", phase_ssd, smi)
+    ssd_launches, jamba_fa_launches = _timed("jamba serving", phase_jamba,
+                                             smi)
+    _timed("jamba card vs CPU", phase_card_vs_cpu, JAMBA_ARCH,
+           get_arch(JAMBA_ARCH).model.replace(**JAMBA_NARROW),
+           (ssd_kernel, fa_kernel))
+    print(f"all phases: {time.perf_counter() - t_start:.2f} s wall")
     fd, fp = fa_t["decode"], fa_t["prefill"]
     print(json.dumps({"kernels": [{
         "name": "committee_uq", "route": "cuda",
@@ -1072,7 +1420,8 @@ def main() -> int:
         "prefill_bound_ms": fp["bound_ms"],
         "prefill_bound_by": fp["bound_by"],
         "prefill_library_ms": fp["library_ms"],
-        "prefill_eager_ms": fp["eager_ms"]}, {
+        "prefill_eager_ms": fp["eager_ms"],
+        "jamba_launches": jamba_fa_launches}, {
         "name": "wkv6", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/wkv6.cu",
         "replaces": "src/repro/kernels/wkv6.py:72",
@@ -1080,7 +1429,15 @@ def main() -> int:
         "ms": wt["ms"], "plain_ms": wt["plain_ms"],
         "bound_ms": wt["bound_ms"], "bound_by": wt["bound_by"],
         "library_ms": wt["library_ms"], "eager_ms": wt["eager_ms"],
-        "plain_eager_ms": wt["plain_eager_ms"]}]}))
+        "plain_eager_ms": wt["plain_eager_ms"]}, {
+        "name": "ssd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:65",
+        "launches": ssd_launches, "max_abs_err": ssd_worst,
+        "ms": st["ms"], "plain_ms": st["plain_ms"],
+        "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
+        "library_ms": st["library_ms"], "eager_ms": st["eager_ms"],
+        "plain_eager_ms": st["plain_eager_ms"]}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -45,3 +45,19 @@ SPEC = ArchSpec(
                                        # TP; 256-way costs gather collectives
     train=TrainConfig(quantized_opt_state=True),
 )
+
+ONE_CARD_CUT = {"num_layers": 8, "moe_num_experts": 2}
+"""The one-card cut of this model (``MODEL.replace(**ONE_CARD_CUT)``), for
+one H100 80GB.  Counted with ``model_zoo.count_params``: 397.6 B
+parameters whole; at 8 layers (one period-8 group, the least depth
+``jamba.param_specs`` takes) 45.13 B with 16 experts, 16.14 B with 4,
+13.73 B with 3 and 11.31 B with 2.  ``ServeEngine`` keeps the fp32
+parameters and their bf16 compute copy, 6 bytes per parameter: 270.8,
+96.9, 82.4 and 67.9 GB (63.2 GiB), so only 2 experts leave room for
+activations on an 80 GB card.  Every width stays published (d_model 8192,
+d_ff 24576, vocab 65536, 64 heads over 8 kv heads of 128, Mamba d_inner
+16384 as 128 SSD heads of P = 128 with d_state 16 and d_conv 4, top-2
+routing at capacity factor 1.25 in groups of 1024, attention at offset 4
+of 8, MoE on odd offsets).  Top-2 of 2 experts sends every token to both,
+and the capacity min(1280, 1024) drops nothing: the cut runs the router,
+dispatch and combine but never a drop."""

@@ -11,7 +11,7 @@ all at once.
 No ``--use_fast_math``: the non-finite quarantine of ``committee_uq``
 depends on exact ``isfinite`` and IEEE division/sqrt, ``flash_attention``
 keeps IEEE ``expf`` and division to stay within the reference's tolerances,
-and the decay path of ``wkv6`` needs IEEE ``expf`` and ``logf``.
+and the decay paths of ``wkv6`` and ``ssd`` need IEEE ``expf`` and ``logf``.
 """
 from __future__ import annotations
 
@@ -27,7 +27,7 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("committee_uq", "flash_attention", "wkv6")
+SOURCES = ("committee_uq", "flash_attention", "ssd", "wkv6")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

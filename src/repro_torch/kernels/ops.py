@@ -11,6 +11,7 @@ import torch
 from repro_torch.kernels import committee_uq as _cuq
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd as _ssd
 from repro_torch.kernels import wkv6 as _wkv6
 
 
@@ -70,8 +71,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     raise ValueError(f"attention: no implementation for device {q.device}")
 
 
-def _wkv6_chunk(T: int, chunk: int) -> int:
-    """The reference's rule: the chunk is cut to T, and must divide it."""
+def _chunk(T: int, chunk: int) -> int:
+    """The reference's rule for the chunked scans (wkv6, ssd): the chunk is
+    cut to T, and must divide it."""
     chunk = min(chunk, T)
     if chunk < 1 or T % chunk:
         raise ValueError(f"T={T} not divisible by chunk={chunk}")
@@ -83,7 +85,7 @@ def plain_wkv6(r, k, v, w, u, state=None, *, chunk: int = 64,
     """The plain version on any device: ``ref.wkv6_chunked_ref``, its
     state copied into ``state_out`` when given."""
     y, s = ref.wkv6_chunked_ref(r, k, v, w, u, state,
-                                chunk=_wkv6_chunk(r.shape[1], chunk))
+                                chunk=_chunk(r.shape[1], chunk))
     if state_out is not None:
         state_out.copy_(s)
         s = state_out
@@ -102,7 +104,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
                           state_out=state_out)
     if r.device.type == "cuda":
         return _wkv6.wkv6(r, k, v, w, u, state,
-                          chunk=_wkv6_chunk(r.shape[1], chunk),
+                          chunk=_chunk(r.shape[1], chunk),
                           state_out=state_out, device=r.device)
     raise ValueError(f"wkv6: no implementation for device {r.device}")
 
@@ -111,3 +113,40 @@ def wkv6_decode(r, k, v, w, u, state):
     """One recurrent step (r, k, v, w: (B, H, N)): plain PyTorch on every
     device, as the reference's is plain jnp."""
     return ref.wkv6_decode_ref(r, k, v, w, u, state)
+
+
+def plain_ssd(x, a, Bm, Cm, state=None, *, chunk: int = 64,
+              state_out: Optional[torch.Tensor] = None):
+    """The plain version on any device: ``ref.ssd_chunked_ref``, its state
+    copied into ``state_out`` when given."""
+    y, s = ref.ssd_chunked_ref(x, a, Bm, Cm, state,
+                               chunk=_chunk(x.shape[1], chunk))
+    if state_out is not None:
+        state_out.copy_(s)
+        s = state_out
+    return y, s
+
+
+def ssd(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+        state: Optional[torch.Tensor] = None, *, chunk: int = 64,
+        state_out: Optional[torch.Tensor] = None):
+    """Mamba-2/SSD chunked scan.  x: (B, T, H, P); a: (B, T, H); Bm, Cm:
+    (B, T, H, N) (the kernel reads them through their strides, so a
+    broadcast ``expand`` costs nothing); state: (B, H, N, P) fp32 or None.
+    Returns (y, state); the state is written into ``state_out`` when given
+    (which may be ``state`` itself).  Raises ``ValueError`` unless
+    ``min(chunk, T)`` divides T."""
+    if x.device.type == "cpu":
+        return plain_ssd(x, a, Bm, Cm, state, chunk=chunk,
+                         state_out=state_out)
+    if x.device.type == "cuda":
+        return _ssd.ssd(x, a, Bm, Cm, state,
+                        chunk=_chunk(x.shape[1], chunk),
+                        state_out=state_out, device=x.device)
+    raise ValueError(f"ssd: no implementation for device {x.device}")
+
+
+def ssd_decode(x, a, Bm, Cm, state):
+    """One recurrent step (x: (B, H, P), a: (B, H), Bm, Cm: (B, H, N)):
+    plain PyTorch on every device, as the reference's is plain jnp."""
+    return ref.ssd_decode_ref(x, a, Bm, Cm, state)

@@ -225,3 +225,91 @@ def wkv6_decode_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     y = torch.einsum("bhn,bhnm->bhm", rf, state + uf[None, :, :, None] * kv)
     state = wf[..., :, None] * state + kv
     return y.to(v.dtype), state
+
+
+# ---------------------------------------------------------------------------
+# SSD scan (Mamba-2 form) — scalar decay per head
+# ---------------------------------------------------------------------------
+
+
+def ssd_ref(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
+            Cm: torch.Tensor, state: Optional[torch.Tensor] = None):
+    """Sequential-scan oracle.  x: (B, T, H, P) dt-scaled values; a:
+    (B, T, H) decay in (0, 1]; Bm, Cm: (B, T, H, N); state: (B, H, N, P)
+    fp32.
+
+    S_t = a_t S_{t-1} + B_t^T x_t;  y_t = C_t S_t
+    Returns (y (B, T, H, P) in ``x.dtype``, state_out (B, H, N, P) fp32)."""
+    B, T, H, P = x.shape
+    N = Bm.shape[-1]
+    xf, af, bf, cf = (z.to(torch.float32) for z in (x, a, Bm, Cm))
+    S = (torch.zeros((B, H, N, P), dtype=torch.float32, device=x.device)
+         if state is None else state.to(torch.float32))
+    ys = []
+    for t in range(T):
+        S = af[:, t, :, None, None] * S + \
+            bf[:, t, :, :, None] * xf[:, t, :, None, :]
+        ys.append(torch.einsum("bhn,bhnp->bhp", cf[:, t], S))
+    return torch.stack(ys, dim=1).to(x.dtype), S
+
+
+def ssd_chunked_ref(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
+                    Cm: torch.Tensor, state: Optional[torch.Tensor] = None,
+                    chunk: int = 64):
+    """Chunked SSD (Mamba-2): the plain version of the ``ssd`` kernel, line
+    for line the reference's.  Per chunk of C rows, with la = log(max(a,
+    1e-12)), incl = cumsum(la) and total = incl[C-1]:
+      y = exp(incl) * (C @ S) + (mask(C B^T) * exp(clip(incl_t - incl_j,
+          -60, 0))) @ x,
+      S' = exp(total) * S + (B * exp(clip(total - incl, -60, 0)))^T @ x.
+    Decay ratios are bounded by 1, so the form is numerically benign.
+    Raises ``ValueError`` unless ``chunk`` divides T."""
+    B, T, H, P = x.shape
+    N = Bm.shape[-1]
+    if T % chunk:
+        raise ValueError(f"T={T} not divisible by chunk={chunk}")
+    C = chunk
+    xf, bf, cf = (z.to(torch.float32) for z in (x, Bm, Cm))
+    la = torch.log(a.to(torch.float32).clamp_min(1e-12))    # (B, T, H)
+    S = (torch.zeros((B, H, N, P), dtype=torch.float32, device=x.device)
+         if state is None else state.to(torch.float32))
+    nC = T // C
+
+    def resh(z):                                       # (nC, B, H, C, *)
+        return z.reshape(B, nC, C, H, -1).permute(1, 0, 3, 2, 4)
+
+    xc, bc, cc = resh(xf), resh(bf), resh(cf)
+    lac = la.reshape(B, nC, C, H).permute(1, 0, 3, 2)  # (nC, B, H, C)
+    mask = torch.tril(torch.ones((C, C), dtype=torch.bool, device=x.device))
+    ys = []
+    for i in range(nC):
+        xt, bt, ct = xc[i], bc[i], cc[i]
+        incl = torch.cumsum(lac[i], dim=-1)            # log prod_{1..t}
+        total = incl[..., -1:]
+        # inter-chunk: y_t = exp(incl_t) * C_t @ S  (S from before the chunk)
+        y = torch.exp(incl)[..., None] * torch.einsum("bhcn,bhnp->bhcp",
+                                                      ct, S)
+        # intra-chunk: A[t, j] = (C_t . B_j) exp(incl_t - incl_j), j <= t
+        ratio = torch.exp(torch.clamp(incl[..., :, None] - incl[..., None, :],
+                                      -60.0, 0.0))
+        A = torch.einsum("bhtn,bhjn->bhtj", ct, bt) * ratio
+        A = torch.where(mask[None, None], A, 0.0)
+        y = y + torch.einsum("bhtj,bhjp->bhtp", A, xt)
+        # state update
+        b_dec = bt * torch.exp(torch.clamp(total - incl, -60.0, 0.0))[..., None]
+        S = torch.exp(total[..., 0])[..., None, None] * S + torch.einsum(
+            "bhjn,bhjp->bhnp", b_dec, xt)
+        ys.append(y)
+    y = torch.stack(ys, dim=0).permute(1, 0, 3, 2, 4).reshape(B, T, H, P)
+    return y.to(x.dtype), S
+
+
+def ssd_decode_ref(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
+                   Cm: torch.Tensor, state: torch.Tensor):
+    """Single-token step.  x: (B, H, P); a: (B, H); Bm, Cm: (B, H, N);
+    state (B, H, N, P) fp32.  Returns (y (B, H, P) in ``x.dtype``, new
+    state)."""
+    xf, af, bf, cf = (z.to(torch.float32) for z in (x, a, Bm, Cm))
+    state = af[..., None, None] * state + bf[..., :, None] * xf[..., None, :]
+    y = torch.einsum("bhn,bhnp->bhp", cf, state)
+    return y.to(x.dtype), state

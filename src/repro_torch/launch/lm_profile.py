@@ -2,19 +2,23 @@
 
     PYTHONPATH=src python -m repro_torch.launch.lm_profile [--out F]
     PYTHONPATH=src python -m repro_torch.launch.lm_profile --arch rwkv6-7b
+    PYTHONPATH=src python -m repro_torch.launch.lm_profile \\
+        --arch jamba-1.5-large-398b
 
 Builds ``--arch`` (default llama3.2-1b; any family ``build_model`` ports)
-at full width, with random weights from ``--seed``, behind ``ServeEngine``,
-and reports, each line with the card's name and power limit:
+at full width, with random weights from ``--seed``, behind ``ServeEngine``
+(jamba-1.5-large-398b as its one-card cut, ``ONE_CARD_CUT``: 8 layers and
+2 experts, every width published), and reports, each line with the card's
+name and power limit:
 
 * one ``generate`` of ``--batch`` prompts of ``--prompt-len`` tokens and
   ``--gen`` new tokens: prefill seconds, decode seconds per step, decode
   tokens/s (host clock around synchronized work), peak device memory;
 * a ``torch.profiler`` table of the device kernels of one prefill and of
   ``--profile-steps`` decode steps: device time of the hand-written
-  kernels (``flash_attention``, ``wkv6``), of the matrix products (cuBLAS's
-  ``nvjet``/``gemm`` kernels) and of the rest, and each hand-written
-  kernel's share of device time;
+  kernels (``flash_attention``, ``wkv6``, ``ssd``), of the matrix
+  products (cuBLAS's ``nvjet``/``gemm`` kernels) and of the rest, and
+  each hand-written kernel's share of device time;
 * the device's busy share: that device time over the host-clock wall of
   the same work run again without the profiler (the profiler's own host
   overhead would inflate the wall it sees).
@@ -34,12 +38,15 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_arch
+from repro_torch.configs.jamba1p5_large_398b import ONE_CARD_CUT
 from repro_torch.launch import platform
 from repro_torch.models import model_zoo
 from repro_torch.serving import ServeEngine
 
 KERNEL_GROUPS = (("flash_attention", ("flash_attention_kernel",)),
-                 ("wkv6", ("wkv6_kernel",)))
+                 ("wkv6", ("wkv6_kernel",)), ("ssd", ("ssd_kernel",)))
+# archs too large for one card, cut as their config files state
+ONE_CARD_CUTS = {"jamba-1.5-large-398b": ONE_CARD_CUT}
 GROUPS = KERNEL_GROUPS + (
     ("matmul", ("nvjet", "gemm", "cutlass", "xmma", "sm90_")),)
 
@@ -109,7 +116,7 @@ def profile(arch: str, batch: int, prompt_len: int, gen: int,
     info = platform.describe()
     card = info["nvidia_smi"]
     platform.set_reference_precision()
-    cfg = get_arch(arch).model
+    cfg = get_arch(arch).model.replace(**ONE_CARD_CUTS.get(arch, {}))
     max_seq = prompt_len + gen
     model = model_zoo.build_model(cfg, max_seq=max_seq)
     params = model.init(torch.Generator(device="cuda").manual_seed(seed),
@@ -121,7 +128,8 @@ def profile(arch: str, batch: int, prompt_len: int, gen: int,
     eng.generate({"tokens": prompt}, max_new_tokens=4)          # warm-up
     torch.cuda.reset_peak_memory_stats()
     res = eng.generate({"tokens": prompt}, max_new_tokens=gen)
-    out = {"device": info, "arch": arch, "batch": batch,
+    out = {"device": info, "arch": arch, "cut": ONE_CARD_CUTS.get(arch),
+           "batch": batch,
            "prompt_len": prompt_len, "gen": gen,
            "prefill_s": res.prefill_seconds,
            "decode_s_per_step": res.decode_seconds / max(gen - 1, 1),

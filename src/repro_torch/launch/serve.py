@@ -8,6 +8,13 @@ with ``--device``; the CUDA device by default, and an error without it).
       --preset full --batch 8 --prompt-len 512 --gen 64
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --preset smoke
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+      --arch jamba-1.5-large-398b --preset smoke
+
+``--preset full`` of jamba-1.5-large-398b raises at once: its 397.6 B
+parameters do not fit one card.  Its one-card cut (``ONE_CARD_CUT`` in
+``configs/jamba1p5_large_398b.py``) runs through ``launch/lm_profile.py``
+and ``chip_smoke.py``.
 """
 from __future__ import annotations
 
@@ -37,9 +44,16 @@ def main(argv=None):
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
 
-    dev = platform.resolve_device(args.device)
     spec = get_arch(args.arch)
     cfg = reduced_config(spec.model, args.preset)
+    if cfg.family == "hybrid" and args.preset == "full":
+        n = model_zoo.count_params(cfg)
+        raise ValueError(
+            f"{args.arch} --preset full: {n / 1e9:.1f} B parameters do not "
+            f"fit one card (the engine keeps fp32 weights and a bf16 copy, "
+            f"{6 * n / 1e9:.1f} GB); its one-card cut ONE_CARD_CUT runs "
+            f"through launch/lm_profile.py and chip_smoke.py")
+    dev = platform.resolve_device(args.device)
     max_seq = args.prompt_len + args.gen + (
         cfg.vision_tokens if cfg.family == "vlm" else 0)
     model = model_zoo.build_model(cfg, max_seq=max_seq)

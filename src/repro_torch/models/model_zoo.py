@@ -1,24 +1,23 @@
 """Model zoo: the uniform build / serve API of ``repro/models/model_zoo.py``.
 
 ``build_model(cfg)`` dispatches on ``cfg.family``.  The port builds the
-dense and rwkv6 families so far; every other family raises
-``NotImplementedError`` naming the ROADMAP item (§A) and the kernel it
-waits for.  The reference's
-dry-run stand-ins (``input_specs`` / ``decode_input_specs``) wait for the
-planners item, and its loss builder for the training slice.
+dense, rwkv6 and hybrid (Jamba) families so far; every other family raises
+``NotImplementedError`` naming the ROADMAP item (§A) it waits for.  The
+reference's dry-run stand-ins (``input_specs`` / ``decode_input_specs``)
+wait for the planners item, and its ``make_loss_fn`` for the training slice.
 """
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common as cm
+from repro_torch.models import jamba
 from repro_torch.models import rwkv6
 from repro_torch.models import transformer as tfm
 
 _WAITING = {
-    "hybrid": "the Mamba/SSD slice (ROADMAP §A, queue 1: models/mamba.py and "
-              "models/jamba.py with the ssd kernel)",
-    "moe": "the rest of the LM zoo (ROADMAP §A item 9: models/moe.py; its "
-           "attention runs the ported flash_attention kernel)",
+    "moe": "the rest of the LM zoo (ROADMAP §A item 9: MoELM of "
+           "models/moe.py, whose moe_ffn is ported; its attention runs the "
+           "ported flash_attention kernel)",
     "encdec": "the rest of the LM zoo (ROADMAP §A item 9: "
               "models/whisper.py; its attention runs the ported "
               "flash_attention kernel)",
@@ -36,6 +35,8 @@ def build_model(cfg: ModelConfig, *, impl: str = "auto",
         return tfm.DenseLM(cfg, impl=impl)
     if cfg.family == "rwkv6":
         return rwkv6.RWKV6LM(cfg, impl=impl)
+    if cfg.family == "hybrid":
+        return jamba.JambaLM(cfg, impl=impl)
     if cfg.family in _WAITING:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet; it waits "

@@ -1,0 +1,148 @@
+"""Capacity-factor Mixture-of-Experts FFN, ported from
+``repro/models/moe.py`` (its ``moe_ffn_specs``, ``_top_k_one_hot`` and
+``moe_ffn``; Jamba's MoE layers run it).
+
+GShard/Switch-style routing as dense one-hot products over fixed shapes:
+tokens are grouped (``moe_group_size``), each group builds a (S, E, C)
+dispatch/combine tensor from each token's queue position inside each
+expert, tokens past an expert's capacity C are dropped, and the experts
+run as one batched product.  The router runs in fp32 on fp32 activations;
+the expert weights are cast to the activation dtype at use.
+
+Two places where PyTorch's primitives differ from JAX's are written out:
+``jax.lax.top_k`` breaks ties by the lower index (a stable descending sort
+here; ``torch.topk`` promises no order), and ``jax.nn.one_hot`` gives an
+all-zero row for a position past the capacity (``F.one_hot`` raises; a
+comparison against ``arange(C)`` here).
+
+The reference's sharding hints (``shard_constraint``) have no counterpart
+on one card.  ``MoELM`` (the qwen MoE family) is not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple
+
+import torch
+
+from repro_torch.configs import base as ax
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import common as cm
+from repro_torch.models import transformer as tfm
+from repro_torch.models.common import ParamSpec
+
+Params = Dict[str, Any]
+_proj = tfm._proj
+
+
+def moe_ffn_specs(cfg: ModelConfig) -> Params:
+    D, E, F = cfg.d_model, cfg.moe_num_experts, cfg.d_ff
+    s: Params = {
+        "ln": ParamSpec((D,), (ax.EMBED,), init="ones"),
+        "router": ParamSpec((D, E), (ax.EMBED, ax.EXPERTS), scale=0.1),
+        "wi": ParamSpec((E, D, F), (ax.EXPERTS, ax.EMBED, ax.EXPERT_MLP)),
+        "wg": ParamSpec((E, D, F), (ax.EXPERTS, ax.EMBED, ax.EXPERT_MLP)),
+        "wo": ParamSpec((E, F, D), (ax.EXPERTS, ax.EXPERT_MLP, ax.EMBED)),
+    }
+    if cfg.moe_num_shared_experts:
+        Fs = cfg.moe_shared_d_ff or cfg.moe_num_shared_experts * cfg.d_ff
+        s["shared"] = {
+            "wi": ParamSpec((D, Fs), (ax.EMBED, ax.MLP)),
+            "wg": ParamSpec((D, Fs), (ax.EMBED, ax.MLP)),
+            "wo": ParamSpec((Fs, D), (ax.MLP, ax.EMBED)),
+            "gate": ParamSpec((D, 1), (ax.EMBED, None), scale=0.1),
+        }
+    return s
+
+
+def _top_k_one_hot(gates: torch.Tensor, k: int):
+    """gates: (..., E) -> (weights (..., k), one-hot (..., k, E)); ties go
+    to the lower index, as ``jax.lax.top_k``'s."""
+    vals, idx = torch.sort(gates, dim=-1, descending=True, stable=True)
+    vals, idx = vals[..., :k], idx[..., :k]
+    E = gates.shape[-1]
+    oh = (idx[..., None] == torch.arange(E, device=gates.device)).to(
+        gates.dtype)
+    return vals, oh
+
+
+class Routing(NamedTuple):
+    """One layer's routing of (G, S) token groups over E experts."""
+    xs: torch.Tensor        # (G, S, D) normed tokens
+    probs: torch.Tensor     # (G, S, E) router softmax, fp32
+    top_oh: torch.Tensor    # (G, S, K, E) the top-k choices
+    sel: torch.Tensor       # (G, S, E) in {0, 1}: the token chose the expert
+    w_se: torch.Tensor      # (G, S, E) normalized top-k weights
+    pos: torch.Tensor       # (G, S, E) the token's queue position there
+    in_cap: torch.Tensor    # (G, S, E) bool: chose it and fits its capacity
+    capacity: int           # C, tokens per expert per group
+
+    @property
+    def dropped(self) -> int:
+        """Choices past their expert's capacity (host sync)."""
+        return int(((self.sel > 0) & ~self.in_cap).sum())
+
+
+def route(p: Params, x: torch.Tensor, cfg: ModelConfig) -> Routing:
+    """The routing half of ``moe_ffn``: x (B, T, D) -> ``Routing``."""
+    B, T, D = x.shape
+    E, K = cfg.moe_num_experts, cfg.moe_top_k
+    h = cm.rms_norm(x, p["ln"], cfg.norm_eps)
+    S = min(cfg.moe_group_size, B * T)
+    while (B * T) % S != 0:   # largest divisor of B*T <= moe_group_size
+        S -= 1
+    G = (B * T) // S
+    xs = h.reshape(G, S, D)
+
+    gates = xs.to(torch.float32) @ p["router"].to(torch.float32)
+    probs = torch.softmax(gates, dim=-1)
+    top_vals, top_oh = _top_k_one_hot(probs, K)            # (G,S,K), (G,S,K,E)
+    top_vals = top_vals / torch.clamp_min(top_vals.sum(-1, keepdim=True),
+                                          1e-9)
+    # reduce over k before the capacity one-hot (a token reaches an expert
+    # at most once)
+    sel = top_oh.sum(dim=2)                                # (G,S,E)
+    w_se = (top_vals[..., None] * top_oh).sum(dim=2)       # (G,S,E)
+    C = max(int(S * K * cfg.moe_capacity_factor / E), 1)
+    C = min(C, S)
+    pos = torch.cumsum(sel, dim=1) - sel                   # queue position
+    in_cap = (sel > 0) & (pos < C)
+    return Routing(xs, probs, top_oh, sel, w_se, pos, in_cap, C)
+
+
+def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig,
+            return_aux: bool = False):
+    """Capacity-factor MoE FFN.  x: (B, T, D) -> (B, T, D)[, aux_loss]."""
+    B, T, D = x.shape
+    E = cfg.moe_num_experts
+    r = route(p, x, cfg)
+    xs, C = r.xs, r.capacity
+    # one-hot of the queue position, all-zero past C (jax.nn.one_hot's rule)
+    pos_oh = (r.pos.to(torch.int64)[..., None]
+              == torch.arange(C, device=x.device)).to(xs.dtype)
+    disp = torch.where(r.in_cap[..., None], pos_oh,
+                       torch.zeros((), dtype=xs.dtype, device=x.device))
+    comb = disp * r.w_se[..., None].to(xs.dtype)           # (G,S,E,C)
+    expert_in = torch.einsum("gsec,gsd->egcd", disp, xs)   # (E,G,C,D)
+
+    act = cm.activation(cfg.act)
+    dt = expert_in.dtype
+    gph = torch.einsum("egcd,edf->egcf", expert_in, p["wg"].to(dt))
+    uph = torch.einsum("egcd,edf->egcf", expert_in, p["wi"].to(dt))
+    expert_out = torch.einsum("egcf,efd->egcd", act(gph) * uph,
+                              p["wo"].to(dt))              # (E,G,C,D)
+    out = torch.einsum("gsec,egcd->gsd", comb, expert_out)
+    out = out.reshape(B, T, D).to(x.dtype)
+
+    if "shared" in p:
+        sp = p["shared"]
+        h = xs.reshape(B, T, D)
+        sh = act(_proj(h, sp["wg"])) * _proj(h, sp["wi"])
+        sg = torch.sigmoid(_proj(h, sp["gate"]))
+        out = out + sg * _proj(sh, sp["wo"])
+
+    if not return_aux:
+        return out
+    # Switch-style load-balance loss: E * sum_e f_e * p_e
+    frac = r.top_oh.sum(dim=2).mean(dim=(0, 1))            # (E,)
+    mean_p = r.probs.mean(dim=(0, 1))
+    return out, E * torch.sum(frac * mean_p)

@@ -109,6 +109,20 @@ def test_lm_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         rwkv.init_cache(1, 8)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--arch", "rwkv6-7b", "--preset", "smoke"])
+    from repro_torch.kernels import ssd as ssd_kernel
+
+    jamba = model_zoo.build_model(reduced_config(
+        get_arch("jamba-1.5-large-398b").model, "smoke"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        jamba.init(torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        jamba.init_cache(1, 8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--arch", "jamba-1.5-large-398b", "--preset", "smoke"])
+    x = torch.zeros(1, 16, 2, 16)
+    b = torch.zeros(1, 16, 2, 8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ssd_kernel.ssd(x, x[..., 0], b, b)
 
 
 def test_kernel_wrapper_rejects_cpu_tensors():
@@ -135,7 +149,8 @@ def test_cpu_path_never_touches_the_kernel_loader(monkeypatch):
 
 def test_kernel_build_paths_stay_inside_the_checkout():
     assert _build.BUILD_DIR == ROOT / "build" / "repro_torch_kernels"
-    assert _build.SOURCES == ("committee_uq", "flash_attention", "wkv6")
+    assert _build.SOURCES == ("committee_uq", "flash_attention", "ssd",
+                              "wkv6")
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     for name in _build.SOURCES:
         assert (_build.CSRC / f"{name}.cu").is_file()

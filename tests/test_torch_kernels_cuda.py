@@ -10,8 +10,9 @@ both stds rtol 1e-4 atol 1e-6, mask and finite counts exact; for
 flash_attention its TOL, 2e-4 in fp32 and 2e-2 in bf16 (rtol and atol);
 for wkv6 its atol, 5e-3 in fp32 and 1e-1 in bf16, with an rtol (1e-4 in
 fp32, 2e-2 in bf16) for outputs of magnitude above 1, where one bf16 ulp
-exceeds the atol; all against the plain version on the same CUDA
-tensors."""
+exceeds the atol; for ssd the reference's atol, 5e-3 in fp32 and 1e-1 in
+bf16, with the same rtols as wkv6; all against the plain version on the
+same CUDA tensors."""
 import numpy as np
 import pytest
 import torch
@@ -294,5 +295,131 @@ def test_wkv6_kernel_rejects_what_it_does_not_take(cuda_device):
     before = kernel.launches
     kernel.wkv6(r, k, v, w, u, s0, chunk=16, device=cuda_device)
     kernel.wkv6(r, k, v, w, u, chunk=64, device=cuda_device)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2
+
+
+SSD_TOL = WKV_TOL
+
+
+def _ssd_inputs(B, T, H, P, N, dtype, device, seed=8, a_lo=0.3, a_hi=1.0,
+                state=True, broadcast=False):
+    """x, B, C normal and a uniform in [a_lo, a_hi), all in ``dtype``; the
+    state fp32 (or none).  ``broadcast``: B and C one (B, T, N) projection
+    expanded across the heads (stride 0), as Jamba's mixer makes them."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(B, T, H, P).astype(np.float32)
+    a = rng.uniform(a_lo, a_hi, (B, T, H)).astype(np.float32)
+    hb = 1 if broadcast else H
+    Bm, Cm = (rng.randn(B, T, hb, N).astype(np.float32) for _ in range(2))
+    s0 = rng.randn(B, H, N, P).astype(np.float32) if state else None
+    x, a, Bm, Cm = (torch.from_numpy(v).to(device, dtype)
+                    for v in (x, a, Bm, Cm))
+    if broadcast:
+        Bm, Cm = Bm.expand(B, T, H, N), Cm.expand(B, T, H, N)
+    return x, a, Bm, Cm, (None if s0 is None
+                          else torch.from_numpy(s0).to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("B,T,H,P,N,chunk,kw", [
+    (1, 64, 2, 16, 8, 16, {}),
+    (2, 128, 4, 32, 16, 32, {}),
+    (1, 128, 2, 128, 16, 64, {}),                 # Jamba's head shape
+    (2, 512, 16, 128, 16, 64, dict(broadcast=True)),  # Jamba's prefill, cut
+    (2, 64, 8, 32, 8, 64, dict(broadcast=True)),  # the smoke preset's
+    (1, 96, 2, 128, 16, 48, {}),                  # C < 64, not a power of two
+    (1, 8, 2, 16, 8, 1, {}),                      # C = 1
+    (1, 128, 2, 32, 16, 32, dict(a_lo=1e-4, a_hi=2e-4)),  # strong decay
+    (1, 128, 2, 32, 16, 64, dict(a_lo=0.999, a_hi=1.0)),  # decay near 1
+    (2, 64, 2, 128, 8, 64, dict(state=False)),    # no incoming state
+], ids=["sweep-p16", "sweep-p32", "p128", "jamba-broadcast", "smoke",
+        "c48", "c1", "strong-decay", "near-one", "no-state"])
+def test_ssd_kernel_matches_plain_version(cuda_device, dtype, B, T, H, P, N,
+                                          chunk, kw):
+    from repro_torch.kernels import ssd as kernel
+
+    x, a, Bm, Cm, s0 = _ssd_inputs(B, T, H, P, N, dtype, cuda_device, **kw)
+    before = kernel.launches
+    y, s = ops.ssd(x, a, Bm, Cm, s0, chunk=chunk)
+    assert kernel.launches == before + 1
+    y_want, s_want = ref.ssd_chunked_ref(x, a, Bm, Cm, s0, chunk=chunk)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and tuple(y.shape) == (B, T, H, P)
+    assert s.dtype == torch.float32 and tuple(s.shape) == (B, H, N, P)
+    assert torch.isfinite(y.float()).all() and torch.isfinite(s).all()
+    np.testing.assert_allclose(y.float().cpu().numpy(),
+                               y_want.float().cpu().numpy(), **SSD_TOL[dtype])
+    np.testing.assert_allclose(s.cpu().numpy(), s_want.cpu().numpy(),
+                               **SSD_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_state_in_and_out_may_alias(cuda_device):
+    """A layer's cache slice is both the incoming state and the output."""
+    x, a, Bm, Cm, s0 = _ssd_inputs(2, 128, 4, 128, 16, torch.bfloat16,
+                                   cuda_device, seed=5, broadcast=True)
+    y_want, s_want = ops.ssd(x, a, Bm, Cm, s0, chunk=64)
+    cache = torch.zeros((3,) + tuple(s0.shape), device=cuda_device)
+    cache[1] = s0
+    y, s = ops.ssd(x, a, Bm, Cm, cache[1], chunk=64, state_out=cache[1])
+    torch.cuda.synchronize()
+    assert s.data_ptr() == cache[1].data_ptr()
+    assert torch.equal(y, y_want) and torch.equal(cache[1], s_want)
+    assert not cache[0].any() and not cache[2].any()
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_reads_broadcast_B_and_C_as_materialized(cuda_device):
+    x, a, Bm, Cm, s0 = _ssd_inputs(2, 128, 8, 32, 16, torch.float32,
+                                   cuda_device, seed=6, broadcast=True)
+    assert Bm.stride(2) == 0
+    y, s = ops.ssd(x, a, Bm, Cm, s0, chunk=32)
+    y2, s2 = ops.ssd(x, a, Bm.contiguous(), Cm.contiguous(), s0, chunk=32)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(s, s2)
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_rejects_what_it_does_not_take(cuda_device):
+    from repro_torch.kernels import ssd as kernel
+
+    x, a, Bm, Cm, s0 = _ssd_inputs(1, 64, 2, 32, 16, torch.float32,
+                                   cuda_device)
+    with pytest.raises(ValueError, match="head dims"):
+        x64 = torch.zeros(1, 64, 2, 64, device=cuda_device)
+        kernel.ssd(x64, a, Bm, Cm, device=cuda_device)
+    with pytest.raises(ValueError, match="state dims"):
+        b4 = torch.zeros(1, 64, 2, 4, device=cuda_device)
+        kernel.ssd(x, a, b4, b4, device=cuda_device)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        kernel.ssd(x.half(), a.half(), Bm.half(), Cm.half(),
+                   device=cuda_device)
+    with pytest.raises(TypeError, match="one dtype"):
+        kernel.ssd(x, a.to(torch.bfloat16), Bm, Cm, device=cuda_device)
+    with pytest.raises(ValueError, match="chunk"):
+        kernel.ssd(x, a, Bm, Cm, chunk=128, device=cuda_device)
+    with pytest.raises(ValueError, match="chunk"):
+        kernel.ssd(x, a, Bm, Cm, chunk=48, device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous x and a"):
+        xt = x.transpose(1, 2).contiguous().transpose(1, 2)
+        kernel.ssd(xt, a, Bm, Cm, device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous last"):
+        bt = Bm.transpose(2, 3).contiguous().transpose(2, 3)
+        kernel.ssd(x, a, bt, Cm, device=cuda_device)
+    with pytest.raises(ValueError, match="a must be"):
+        kernel.ssd(x, a[:, :32], Bm, Cm, device=cuda_device)
+    with pytest.raises(ValueError, match="state"):
+        kernel.ssd(x, a, Bm, Cm, s0[:, :1], device=cuda_device)
+    with pytest.raises(ValueError, match="state_out"):
+        kernel.ssd(x, a, Bm, Cm, s0, state_out=s0.to(torch.bfloat16),
+                   device=cuda_device)
+    with pytest.raises(ValueError, match="expected the CUDA device"):
+        kernel.ssd(x.cpu(), a, Bm, Cm, device=cuda_device)
+    before = kernel.launches
+    kernel.ssd(x, a, Bm, Cm, s0, chunk=16, device=cuda_device)
+    kernel.ssd(x, a, Bm, Cm, chunk=64, device=cuda_device)
     torch.cuda.synchronize()
     assert kernel.launches == before + 2

@@ -305,7 +305,7 @@ def test_serve_engine_refuses_params_elsewhere_and_overlong_requests():
         ServeEngine(tm, tparams, max_seq=20, batch=2, device="meta")
 
 
-@pytest.mark.parametrize("family", ["moe", "hybrid", "encdec", "vlm"])
+@pytest.mark.parametrize("family", ["moe", "encdec", "vlm"])
 def test_build_model_raises_for_families_not_ported(family):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         model_zoo.build_model(_tcfg(tiny_config(family)))
