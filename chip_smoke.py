@@ -17,14 +17,21 @@ Phases (each raises on a failed check; the script exits non-zero):
    replayed through a CPU engine with the same weights; the kernel's launch
    count must equal the engine's dispatch count;
 4. flash phase: ``flash_attention`` against its plain version on the same
-   CUDA tensors over the reference's sweep, decode with ``kv_len``, the
-   sliding-window decode, ragged T and S, head dims 16 and 120 and the two
-   llama3.2-1b serving shapes, timed there beside its plain version, its
-   bound and ``scaled_dot_product_attention``;
+   CUDA tensors over the reference's sweep, decode with ``kv_len`` (0, 1,
+   on and either side of a split boundary), the sliding-window decode,
+   multi-token decodes on both paths, ragged T and S, head dims 16 and 120
+   and the llama3.2-1b and Jamba serving shapes, each call on the path the
+   wrapper's rule gives it (by the per-path counts); repeated split-KV
+   decode calls must give the same bits, and every bf16 instance of both
+   paths must hold HMMA instructions (``cuobjdump -sass``); timed at the four
+   serving shapes beside its plain version, its bound and
+   ``scaled_dot_product_attention`` (K/V expanded, and with
+   ``enable_gqa`` where the installed torch takes it);
 5. LM serving phase: ``ServeEngine.generate`` on llama3.2-1b at full
    width (random weights from a seed), 8 prompts of 512 tokens, 64 new
-   tokens; the kernel must launch once per layer per prefill and decode
-   step, and match the plain attention on every attention call of a
+   tokens; the kernel must launch once per layer per prefill (tiled path)
+   and decode step (split path), and match the plain attention on every
+   attention call of a
    teacher-forced run over the generated tokens, on the model's own
    activations;
 6. card against CPU: llama3.2-1b at full width cut to 2 layers, in fp32,
@@ -464,25 +471,41 @@ def phase_serving(smi):
 # ---------------------------------------------------------------------------
 
 
-def _fa_inputs(B, T, S, H, KV, D, dtype, gen, kv_len=None):
-    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+def _fa_inputs(B, T, S, H, KV, D, dtype, gen, kv_len=None, q_scale=1.0,
+               v_scale=1.0):
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda")
                for shape in ((B, T, H, D), (B, S, KV, D), (B, S, KV, D)))
+    q, k, v = (q * q_scale).to(dtype), k.to(dtype), (v * v_scale).to(dtype)
     kvl = (None if kv_len is None else
            torch.tensor(kv_len, dtype=torch.int32, device="cuda"))
     return q, k, v, kvl
 
 
 def _check_fa(B, T, S, H, KV, D, dtype, gen, causal=True, window=None,
-              q_offset=0, kv_len=None):
-    """Kernel vs plain version on one input; returns the worst abs error."""
-    q, k, v, kvl = _fa_inputs(B, T, S, H, KV, D, dtype, gen, kv_len)
+              q_offset=0, kv_len=None, path=None, q_scale=1.0, v_scale=1.0):
+    """Kernel vs plain version on one input (q and v scaled by ``q_scale``
+    and ``v_scale``); the call must take the path of the wrapper's rule
+    (and ``path`` when given) by the per-path counts.  Returns the worst
+    abs error."""
+    q, k, v, kvl = _fa_inputs(B, T, S, H, KV, D, dtype, gen, kv_len,
+                              q_scale, v_scale)
     kw = dict(causal=causal, window=window, q_offset=q_offset, kv_len=kvl)
+    want_path = fa_kernel.plan(B, T, S, H, KV).path
+    if path is not None and path != want_path:
+        raise AssertionError(f"the rule sends {(B, T, S, H, KV)} to "
+                             f"{want_path}, the case expects {path}")
+    before = (fa_kernel.launches_tiled, fa_kernel.launches_split)
     got = ops.attention(q, k, v, **kw)
+    step = (fa_kernel.launches_tiled - before[0],
+            fa_kernel.launches_split - before[1])
     want = ref.attention_ref(q, k, v, **kw)
     torch.cuda.synchronize()
     tag = (f"flash B={B} T={T} S={S} H={H} KV={KV} D={D} {dtype} "
            f"causal={causal} window={window} q_offset={q_offset} "
-           f"kv_len={kv_len}")
+           f"kv_len={kv_len} q x{q_scale} v x{v_scale}")
+    if step != ((1, 0) if want_path == "tiled" else (0, 1)):
+        raise AssertionError(f"{tag}: (tiled, split) launches {step}, "
+                             f"expected one {want_path}")
     if got.shape != want.shape or got.dtype != want.dtype:
         raise AssertionError(f"{tag}: output {tuple(got.shape)} {got.dtype} "
                              f"vs {tuple(want.shape)} {want.dtype}")
@@ -525,39 +548,79 @@ def _time_fa(name, B, T, S, H, KV, D, dtype, gen, causal, q_offset, kv_len,
     q, k, v, kvl = _fa_inputs(B, T, S, H, KV, D, dtype, gen, kv_len)
     kw = dict(causal=causal, q_offset=q_offset, kv_len=kvl)
     qs, ks, vs, mask = _sdpa_inputs(q, k, v, kvl, causal)
+    kg, vg = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
     def library():
         return sdpa(qs, ks, vs, attn_mask=mask, is_causal=causal)
 
-    # the yardstick must compute the same function
-    lib_out = library().transpose(1, 2)
-    _max_err(lib_out.float(), ref.attention_ref(q, k, v, **kw).float(),
-             FA_TOL[dtype], FA_TOL[dtype], f"{name}: sdpa yardstick")
+    def library_gqa():                  # K/V not expanded (torch >= 2.5)
+        return sdpa(qs, kg, vg, attn_mask=mask, is_causal=causal,
+                    enable_gqa=True)
+
+    # the yardsticks must compute the same function
+    want = ref.attention_ref(q, k, v, **kw).float()
     fns = {"ms": lambda: ops.attention(q, k, v, **kw),
            "plain_ms": lambda: ref.attention_ref(q, k, v, **kw),
-           "library_ms": library}
+           "library_ms": library, "library_gqa_ms": library_gqa}
+    for key, f in (("library_ms", library), ("library_gqa_ms", library_gqa)):
+        try:
+            out = f().transpose(1, 2)
+        except TypeError:               # this torch has no enable_gqa
+            del fns[key]
+            continue
+        _max_err(out.float(), want, FA_TOL[dtype], FA_TOL[dtype],
+                 f"{name}: sdpa yardstick {key}")
     t = {key: graph_ms(f, calls=10, replays=10) for key, f in fns.items()}
     t.update({key.replace("ms", "eager_ms"): time_ms(f, iters=50)
               for key, f in fns.items()})
+    t.setdefault("library_gqa_ms", None)
     keys = kv_len if kv_len is not None else [S] * B
     t["bound_ms"], t["bound_by"] = fa_bound(B, T, H, KV, D, dtype, causal,
                                             keys)
+    p = fa_kernel.plan(B, T, S, H, KV)
+    t["path"], t["splits"] = p.path, p.splits
+    gqa = ("not taken by this torch" if t["library_gqa_ms"] is None
+           else f"{t['library_gqa_ms']:.6f} ms")
     print(f"flash_attention {name} (B,T,S,H,KV,D)=({B},{T},{S},{H},{KV},{D}) "
-          f"{dtype}: device time per call (CUDA graph) kernel "
-          f"{t['ms']:.6f} ms, plain {t['plain_ms']:.6f} ms, "
-          f"scaled_dot_product_attention {t['library_ms']:.6f} ms; eager "
-          f"per call kernel {t['eager_ms']:.6f} ms, plain "
+          f"{dtype}, {p.path} path ({p.splits} splits): device time per "
+          f"call (CUDA graph) kernel {t['ms']:.6f} ms, plain "
+          f"{t['plain_ms']:.6f} ms, scaled_dot_product_attention "
+          f"{t['library_ms']:.6f} ms (K/V expanded), {gqa} (enable_gqa); "
+          f"eager per call kernel {t['eager_ms']:.6f} ms, plain "
           f"{t['plain_eager_ms']:.6f} ms, sdpa "
           f"{t['library_eager_ms']:.6f} ms; bound {t['bound_ms']:.6f} ms "
           f"({t['bound_by']}) [{smi}]")
     return t
 
 
+def sass_mma_counts(name):
+    """HMMA/HGMMA instructions of each kernel function in the built library
+    ``name``, from ``cuobjdump -sass``: {mangled function: count}."""
+    import re
+    import shutil
+    import subprocess
+
+    exe = shutil.which("cuobjdump") or str(
+        Path(_build.nvcc()).with_name("cuobjdump"))
+    sass = subprocess.run([exe, "-sass", str(_build.library_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn is not None and re.search(r"\bHG?MMA\b", line):
+            counts[fn] += 1
+    return counts
+
+
 def phase_flash(smi):
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     worst, cases = 0.0, 0
     f32, bf16 = torch.float32, torch.bfloat16
+    n0 = (fa_kernel.launches_tiled, fa_kernel.launches_split)
 
     def check(*args, **kw):
         nonlocal worst, cases
@@ -569,12 +632,13 @@ def phase_flash(smi):
         for B, T, H, KV, D in ((1, 128, 4, 4, 64), (2, 256, 8, 2, 64),
                                (1, 128, 4, 1, 128)):
             for causal, window in ((True, None), (True, 64), (False, None)):
-                check(B, T, T, H, KV, D, dtype, causal=causal, window=window)
+                check(B, T, T, H, KV, D, dtype, causal=causal, window=window,
+                      path="tiled")
         # decode with kv_len, and the sliding-window decode
         check(3, 1, 192, 8, 4, 64, dtype, causal=False, q_offset=191,
-              kv_len=[50, 192, 1])
+              kv_len=[50, 192, 1], path="split")
         check(2, 1, 256, 4, 4, 64, dtype, causal=False, window=64,
-              q_offset=255, kv_len=[200, 256])
+              q_offset=255, kv_len=[200, 256], path="split")
         # ragged T and S
         check(2, 100, 100, 8, 2, 64, dtype)
         check(2, 200, 577, 8, 2, 64, dtype, causal=False)
@@ -589,19 +653,89 @@ def phase_flash(smi):
         check(2, 1, 300, 8, 8, 120, dtype, causal=False, q_offset=299,
               kv_len=[300, 123])
         # the two llama3.2-1b serving shapes
-        check(8, 512, 512, 32, 8, 64, dtype)
+        check(8, 512, 512, 32, 8, 64, dtype, path="tiled")
         check(8, 1, 576, 32, 8, 64, dtype, causal=False, q_offset=511,
-              kv_len=list(range(512, 576, 9)))
+              kv_len=list(range(512, 576, 9)), path="split")
+        # the redesign's paths: a multi-token decode past the split rows
+        # (tiled, with q_offset and kv_len), a two-token decode (split),
+        # kv_len 0 and 1, kv_len on and either side of the split
+        # boundaries (9 splits of 64 keys), G = 8 at D = 128 (the Jamba
+        # shapes) and a split decode at every head dim
+        check(2, 8, 256, 8, 2, 64, dtype, q_offset=200, kv_len=[208, 150],
+              path="tiled")
+        check(2, 2, 300, 8, 2, 64, dtype, q_offset=298, window=100,
+              kv_len=[300, 250], path="split")
+        check(3, 1, 192, 8, 4, 64, dtype, causal=False, q_offset=191,
+              kv_len=[0, 1, 192], path="split")
+        check(8, 1, 576, 32, 8, 64, dtype, causal=False, q_offset=575,
+              kv_len=[63, 64, 65, 127, 128, 129, 575, 576], path="split")
+        check(8, 512, 512, 64, 8, 128, dtype, path="tiled")
+        check(8, 1, 576, 64, 8, 128, dtype, causal=False, q_offset=511,
+              kv_len=list(range(512, 576, 9)), path="split")
+        for D in (16, 120, 128):
+            check(4, 1, 576, 16, 2, D, dtype, causal=False, q_offset=575,
+                  kv_len=[0, 64, 300, 576], path="split")
+        # sharp attention over large values that cancel, as a random-weight
+        # LM's activations give (P must keep more than bf16's 8 bits)
+        for D in (64, 128):
+            check(2, 256, 256, 16, 2, D, dtype, q_scale=4.0, v_scale=100.0,
+                  path="tiled")
+            check(4, 1, 576, 16, 2, D, dtype, causal=False, q_offset=575,
+                  kv_len=[1, 64, 300, 576], q_scale=4.0, v_scale=100.0,
+                  path="split")
+    n_tiled = fa_kernel.launches_tiled - n0[0]
+    n_split = fa_kernel.launches_split - n0[1]
     print(f"flash_attention: kernel == plain version on {cases} cases "
           f"(fp32 and bf16; causal, window, kv_len, ragged T and S, "
-          f"D in 16/64/120/128); worst |err| {worst:.3e} (tol fp32 "
+          f"D in 16/64/120/128; {n_tiled} on the tiled path, {n_split} on "
+          f"the split path); worst |err| {worst:.3e} (tol fp32 "
           f"{FA_TOL[f32]}, bf16 {FA_TOL[bf16]})")
+
+    # the split path merges its partials in a fixed order: the same bits
+    # on every call
+    for dtype in (f32, bf16):
+        q, k, v, kvl = _fa_inputs(8, 1, 576, 64, 8, 128, dtype, gen,
+                                  list(range(512, 576, 9)))
+        kw = dict(causal=False, q_offset=511, kv_len=kvl)
+        outs = [ops.attention(q, k, v, **kw) for _ in range(3)]
+        if not all(torch.equal(outs[0], o) for o in outs[1:]):
+            raise AssertionError(f"split-KV decode ({dtype}) gave other "
+                                 f"bits on a repeated call")
+    print("flash_attention: three split-KV decode calls on the same inputs "
+          "give identical bits (fp32 and bf16)")
+
+    # the tensor cores, by the built code: every bf16 instance (tiled and
+    # split) must hold HMMA/HGMMA instructions
+    mma = {fn: c for fn, c in sass_mma_counts("flash_attention").items()
+           if "flash_" in fn}
+    short = {}
+    for fn, c in sorted(mma.items()):
+        kind = ("tiled" if "flash_tiled" in fn else "split_mma"
+                if "flash_split_mma" in fn else "split" if "flash_split"
+                in fn else "combine" if "flash_combine" in fn else "fp32")
+        short.setdefault(kind, []).append(c)
+        if kind in ("tiled", "split_mma") and c == 0:
+            raise AssertionError(f"{fn}: no HMMA/HGMMA instruction")
+    if "tiled" not in short or "split_mma" not in short:
+        raise AssertionError("the built library lacks a bf16 tensor-core "
+                             "kernel (flash_tiled_kernel, "
+                             "flash_split_mma_kernel)")
+    print("flash_attention SASS (cuobjdump -sass), HMMA/HGMMA instructions "
+          "per kernel instance: " + "; ".join(
+              f"{kind} {sorted(cs)}" for kind, cs in sorted(short.items())))
+
     timings = {
-        "prefill": _time_fa("prefill", 8, 512, 512, 32, 8, 64, bf16, gen,
-                            True, 0, None, smi),
-        "decode": _time_fa("decode", 8, 1, 576, 32, 8, 64, bf16, gen, False,
-                           511, list(range(512, 576, 9)), smi),
+        "prefill": _time_fa("llama prefill", 8, 512, 512, 32, 8, 64, bf16,
+                            gen, True, 0, None, smi),
+        "decode": _time_fa("llama decode", 8, 1, 576, 32, 8, 64, bf16, gen,
+                           False, 511, list(range(512, 576, 9)), smi),
+        "jamba_prefill": _time_fa("Jamba prefill", 8, 512, 512, 64, 8, 128,
+                                  bf16, gen, True, 0, None, smi),
+        "jamba_decode": _time_fa("Jamba decode", 8, 1, 576, 64, 8, 128,
+                                 bf16, gen, False, 511,
+                                 list(range(512, 576, 9)), smi),
     }
+    timings["sass_mma"] = {kind: sorted(cs) for kind, cs in short.items()}
     return worst, timings
 
 
@@ -682,14 +816,20 @@ def phase_lm(smi):
     torch.cuda.reset_peak_memory_stats()
 
     fa_kernel.launches = 0                       # main path starts here
+    fa_kernel.launches_tiled = fa_kernel.launches_split = 0
     res = eng.generate({"tokens": prompt}, max_new_tokens=LM_GEN)
     launches = fa_kernel.launches
+    paths = (fa_kernel.launches_tiled, fa_kernel.launches_split)
     peak = torch.cuda.max_memory_allocated()
     want = cfg.num_layers * (1 + LM_GEN - 1)
     if launches != want:
         raise AssertionError(f"flash_attention launches {launches} != "
                              f"{cfg.num_layers} layers x (1 prefill + "
                              f"{LM_GEN - 1} decode steps) = {want}")
+    if paths != (cfg.num_layers, cfg.num_layers * (LM_GEN - 1)):
+        raise AssertionError(f"flash_attention (tiled, split) launches "
+                             f"{paths}: every prefill call must be tiled "
+                             f"and every decode call split")
     toks = res.tokens
     if toks.shape != (LM_BATCH, max_seq) or \
             not np.array_equal(toks[:, :LM_PROMPT], prompt) or \
@@ -704,7 +844,8 @@ def phase_lm(smi):
           f"{res.prefill_seconds:.4f} s, decode {res.decode_seconds:.4f} s "
           f"= {res.decode_tokens_per_s:.1f} tokens/s, peak memory "
           f"{peak / 2**30:.3f} GiB; flash_attention launches {launches} == "
-          f"{cfg.num_layers} x (1 + {LM_GEN - 1}) [{smi}]")
+          f"{cfg.num_layers} x (1 + {LM_GEN - 1}): {paths[0]} tiled "
+          f"(prefill), {paths[1]} split (decode) [{smi}]")
 
     # teacher-forced runs over the generated tokens, on the card
     prompt_t = torch.from_numpy(prompt).to("cuda")
@@ -766,7 +907,7 @@ def phase_lm(smi):
           f"{drift:.4e}, float64-attention control {drift64:.4e}")
     del lk, lp, l64, eng, params
     torch.cuda.empty_cache()
-    return launches
+    return launches, paths
 
 
 # ---------------------------------------------------------------------------
@@ -1240,14 +1381,20 @@ def phase_jamba(smi):
 
     ssd_kernel.launches = 0                      # main path starts here
     fa_kernel.launches = 0
+    fa_kernel.launches_tiled = fa_kernel.launches_split = 0
     res = eng.generate({"tokens": prompt}, max_new_tokens=LM_GEN)
     launches, fa_launches = ssd_kernel.launches, fa_kernel.launches
+    fa_paths = (fa_kernel.launches_tiled, fa_kernel.launches_split)
     peak = torch.cuda.max_memory_allocated()
     if launches != n_ssd or fa_launches != n_attn * LM_GEN:
         raise AssertionError(
             f"ssd launches {launches} != {n_ssd} Mamba layers x 1 prefill, "
             f"or flash_attention launches {fa_launches} != {n_attn} "
             f"attention layers x (1 prefill + {LM_GEN - 1} decode steps)")
+    if fa_paths != (n_attn, n_attn * (LM_GEN - 1)):
+        raise AssertionError(f"flash_attention (tiled, split) launches "
+                             f"{fa_paths}: every prefill call must be tiled "
+                             f"and every decode call split")
     toks = res.tokens
     if toks.shape != (LM_BATCH, max_seq) or \
             not np.array_equal(toks[:, :LM_PROMPT], prompt) or \
@@ -1267,7 +1414,8 @@ def phase_jamba(smi):
           f"{res.decode_tokens_per_s:.1f} tokens/s, peak memory "
           f"{peak / 2**30:.3f} GiB; ssd launches {launches} == {n_ssd} "
           f"Mamba layers x 1 prefill, flash_attention launches "
-          f"{fa_launches} == {n_attn} x (1 + {LM_GEN - 1}) [{smi}]")
+          f"{fa_launches} == {n_attn} x (1 + {LM_GEN - 1}): {fa_paths[0]} "
+          f"tiled (prefill), {fa_paths[1]} split (decode) [{smi}]")
 
     # a separate prefill launches each kernel once per layer; a decode
     # step launches flash_attention only
@@ -1354,7 +1502,7 @@ def phase_jamba(smi):
     del lk, lp, eng, params
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, fa_launches
+    return launches, fa_launches, fa_paths
 
 
 def _timed(name, fn, *args):
@@ -1375,7 +1523,7 @@ def main() -> int:
     worst, t = _timed("committee_uq", phase_kernels)
     launches = _timed("committee serving", phase_serving, smi)
     fa_worst, fa_t = _timed("flash_attention", phase_flash, smi)
-    fa_launches = _timed("llama serving", phase_lm, smi)
+    fa_launches, fa_paths = _timed("llama serving", phase_lm, smi)
     _timed("llama card vs CPU", phase_card_vs_cpu, LM_ARCH,
            two_layers(LM_ARCH), (fa_kernel,))
     gc.collect()
@@ -1391,13 +1539,14 @@ def main() -> int:
     print(f"before the Jamba phases: {torch.cuda.memory_allocated() / 2**30:.3f}"
           f" GiB allocated on the card")
     ssd_worst, st = _timed("ssd", phase_ssd, smi)
-    ssd_launches, jamba_fa_launches = _timed("jamba serving", phase_jamba,
-                                             smi)
+    ssd_launches, jamba_fa_launches, jamba_fa_paths = _timed(
+        "jamba serving", phase_jamba, smi)
     _timed("jamba card vs CPU", phase_card_vs_cpu, JAMBA_ARCH,
            get_arch(JAMBA_ARCH).model.replace(**JAMBA_NARROW),
            (ssd_kernel, fa_kernel))
     print(f"all phases: {time.perf_counter() - t_start:.2f} s wall")
     fd, fp = fa_t["decode"], fa_t["prefill"]
+    jd, jp = fa_t["jamba_decode"], fa_t["jamba_prefill"]
     print(json.dumps({"kernels": [{
         "name": "committee_uq", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/committee_uq.cu",
@@ -1410,18 +1559,35 @@ def main() -> int:
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:108",
-        "launches": fa_launches, "max_abs_err": fa_worst,
+        "launches": fa_launches, "launches_tiled": fa_paths[0],
+        "launches_split": fa_paths[1], "max_abs_err": fa_worst,
         "ms": fd["ms"], "plain_ms": fd["plain_ms"],
         "bound_ms": fd["bound_ms"], "bound_by": fd["bound_by"],
-        "library_ms": fd["library_ms"], "eager_ms": fd["eager_ms"],
+        "library_ms": fd["library_ms"],
+        "library_gqa_ms": fd["library_gqa_ms"], "eager_ms": fd["eager_ms"],
         "plain_eager_ms": fd["plain_eager_ms"],
         "library_eager_ms": fd["library_eager_ms"],
         "prefill_ms": fp["ms"], "prefill_plain_ms": fp["plain_ms"],
         "prefill_bound_ms": fp["bound_ms"],
         "prefill_bound_by": fp["bound_by"],
         "prefill_library_ms": fp["library_ms"],
+        "prefill_library_gqa_ms": fp["library_gqa_ms"],
         "prefill_eager_ms": fp["eager_ms"],
-        "jamba_launches": jamba_fa_launches}, {
+        "jamba_launches": jamba_fa_launches,
+        "jamba_launches_tiled": jamba_fa_paths[0],
+        "jamba_launches_split": jamba_fa_paths[1],
+        "jamba_decode_ms": jd["ms"], "jamba_decode_plain_ms": jd["plain_ms"],
+        "jamba_decode_bound_ms": jd["bound_ms"],
+        "jamba_decode_bound_by": jd["bound_by"],
+        "jamba_decode_library_ms": jd["library_ms"],
+        "jamba_decode_library_gqa_ms": jd["library_gqa_ms"],
+        "jamba_prefill_ms": jp["ms"],
+        "jamba_prefill_plain_ms": jp["plain_ms"],
+        "jamba_prefill_bound_ms": jp["bound_ms"],
+        "jamba_prefill_bound_by": jp["bound_by"],
+        "jamba_prefill_library_ms": jp["library_ms"],
+        "jamba_prefill_library_gqa_ms": jp["library_gqa_ms"],
+        "sass_mma": fa_t["sass_mma"]}, {
         "name": "wkv6", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/wkv6.cu",
         "replaces": "src/repro/kernels/wkv6.py:72",

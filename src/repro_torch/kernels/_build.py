@@ -4,13 +4,15 @@ Every kernel is a plain-C shared library compiled by ``nvcc`` from
 ``csrc/<name>.cu`` for Hopper (``sm_90a``) and loaded with ``ctypes``.  The
 build happens at first use, into ``build/repro_torch_kernels/`` at the root
 of the checkout (listed in ``.gitignore``); a library's file name carries a
-hash of its source and flags, so an edited source is rebuilt and never
-mixed with a stale library.  ``build_all`` starts one ``nvcc`` per source,
+hash of its source, of every header in ``csrc/`` (``*.cuh``, ``*.h``) and
+of the flags, so an edited source or header is rebuilt and never mixed
+with a stale library.  ``build_all`` starts one ``nvcc`` per source,
 all at once.
 
 No ``--use_fast_math``: the non-finite quarantine of ``committee_uq``
 depends on exact ``isfinite`` and IEEE division/sqrt, ``flash_attention``
-keeps IEEE ``expf`` and division to stay within the reference's tolerances,
+keeps IEEE division and its fp32 kernel's IEEE ``expf`` to stay within the
+reference's tolerances,
 and the decay paths of ``wkv6`` and ``ssd`` need IEEE ``expf`` and ``logf``.
 """
 from __future__ import annotations
@@ -55,8 +57,11 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted([*CSRC.glob("*.cuh"), *CSRC.glob("*.h")]):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 

@@ -1,14 +1,32 @@
-"""Wrapper of the Hopper ``flash_attention`` kernel
+"""Wrapper of the Hopper ``flash_attention`` kernels
 (``csrc/flash_attention.cu``).
 
-Checks its inputs, allocates the output with ``torch.empty``, launches the
-kernel on the current CUDA stream, raises if the launch was refused, and
-counts the launch in ``launches``.  It never falls back to the plain
-version: ``ops.attention`` sends CPU tensors to ``ref.attention_ref`` /
-``ref.attention_chunked_ref`` and CUDA tensors here.
+Checks its inputs, picks a path by shape (``plan``), allocates the output
+and the split-KV scratch with ``torch.empty``, launches on the current CUDA
+stream, raises if a launch was refused, and counts the call in
+``launches`` and in the count of its path.  It never falls back to the
+plain version: ``ops.attention`` sends CPU tensors to ``ref.attention_ref``
+/ ``ref.attention_chunked_ref`` and CUDA tensors here.
+
+Two paths, both with every option of ``ref.attention_ref`` (GQA, causal,
+window, ``q_offset``, ``kv_len``, ragged T and S, 0 for fully masked
+rows), so the choice affects speed only:
+
+* ``tiled`` (more than ``SPLIT_MAX_ROWS`` (t, g) rows per kv head, every
+  prefill): bf16 on the tensor cores (``mma.sync`` with a ``cp.async``
+  K/V ring), fp32 on the CUDA cores;
+* ``split`` (at most ``SPLIT_MAX_ROWS`` rows, every decode step): the key
+  axis cut into ``splits`` ranges, one block per range and kv head reading
+  K/V with 16-byte loads straight into registers (bf16 on the tensor
+  cores, fp32 on the CUDA cores), fp32 partials merged in split order by a
+  second kernel (the same bits on every run).
+
+On both bf16 paths P enters the P·V product as two bf16 parts (hi + lo),
+so the result holds the reference's bf16 tolerance where one bf16 P would
+not (sharp attention over large values that cancel).
 
 Unlike the Pallas kernel, which raises unless T and S tile by its blocks,
-the CUDA kernel masks ragged tails itself and takes any T and S.
+the CUDA kernels mask ragged tails themselves and take any T and S.
 """
 from __future__ import annotations
 
@@ -16,18 +34,101 @@ import ctypes
 import math
 import operator
 import threading
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.launch.platform import DeviceLike, resolve_device
 
-HEAD_DIMS = (16, 64, 120, 128)          # the kernel's template instances
+HEAD_DIMS = (16, 64, 120, 128)          # the kernels' template instances
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-launches = 0            # kernel launches since the last reset
+_PATH_CODE = {"tiled": 0, "split": 1}
+SPLIT_MAX_ROWS = 8          # T*G rows a split-KV block holds in registers
+SPLIT_MIN_KEYS = 64         # keys a split takes at least (when S has them)
+SPLIT_BLOCKS_PER_SM = 2     # blocks per SM the rule aims at (measured best
+H100_SMS = 132              # at both serving decode shapes, PERF.md)
+SPLIT_MAX_SPLITS = 128      # bounds the scratch and the merge's loop
+launches = 0                # wrapper calls since the last reset
+launches_tiled = 0          # ... of them on the tiled path
+launches_split = 0          # ... of them on the split-KV path
 _count_lock = threading.Lock()
 _bound = False
+
+
+class Plan(NamedTuple):
+    path: str               # "tiled" or "split"
+    splits: int             # key ranges (1 on the tiled path)
+    keys_per_split: int     # keys in each range but the last (S if tiled)
+
+
+def plan(B: int, T: int, S: int, H: int, KV: int) -> Plan:
+    """The path and split count for q (B, T, H, D) against a cache of S
+    keys over KV kv heads.  More than ``SPLIT_MAX_ROWS`` (t, g) rows per kv
+    head take the tiled path.  Otherwise the key axis is cut into the
+    fewest splits that put ``SPLIT_BLOCKS_PER_SM`` blocks on each of the
+    H100's SMs, but never into ranges of fewer than ``SPLIT_MIN_KEYS``
+    keys (one range when S has fewer) nor more than ``SPLIT_MAX_SPLITS``;
+    the ranges are equal but for the last."""
+    if T * (H // KV) > SPLIT_MAX_ROWS:
+        return Plan("tiled", 1, S)
+    want = -(-(SPLIT_BLOCKS_PER_SM * H100_SMS) // (B * KV))
+    splits = max(1, min(want, S // SPLIT_MIN_KEYS, SPLIT_MAX_SPLITS))
+    keys = max(1, -(-S // splits))
+    return Plan("split", max(1, -(-S // keys)), keys)
+
+
+def split_kv_model(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   splits: int, keys_per_split: int, causal: bool = True,
+                   window: Optional[int] = None, q_offset: int = 0,
+                   kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The split-KV path's arithmetic in plain PyTorch: for each key range
+    of ``keys_per_split`` keys, fp32 partials (m in log2 units, l, acc)
+    over its visible keys -- (-inf, 0, 0) for a range with none -- then
+    the partials merged in split order, o = acc / l (0 where l == 0).
+    Holds the design against ``ref.attention_ref`` on the CPU; the kernel
+    runs the same steps on the card."""
+    B, T, H, D = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale_log2 = (1.0 / math.sqrt(D)) * math.log2(math.e)
+    qf = q.float().reshape(B, T, KV, G, D)
+    s = torch.einsum("btkgd,bskd->bkgts", qf, k.float()) * scale_log2
+    qpos = q_offset + torch.arange(T)[:, None]
+    kpos = torch.arange(S)[None, :]
+    vis = torch.ones(T, S, dtype=torch.bool)
+    if causal:
+        vis &= kpos <= qpos
+    if window is not None:
+        vis &= kpos > qpos - window
+    vis = vis[None].expand(B, T, S)
+    if kv_len is not None:
+        vis = vis & (kpos < kv_len.cpu()[:, None, None])
+    vis = vis[:, None, None]                           # (B, 1, 1, T, S)
+    s = s.masked_fill(~vis, float("-inf"))
+    vf = v.float()
+    m_all, l_all, acc_all = [], [], []
+    for i in range(splits):
+        lo, hi = i * keys_per_split, min(S, (i + 1) * keys_per_split)
+        si = s[..., lo:hi]
+        m = si.amax(dim=-1) if hi > lo else torch.full(
+            s.shape[:-1], float("-inf"))
+        base = torch.where(m == float("-inf"), 0.0, m)
+        p = torch.exp2(si - base[..., None])
+        m_all.append(m)
+        l_all.append(p.sum(dim=-1))
+        acc_all.append(torch.einsum("bkgts,bskd->bkgtd", p, vf[:, lo:hi]))
+    m_max = torch.stack(m_all).amax(dim=0)
+    base = torch.where(m_max == float("-inf"), 0.0, m_max)
+    L = torch.zeros_like(base)
+    acc = torch.zeros(B, KV, G, T, D)
+    for m, l, a in zip(m_all, l_all, acc_all):     # fixed split order
+        w = torch.exp2(m - base)
+        L = L + l * w
+        acc = acc + a * w[..., None]
+    out = torch.where(L[..., None] == 0, 0.0,
+                      acc / torch.where(L == 0, 1.0, L)[..., None])
+    return out.permute(0, 3, 1, 2, 4).reshape(B, T, H, D).to(v.dtype)
 
 
 def _lib() -> ctypes.CDLL:
@@ -37,7 +138,7 @@ def _lib() -> ctypes.CDLL:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.flash_attention_launch.argtypes = [
             ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32,
-            i32, i32, ctypes.c_float, ptr]
+            i32, i32, ctypes.c_float, i32, i32, i32, ptr, ptr]
         lib.flash_attention_launch.restype = ctypes.c_int
         _bound = True
     return lib
@@ -52,9 +153,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (``H % KV == 0``), causal and sliding-window masks, query positions
     offset by ``q_offset`` (a host int), a per-batch ``kv_len`` (B,)
     device tensor, and 0 for fully masked rows.  q, k, v: one dtype (fp32
-    or bf16), contiguous, on ``device`` (default: the CUDA device);
-    D in ``HEAD_DIMS``.  Returns (B, T, H, D) in that dtype."""
-    global launches
+    or bf16), contiguous and 16-byte aligned, on ``device`` (default: the
+    CUDA device); D in ``HEAD_DIMS``.  Returns (B, T, H, D) in that
+    dtype."""
+    global launches, launches_tiled, launches_split
     dev = resolve_device(device)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != dev or dev.type != "cuda":
@@ -79,6 +181,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{HEAD_DIMS}, got D={D}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention kernel takes contiguous q, k, v")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention kernel takes 16-byte aligned q, "
+                         "k, v (it reads them with 16-byte loads)")
     if window is not None and window <= 0:
         raise ValueError(f"flash_attention kernel: window must be positive, "
                          f"got {window}")
@@ -92,6 +197,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    p = plan(B, T, S, H, KV)
+    scratch = None
+    if p.splits > 1:            # fp32 partials: acc (.., D), then (m, l)
+        scratch = torch.empty(B * T * H * p.splits * (D + 2),
+                              dtype=torch.float32, device=dev)
     lib = _lib()
     scale = 1.0 / math.sqrt(D)        # as the TPU kernel's, rounded to fp32
     with torch.cuda.device(dev):
@@ -100,11 +210,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             kv_len.data_ptr() if kv_len is not None else None,
             B, T, S, H, KV, D, _DTYPE_CODE[q.dtype], q_offset, int(causal),
-            0 if window is None else int(window), scale, stream)
+            0 if window is None else int(window), scale,
+            _PATH_CODE[p.path], p.splits, p.keys_per_split,
+            scratch.data_ptr() if scratch is not None else None, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err} (q {tuple(q.shape)}, k "
-                           f"{tuple(k.shape)}, {q.dtype})")
+                           f"{tuple(k.shape)}, {q.dtype}, {p})")
     with _count_lock:
         launches += 1
+        if p.path == "tiled":
+            launches_tiled += 1
+        else:
+            launches_split += 1
     return out

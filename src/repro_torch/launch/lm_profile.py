@@ -43,7 +43,14 @@ from repro_torch.launch import platform
 from repro_torch.models import model_zoo
 from repro_torch.serving import ServeEngine
 
-KERNEL_GROUPS = (("flash_attention", ("flash_attention_kernel",)),
+# every kernel symbol of each hand-written kernel: flash's tiled prefill
+# kernel, its split-KV decode kernels (bf16 mma, fp32) and their merge, and
+# its fp32 prefill kernel
+KERNEL_GROUPS = (("flash_attention", ("flash_tiled_kernel",
+                                      "flash_split_mma_kernel",
+                                      "flash_split_kernel",
+                                      "flash_combine_kernel",
+                                      "flash_attention_kernel")),
                  ("wkv6", ("wkv6_kernel",)), ("ssd", ("ssd_kernel",)))
 # archs too large for one card, cut as their config files state
 ONE_CARD_CUTS = {"jamba-1.5-large-398b": ONE_CARD_CUT}

@@ -164,6 +164,66 @@ def test_flash_attention_kernel_matches_plain_version(cuda_device, dtype, B,
                                rtol=FA_TOL[dtype], atol=FA_TOL[dtype])
 
 
+FA_PATH_CASES = {
+    # the tiled path: a prefill with a window; a multi-token decode
+    "tiled-prefill": ((2, 200, 200, 8, 2), dict(causal=True, window=64)),
+    "tiled-multi-token": ((2, 8, 256, 8, 2), dict(
+        causal=True, q_offset=200, kv_len=[208, 150])),
+    # the split path: one token at G = 8 over 9 splits (kv_len 0, on a
+    # boundary, inside, full); two tokens at G = 4 with a window
+    "split-decode": ((4, 1, 576, 16, 2), dict(
+        causal=False, q_offset=575, kv_len=[0, 64, 300, 576])),
+    "split-two-token": ((2, 2, 300, 8, 2), dict(
+        causal=True, q_offset=298, window=100, kv_len=[300, 250])),
+    # sharp attention over large values that cancel (q x4, v x100), as a
+    # random-weight LM's activations give: P must keep more than 8 bits
+    "tiled-sharp": ((2, 256, 256, 16, 2), dict(causal=True)),
+    "split-sharp": ((4, 1, 576, 16, 2), dict(
+        causal=False, q_offset=575, kv_len=[1, 64, 300, 576])),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(FA_PATH_CASES))
+@pytest.mark.parametrize("D", [16, 64, 120, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_flash_attention_each_path_matches_plain_version(cuda_device, dtype,
+                                                         D, case):
+    """Each path of the wrapper's rule at every head dim: the call is
+    counted on its path, matches the plain version, and (split path) gives
+    the same bits when repeated."""
+    from repro_torch.kernels import flash_attention as kernel
+
+    (B, T, S, H, KV), kw = FA_PATH_CASES[case]
+    path = case.split("-")[0]
+    assert kernel.plan(B, T, S, H, KV).path == path
+    rng = np.random.RandomState(12)
+    sharp = case.endswith("sharp")
+    q, k, v = (torch.from_numpy(rng.randn(*s).astype(np.float32) * x).to(
+        cuda_device, dtype) for s, x in (
+            ((B, T, H, D), 4.0 if sharp else 1.0), ((B, S, KV, D), 1.0),
+            ((B, S, KV, D), 100.0 if sharp else 1.0)))
+    kw = dict(kw)
+    if "kv_len" in kw:
+        kw["kv_len"] = torch.tensor(kw["kv_len"], dtype=torch.int32,
+                                    device=cuda_device)
+    before = (kernel.launches, kernel.launches_tiled, kernel.launches_split)
+    got = ops.attention(q, k, v, **kw)
+    after = (kernel.launches, kernel.launches_tiled, kernel.launches_split)
+    assert after[0] == before[0] + 1
+    assert (after[1] - before[1], after[2] - before[2]) == (
+        (1, 0) if path == "tiled" else (0, 1))
+    want = ref.attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               rtol=FA_TOL[dtype], atol=FA_TOL[dtype])
+    if path == "split":
+        assert torch.equal(got, ops.attention(q, k, v, **kw))
+
+
 @pytest.mark.cuda
 def test_flash_attention_kernel_rejects_what_it_does_not_take(cuda_device):
     from repro_torch.kernels import flash_attention as kernel
@@ -188,6 +248,9 @@ def test_flash_attention_kernel_rejects_what_it_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="H % KV"):
         kernel.flash_attention(torch.zeros(1, 8, 3, 64, device=cuda_device),
                                k, k, device=cuda_device)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kernel.flash_attention(q.flatten()[1:1 + 7 * 4 * 64].view(
+            1, 7, 4, 64), k[:, :7], k[:, :7], device=cuda_device)
     before = kernel.launches
     kernel.flash_attention(q, k, k, device=cuda_device)
     kernel.flash_attention(q, k, k, causal=False, device=cuda_device)
