@@ -9,8 +9,9 @@ Phases (each raises on a failed check; the script exits non-zero):
    kernels/csrc`` (one ``nvcc`` per source, all started together);
 2. committee kernel phase: ``committee_uq`` against its plain PyTorch
    version on the same CUDA tensors, over a sweep of shapes including
-   non-finite members, and timed beside its plain version, its bound and
-   the nearest one-call PyTorch yardstick;
+   non-finite members, in fp32 and (the kernel's own load path) bf16 and
+   fp16, and timed beside its plain version, its bound and the nearest
+   one-call PyTorch yardstick;
 3. committee serving phase at ``PotentialConfig()`` full width: a K=4
    committee behind ``make_engine`` -> ``CommitteeServer`` ->
    ``ServingQueue``, fed by 4 client threads, then the same microbatches
@@ -38,10 +39,15 @@ Phases (each raises on a failed check; the script exits non-zero):
    prefill + 8 decode steps on the card (kernel) and on the CPU (plain
    path) with the same weights;
 7. wkv6 phase: ``wkv6`` against its plain version on the same CUDA tensors
-   over the reference's sweep, N = 32 and 64, chunks below 64, strong
-   decay, no incoming state and the rwkv6-7b serving shape, timed there
-   beside its plain version and its bound (no single PyTorch call computes
-   WKV6, so there is no library yardstick);
+   over the reference's sweep, N = 32 and 64, chunks below 64 (and T not
+   a multiple of the kernel's 8-row sub-chunks), strong decay, w = 1e-12
+   (the log's clip), w = 1, both mixed per key channel, no incoming
+   state, |r|, |k|, |v| ~ 100 in bf16 (products that cancel) and the
+   rwkv6-7b serving shape; repeated calls must give the same bits, and
+   every bf16 instance must hold HMMA instructions (``cuobjdump -sass``);
+   timed at the serving shape beside its plain version, its bound and the
+   fp32 instance (no single PyTorch call computes WKV6, so there is no
+   library yardstick);
 8. RWKV6 serving phase: ``ServeEngine.generate`` on rwkv6-7b at full width
    (random weights from a seed), 8 prompts of 512 tokens, 64 new tokens;
    the kernel must launch once per layer in the prefill and never in
@@ -300,6 +306,20 @@ def phase_kernels():
           f"(incl. NaN/inf members, 0 and 1 finite members); worst "
           f"|err| {worst:.3e} (mean rtol {MEAN_RTOL} atol {MEAN_ATOL}, "
           f"std rtol {STD_RTOL} atol {STD_ATOL})")
+    # bf16 and fp16 members: the kernel converts each element to fp32 as it
+    # loads it; the plain version casts the same tensor
+    low, low_cases = 0.0, 0
+    for dtype in (torch.bfloat16, torch.float16):
+        for K, n, d in (SERVE_SHAPE, (1, 33, 3), (8, 4096, 200),
+                        (64, 65536, 24)):
+            for poison in (False, True):
+                low = max(low, _check_uq(
+                    _uq_inputs(K, n, d, gen, poison).to(dtype)))
+                low_cases += 1
+    worst = max(worst, low)
+    print(f"committee_uq: kernel == plain version on {low_cases} bf16 and "
+          f"fp16 cases (the same tensor, NaN/inf members included); worst "
+          f"|err| {low:.3e} (same tolerances)")
 
     timings = {}
     for shape in (SERVE_SHAPE, (8, 65536, 24), (64, 65536, 24)):
@@ -312,6 +332,9 @@ def phase_kernels():
         t.update({k.replace("ms", "eager_ms"): time_ms(f)
                   for k, f in fns.items()})
         t["bound_ms"], t["bound_by"] = uq_bound(K, n, d)
+        if shape == SERVE_SHAPE:
+            half = preds.to(torch.bfloat16)
+            t["bf16_ms"] = graph_ms(lambda: ops.committee_uq(half, 1.0))
         timings[shape] = t
         print(f"committee_uq K={K} n={n} d={d}: device time per call "
               f"(CUDA graph) kernel {t['ms']:.6f} ms, plain "
@@ -319,7 +342,9 @@ def phase_kernels():
               f"{t['library_ms']:.6f} ms; eager per call kernel "
               f"{t['eager_ms']:.6f} ms, plain {t['plain_eager_ms']:.6f} ms, "
               f"torch.std_mean {t['library_eager_ms']:.6f} ms; bound "
-              f"{t['bound_ms']:.6f} ms ({t['bound_by']})")
+              f"{t['bound_ms']:.6f} ms ({t['bound_by']})"
+              + (f"; bf16 members: kernel {t['bf16_ms']:.6f} ms"
+                 if "bf16_ms" in t else ""))
     return worst, timings[SERVE_SHAPE]
 
 
@@ -1013,17 +1038,22 @@ def phase_card_vs_cpu(name, cfg, kernels):
 # ---------------------------------------------------------------------------
 
 
-def _wkv_inputs(B, T, H, N, dtype, gen, w_const=None, state=True):
-    """r, k, v normal and w uniform in [0.2, 0.999) (or ``w_const``) in
-    ``dtype``; u (H, N) and the incoming state (B, H, N, N) normal fp32
-    (or no state)."""
+def _wkv_inputs(B, T, H, N, dtype, gen, w_const=None, state=True,
+                scale=1.0, mixed=False):
+    """r, k, v normal times ``scale`` and w uniform in [0.2, 0.999) (or
+    ``w_const``; or, ``mixed``, per key channel 1e-12, exactly 1 or
+    uniform in turn) in ``dtype``; u (H, N) and the incoming state (B, H,
+    N, N) normal fp32 (or no state)."""
     shape = (B, T, H, N)
-    r, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
-               for _ in range(3))
+    r, k, v = ((scale * torch.randn(shape, generator=gen, device="cuda"))
+               .to(dtype) for _ in range(3))
     if w_const is None:
         w = 0.2 + 0.799 * torch.rand(shape, generator=gen, device="cuda")
     else:
         w = torch.full(shape, w_const, device="cuda")
+    if mixed:
+        w[..., 0::3] = 1e-12
+        w[..., 1::3] = 1.0
     u = torch.randn((H, N), generator=gen, device="cuda")
     s0 = (torch.randn((B, H, N, N), generator=gen, device="cuda") if state
           else None)
@@ -1075,33 +1105,81 @@ def phase_wkv6(smi):
                 (1, 96, 2, 64, 48, {}),            # chunks below 64
                 (2, 128, 4, 64, 16, {}),
                 (1, 8, 2, 16, 1, {}),
+                (1, 77, 2, 32, 7, dict(mixed=True)),   # T not of 8 rows
                 (1, 128, 2, 16, 32, dict(w_const=1e-4)),   # strong decay
                 (2, 64, 2, 32, 64, dict(state=False)),
+                (2, 128, 4, 64, 64, dict(w_const=1e-12)),  # the log's clip
+                (2, 128, 4, 64, 32, dict(w_const=1.0)),    # no decay
+                (2, 128, 4, 64, 64, dict(mixed=True)),  # both, per channel
+                (*WKV_SERVE, 64, dict(mixed=True)),
                 (*WKV_SERVE, 64, {})):             # rwkv6-7b's prefill
             worst = max(worst, _check_wkv(B, T, H, N, chunk, dtype, gen,
                                           **kw))
             cases += 1
+    # |r|, |k|, |v| ~ 100: large terms that cancel, where the bf16
+    # tolerance is relative (fp32's rtol 1e-4 is below the reference's own
+    # distance from exact arithmetic there, so fp32 is not held at x100)
+    for B, T, H, N, chunk in ((1, 64, 2, 32, 32), (1, 64, 1, 64, 64)):
+        for mixed in (False, True):
+            worst = max(worst, _check_wkv(B, T, H, N, chunk, bf16, gen,
+                                          scale=100.0, mixed=mixed))
+            cases += 1
     print(f"wkv6: kernel == plain version on {cases} cases (fp32 and bf16; "
-          f"N 16/32/64, chunks 1, 16, 32, 48, 64, strong decay, no state, "
-          f"the rwkv6-7b serving shape); worst |err| {worst:.3e} (fp32 rtol "
-          f"{WKV_TOL[f32][0]} atol {WKV_TOL[f32][1]}, bf16 rtol "
-          f"{WKV_TOL[bf16][0]} atol {WKV_TOL[bf16][1]})")
+          f"N 16/32/64, chunks 1, 7, 16, 32, 48, 64, strong decay, w = "
+          f"1e-12, w = 1, both per key channel, no state, |r|, |k|, |v| ~ "
+          f"100 in bf16, the rwkv6-7b serving shape); worst |err| "
+          f"{worst:.3e} (fp32 rtol {WKV_TOL[f32][0]} atol {WKV_TOL[f32][1]}, "
+          f"bf16 rtol {WKV_TOL[bf16][0]} atol {WKV_TOL[bf16][1]})")
+
+    # no atomics: the same bits on every call
+    for dtype in (f32, bf16):
+        x = _wkv_inputs(4, 256, 8, 64, dtype, gen, mixed=True)
+        outs = [ops.wkv6(*x, chunk=64) for _ in range(3)]
+        if not all(torch.equal(outs[0][0], y) and torch.equal(outs[0][1], s)
+                   for y, s in outs[1:]):
+            raise AssertionError(f"wkv6 ({dtype}) gave other bits on a "
+                                 f"repeated call")
+    print("wkv6: three calls on the same inputs give identical bits (fp32 "
+          "and bf16)")
+
+    # the tensor cores, by the built code: every bf16 instance holds
+    # HMMA/HGMMA instructions
+    mma = {fn: c for fn, c in sass_mma_counts("wkv6").items()
+           if "wkv6_" in fn}
+    short = {}
+    for fn, c in sorted(mma.items()):
+        kind = "mma" if "wkv6_mma_kernel" in fn else "fp32"
+        short.setdefault(kind, []).append(c)
+        if kind == "mma" and c == 0:
+            raise AssertionError(f"{fn}: no HMMA/HGMMA instruction")
+    if len(short.get("mma", [])) != len(wkv_kernel.HEAD_DIMS):
+        raise AssertionError(f"the built library lacks a bf16 tensor-core "
+                             f"instance (wkv6_mma_kernel): {sorted(mma)}")
+    print("wkv6 SASS (cuobjdump -sass), HMMA/HGMMA instructions per kernel "
+          "instance: " + "; ".join(f"{kind} {sorted(cs)}"
+                                   for kind, cs in sorted(short.items())))
 
     B, T, H, N = WKV_SERVE
     x = _wkv_inputs(B, T, H, N, bf16, gen)
+    xf = _wkv_inputs(B, T, H, N, f32, gen)
     fns = {"ms": lambda: ops.wkv6(*x, chunk=64),
            "plain_ms": lambda: ops.plain_wkv6(*x, chunk=64)}
     t = {key: graph_ms(f, calls=10, replays=10) for key, f in fns.items()}
     t.update({key.replace("ms", "eager_ms"): time_ms(f, iters=20, warmup=3)
               for key, f in fns.items()})
+    t["fp32_ms"] = graph_ms(lambda: ops.wkv6(*xf, chunk=64), calls=10,
+                            replays=10)
     t["bound_ms"], t["bound_by"] = wkv_bound(B, T, H, N, bf16)
+    t["fp32_bound_ms"], _ = wkv_bound(B, T, H, N, f32)
     t["library_ms"] = None            # no single PyTorch call computes WKV6
+    t["sass_mma"] = {kind: sorted(cs) for kind, cs in short.items()}
     print(f"wkv6 prefill (B,T,H,N)=({B},{T},{H},{N}) bf16, chunk 64: device "
           f"time per call (CUDA graph) kernel {t['ms']:.6f} ms, plain "
           f"{t['plain_ms']:.6f} ms; eager per call kernel "
           f"{t['eager_ms']:.6f} ms, plain {t['plain_eager_ms']:.6f} ms; "
           f"bound {t['bound_ms']:.6f} ms ({t['bound_by']}); no library "
-          f"call computes WKV6 [{smi}]")
+          f"call computes WKV6; the fp32 instance (off the serving path) "
+          f"{t['fp32_ms']:.6f} ms, bound {t['fp32_bound_ms']:.6f} ms [{smi}]")
     return worst, t
 
 
@@ -1555,7 +1633,8 @@ def main() -> int:
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         "eager_ms": t["eager_ms"], "plain_eager_ms": t["plain_eager_ms"],
-        "library_eager_ms": t["library_eager_ms"]}, {
+        "library_eager_ms": t["library_eager_ms"],
+        "bf16_ms": t["bf16_ms"]}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:108",
@@ -1595,7 +1674,9 @@ def main() -> int:
         "ms": wt["ms"], "plain_ms": wt["plain_ms"],
         "bound_ms": wt["bound_ms"], "bound_by": wt["bound_by"],
         "library_ms": wt["library_ms"], "eager_ms": wt["eager_ms"],
-        "plain_eager_ms": wt["plain_eager_ms"]}, {
+        "plain_eager_ms": wt["plain_eager_ms"], "fp32_ms": wt["fp32_ms"],
+        "fp32_bound_ms": wt["fp32_bound_ms"],
+        "sass_mma": wt["sass_mma"]}, {
         "name": "ssd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:65",

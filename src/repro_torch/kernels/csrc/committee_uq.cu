@@ -4,7 +4,9 @@
 // kernel (`_kernel`) that folds the committee axis with a streaming Welford
 // recurrence.
 //
-// Computes, for every row i of preds (K, n, d) fp32, contiguous:
+// Computes, for every row i of preds (K, n, d), contiguous, in fp32, bf16
+// or fp16 (each element converted to fp32 as it is loaded, exactly, as the
+// reference's `preds.astype(jnp.float32)` does):
 //   mean[i, :]        mean over the members whose row i is finite   (n, d) f32
 //   scalar_std[i]     max over d of the ddof=1 std                  (n,)   f32
 //   component_std[i]  mean over d of the same std                   (n,)   f32
@@ -13,7 +15,8 @@
 // A member with any non-finite component in row i is left out of row i
 // (quarantine); with fewer than 2 finite members the std is 0.
 //
-// Bound on this card: the kernel reads K*n*d*4 bytes and writes
+// Bound on this card: the kernel reads K*n*d elements (4 bytes each in
+// fp32, 2 in bf16 and fp16) and writes
 // n*(d+3)*4 + n bytes, doing about 6 fp32 operations per element read --
 // far below the card's fp32 rate per byte of bandwidth, so at large n it is
 // bound by memory bandwidth.  At serving sizes (K=4, n~64, d=24: about
@@ -37,17 +40,27 @@
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
 //        -Xcompiler -fPIC -o libcommittee_uq.so committee_uq.cu
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+__device__ __forceinline__ float load_f32(const float* p) { return *p; }
+__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ float load_f32(const __half* p) {
+  return __half2float(*p);
+}
+
 constexpr int kWarpsPerBlock = 8;
 constexpr unsigned kFullMask = 0xffffffffu;
 
-template <int V>
+template <typename In, int V>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-committee_uq_kernel(const float* __restrict__ preds, int K, int n, int d,
+committee_uq_kernel(const In* __restrict__ preds, int K, int n, int d,
                     float threshold, float* __restrict__ mean_out,
                     float* __restrict__ sstd_out,
                     float* __restrict__ cstd_out,
@@ -68,14 +81,14 @@ committee_uq_kernel(const float* __restrict__ preds, int K, int n, int d,
   float cnt = 0.0f;
 
   const size_t member_stride = (size_t)n * (size_t)d;
-  const float* p = preds + (size_t)row * (size_t)d;
+  const In* p = preds + (size_t)row * (size_t)d;
   for (int k = 0; k < K; ++k) {
     float x[V];
     bool ok = true;
 #pragma unroll
     for (int v = 0; v < V; ++v) {
       const int c = lane + 32 * v;
-      x[v] = (c < d) ? p[c] : 0.0f;
+      x[v] = (c < d) ? load_f32(p + c) : 0.0f;
       ok = ok && isfinite(x[v]);
     }
     p += member_stride;
@@ -118,43 +131,61 @@ committee_uq_kernel(const float* __restrict__ preds, int K, int n, int d,
   }
 }
 
-template <int V>
-void launch(const float* preds, int K, int n, int d, float threshold,
+template <typename In, int V>
+void launch(const void* preds, int K, int n, int d, float threshold,
             float* mean, float* sstd, float* cstd, uint8_t* mask,
             int32_t* finite, cudaStream_t stream) {
   const unsigned blocks =
       (unsigned)((n + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  committee_uq_kernel<V><<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
-      preds, K, n, d, threshold, mean, sstd, cstd, mask, finite);
+  committee_uq_kernel<In, V><<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
+      static_cast<const In*>(preds), K, n, d, threshold, mean, sstd, cstd,
+      mask, finite);
+}
+
+template <typename In>
+int dispatch_v(const void* p, int K, int n, int d, float threshold,
+               float* m, float* s, float* c, uint8_t* mk, int32_t* f,
+               cudaStream_t st) {
+  switch ((d + 31) / 32) {
+    case 1: launch<In, 1>(p, K, n, d, threshold, m, s, c, mk, f, st); break;
+    case 2: launch<In, 2>(p, K, n, d, threshold, m, s, c, mk, f, st); break;
+    case 3: launch<In, 3>(p, K, n, d, threshold, m, s, c, mk, f, st); break;
+    case 4: launch<In, 4>(p, K, n, d, threshold, m, s, c, mk, f, st); break;
+    case 5: launch<In, 5>(p, K, n, d, threshold, m, s, c, mk, f, st); break;
+    case 6: launch<In, 6>(p, K, n, d, threshold, m, s, c, mk, f, st); break;
+    case 7: launch<In, 7>(p, K, n, d, threshold, m, s, c, mk, f, st); break;
+    case 8: launch<In, 8>(p, K, n, d, threshold, m, s, c, mk, f, st); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C entry point, bound with ctypes.  Returns cudaGetLastError() after
-// the launch (0 on success); cudaErrorInvalidValue for shapes the kernel
-// does not take (K < 1, n < 1, d < 1 or d > 256).
+// Plain C entry point, bound with ctypes.  dtype: 0 = fp32, 1 = bf16,
+// 2 = fp16 (of preds; the outputs are fp32).  Returns cudaGetLastError()
+// after the launch (0 on success); cudaErrorInvalidValue for what the
+// kernel does not take (K < 1, n < 1, d < 1 or d > 256, another dtype).
 extern "C" int committee_uq_launch(const void* preds, int K, int n, int d,
                                    float threshold, void* mean, void* sstd,
                                    void* cstd, void* mask, void* finite,
-                                   void* stream) {
+                                   int dtype, void* stream) {
   if (K < 1 || n < 1 || d < 1 || d > 256) return (int)cudaErrorInvalidValue;
-  const float* p = static_cast<const float*>(preds);
   float* m = static_cast<float*>(mean);
   float* s = static_cast<float*>(sstd);
   float* c = static_cast<float*>(cstd);
   uint8_t* mk = static_cast<uint8_t*>(mask);
   int32_t* f = static_cast<int32_t*>(finite);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch ((d + 31) / 32) {
-    case 1: launch<1>(p, K, n, d, threshold, m, s, c, mk, f, st); break;
-    case 2: launch<2>(p, K, n, d, threshold, m, s, c, mk, f, st); break;
-    case 3: launch<3>(p, K, n, d, threshold, m, s, c, mk, f, st); break;
-    case 4: launch<4>(p, K, n, d, threshold, m, s, c, mk, f, st); break;
-    case 5: launch<5>(p, K, n, d, threshold, m, s, c, mk, f, st); break;
-    case 6: launch<6>(p, K, n, d, threshold, m, s, c, mk, f, st); break;
-    case 7: launch<7>(p, K, n, d, threshold, m, s, c, mk, f, st); break;
-    case 8: launch<8>(p, K, n, d, threshold, m, s, c, mk, f, st); break;
+  switch (dtype) {
+    case 0:
+      return dispatch_v<float>(preds, K, n, d, threshold, m, s, c, mk, f, st);
+    case 1:
+      return dispatch_v<__nv_bfloat16>(preds, K, n, d, threshold, m, s, c,
+                                       mk, f, st);
+    case 2:
+      return dispatch_v<__half>(preds, K, n, d, threshold, m, s, c, mk, f,
+                                st);
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }

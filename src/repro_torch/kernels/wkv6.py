@@ -8,6 +8,11 @@ CUDA tensors here.
 
 ``state_out`` may be the incoming ``state`` itself (a layer's slice of the
 serving cache): the kernel reads each (b, h) slice before it writes it.
+
+bf16 inputs run on the tensor cores (8-row sub-chunks carried through the
+state, decays as running products of w, three bf16 terms per fp32
+operand); ``subchunk_model`` is that arithmetic in plain PyTorch, held
+against the reference on the CPU.  fp32 inputs run on the CUDA cores.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ from repro_torch.launch.platform import DeviceLike, resolve_device
 
 HEAD_DIMS = (16, 32, 64)                # the kernel's template instances
 MAX_CHUNK = 64
+SUB = 8             # rows per sub-chunk of the bf16 kernel's recurrence
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 launches = 0            # kernel launches since the last reset
 _count_lock = threading.Lock()
@@ -46,6 +52,92 @@ def _state_arg(s: torch.Tensor, name: str, shape, dev) -> torch.Tensor:
                          f"{shape} tensor on {dev}, got {tuple(s.shape)} "
                          f"{s.dtype} on {s.device}")
     return s
+
+
+def split_bf16(x: torch.Tensor, parts: int = 2):
+    """fp32 ``x`` as ``parts`` bf16 terms, each the bf16 rounding of what
+    the ones before leave (hi = bf16(x), lo = bf16(x - hi), ...), returned
+    in fp32: each term keeps 8 more of x's 24 bits."""
+    out = []
+    for _ in range(parts):
+        out.append(x.to(torch.bfloat16).float())
+        x = x - out[-1]
+    return out
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor, split: int) -> torch.Tensor:
+    """a @ b in fp32 (``split`` 0), or as the kernel's tensor cores form
+    it: each operand split into ``split`` bf16 terms and the products of
+    terms i, j with i + j < ``split`` summed in fp32 (the ones dropped are
+    below 2^(-8 split) of the product; a term of an operand exact in bf16
+    past the first is 0)."""
+    if not split:
+        return a @ b
+    at, bt = split_bf16(a, split), split_bf16(b, split)
+    out = torch.zeros(a.shape[:-1] + b.shape[-1:], device=a.device)
+    for i in range(split):
+        for j in range(split - i):
+            out = out + at[i] @ bt[j]
+    return out
+
+
+def subchunk_model(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   w: torch.Tensor, u: torch.Tensor,
+                   state: Optional[torch.Tensor] = None, *, sub: int = SUB,
+                   split: int = 0):
+    """The bf16 kernel's arithmetic in plain PyTorch: the recurrence over
+    sub-chunks of ``sub`` rows (the last one ragged), whatever the chunk.
+    Per sub-chunk, with wc = max(w, 1e-12), pre[t] the product of wc over
+    the sub-chunk's rows before t, suf[j] the product over its rows after j,
+    dec the product over all of them, and P[t, j] the product over the rows
+    strictly between j and t, all formed as running products in row order:
+
+      y = (r * pre) @ S + A @ v,
+      A[t, j] = sum_n r[t,n] (k[j,n] P[t,j,n]), j < t,
+      A[t, t] = sum_n r[t,n] u[n] k[t,n]  (the bonus),
+      S' = dec * S + (k * suf)^T @ v.
+
+    This is the sub-chunk factorisation of the chunk's decay: the weight of
+    key j on row t of a later sub-chunk, prod_{j<s<t} wc[s], is pre[t]
+    times the decays of the whole sub-chunks between them (carried by S)
+    times suf[j], each a product of factors in (0, 1], so none overflows,
+    where the chunk-wide exp(excl) * exp(-incl) does.  No exp or log is
+    left: the (sub x sub) diagonal blocks are running products too.  The
+    reference floors a decay between two rows of a chunk at e^-60 (its
+    clip at -60); these products fall below it only where that changes
+    the result by less than e^-60 |r| |k| |v| per term, so the floor is
+    not kept.  ``split``: 0 for fp32 products, else the number of bf16
+    terms of each operand of each product, as the kernel's ``mma.sync``
+    forms it with 3 (``_mm``).  Returns (y in ``v.dtype``, the state (B,
+    H, N, N) fp32); equal to ``ref.wkv6_ref`` up to rounding."""
+    B, T, H, N = r.shape
+    rf, kf, vf = (x.float().permute(0, 2, 1, 3) for x in (r, k, v))
+    wc = w.float().clamp_min(1e-12).permute(0, 2, 1, 3)
+    uf = u.float()[None]
+    S = (torch.zeros((B, H, N, N), device=r.device) if state is None
+         else state.float().clone())
+    ys = []
+    for t0 in range(0, T, sub):
+        rs, ks, vs, ws = (x[:, :, t0:t0 + sub] for x in (rf, kf, vf, wc))
+        L = rs.shape[2]
+        pre = [torch.ones_like(ws[:, :, 0])]
+        for t in range(L):
+            pre.append(pre[-1] * ws[:, :, t])
+        A = torch.zeros((B, H, L, L), device=r.device)
+        kd = torch.empty_like(ks)
+        for j in range(L):
+            A[:, :, j, j] = (rs[:, :, j] * uf * ks[:, :, j]).sum(-1)
+            kq = ks[:, :, j]
+            for t in range(j + 1, L):
+                A[:, :, t, j] = (rs[:, :, t] * kq).sum(-1)
+                kq = kq * ws[:, :, t]
+            kd[:, :, j] = kq
+        qd = rs * torch.stack(pre[:L], dim=2)
+        y = _mm(qd, S, split) + _mm(A, vs, split)
+        S = pre[L][..., None] * S + _mm(kd.transpose(2, 3), vs, split)
+        ys.append(y)
+    y = torch.cat(ys, dim=2).permute(0, 2, 1, 3)
+    return y.to(v.dtype), S
 
 
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
@@ -87,6 +179,10 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
                          f"[1, {MAX_CHUNK}] and divide T={T}")
     if not all(t.is_contiguous() for t in (r, k, v, w, u)):
         raise ValueError("wkv6 kernel takes contiguous r, k, v, w, u")
+    if r.dtype == torch.bfloat16 and any(t.data_ptr() % 16
+                                         for t in (r, k, v, w)):
+        raise ValueError("wkv6 kernel takes 16-byte aligned bf16 r, k, v, "
+                         "w (it copies them in 16-byte pieces)")
     shape = (B, H, N, N)
     if state is not None:
         _state_arg(state, "state", shape, dev)

@@ -41,18 +41,22 @@ def _preds(K, n, d, seed=9):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=["fp32", "bf16", "fp16"])
 @pytest.mark.parametrize("K,n,d", [(4, 64, 24), (1, 33, 3), (2, 1, 1),
                                    (64, 4096, 200), (8, 65536, 24)])
-def test_committee_uq_kernel_matches_plain_version(cuda_device, K, n, d):
+def test_committee_uq_kernel_matches_plain_version(cuda_device, K, n, d,
+                                                   dtype):
+    """The kernel loads bf16 and fp16 members itself, converting each
+    element to fp32 (no cast in the wrapper): it must agree with the plain
+    version on the same tensor in every input type."""
     from repro_torch.kernels import committee_uq as kernel
 
-    preds = _preds(K, n, d)
-    x = torch.from_numpy(preds).to(cuda_device)
+    x = torch.from_numpy(_preds(K, n, d)).to(dtype)
     before = kernel.launches
-    got = [o.cpu().numpy() for o in ops.committee_uq(x, 0.9)]
+    got = [o.cpu().numpy() for o in ops.committee_uq(x.to(cuda_device), 0.9)]
     assert kernel.launches == before + 1
-    want = [o.numpy() for o in ref.committee_uq_ref(
-        torch.from_numpy(preds), 0.9)]
+    want = [o.numpy() for o in ref.committee_uq_ref(x, 0.9)]
     for g, w in zip(got, want):
         assert g.shape == w.shape and g.dtype == w.dtype
     np.testing.assert_allclose(got[0], want[0], **MEAN_TOL)
@@ -118,9 +122,29 @@ def test_committee_uq_kernel_rejects_what_it_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="d <= 256"):
         kernel.committee_uq(torch.zeros(2, 4, 257, device=cuda_device), 0.1,
                             device=cuda_device)
+    with pytest.raises(ValueError, match="d <= 256"):
+        kernel.committee_uq(torch.zeros(2, 4, 257, dtype=torch.bfloat16,
+                                        device=cuda_device), 0.1,
+                            device=cuda_device)
     with pytest.raises(ValueError, match="contiguous"):
         kernel.committee_uq(torch.zeros(2, 3, 4, device=cuda_device)
                             .transpose(1, 2), 0.1, device=cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64, torch.uint8],
+                         ids=["int32", "int64", "uint8"])
+def test_committee_uq_kernel_refuses_integer_input(cuda_device, dtype):
+    """The bf16/fp16 load path takes floats only: integer members raise
+    (the wrapper checks the device first, so only the card reaches it)."""
+    from repro_torch.kernels import committee_uq as kernel
+
+    before = kernel.launches
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+        kernel.committee_uq(torch.ones((4, 64, 24), dtype=dtype,
+                                       device=cuda_device), 0.1,
+                            device=cuda_device)
+    assert kernel.launches == before
 
 
 FA_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
@@ -263,11 +287,18 @@ WKV_TOL = {torch.float32: dict(rtol=1e-4, atol=5e-3),
 
 
 def _wkv_inputs(B, T, H, N, dtype, device, seed=4, w_const=None,
-                state=True):
+                state=True, scale=1.0, mixed=False):
+    """r, k, v normal times ``scale``; w uniform in [0.2, 0.999), or
+    ``w_const``, or (``mixed``) per key channel 1e-12 (the log's clip),
+    exactly 1 (bf16's rounding of w > 0.998) or uniform, in turn."""
     rng = np.random.RandomState(seed)
-    r, k, v = (rng.randn(B, T, H, N).astype(np.float32) for _ in range(3))
+    r, k, v = (rng.randn(B, T, H, N).astype(np.float32) * scale
+               for _ in range(3))
     w = (np.full((B, T, H, N), w_const, np.float32) if w_const is not None
          else rng.uniform(0.2, 0.999, (B, T, H, N)).astype(np.float32))
+    if mixed:
+        w[..., 0::3] = 1e-12
+        w[..., 1::3] = 1.0
     u = rng.randn(H, N).astype(np.float32)
     s0 = rng.randn(B, H, N, N).astype(np.float32) if state else None
     xs = [torch.from_numpy(a).to(device, dtype) for a in (r, k, v, w)]
@@ -288,8 +319,13 @@ def _wkv_inputs(B, T, H, N, dtype, device, seed=4, w_const=None,
     (1, 8, 2, 16, 1, {}),                     # C = 1
     (1, 128, 2, 16, 32, dict(w_const=1e-4)),  # strong decay
     (2, 64, 2, 32, 64, dict(state=False)),    # no incoming state
+    (2, 128, 2, 64, 64, dict(w_const=1e-12)),  # the log's clip
+    (2, 128, 2, 64, 32, dict(w_const=1.0)),   # no decay at all
+    (2, 96, 3, 64, 48, dict(mixed=True)),     # both, per key channel
+    (1, 77, 2, 32, 7, dict(mixed=True)),      # T not a multiple of 8
 ], ids=["sweep-n16", "sweep-n32", "sweep-n64", "smoke-n32", "serve-n64",
-        "c48", "c1", "strong-decay", "no-state"])
+        "c48", "c1", "strong-decay", "no-state", "w-clip", "w-one",
+        "mixed-decay", "ragged-t"])
 def test_wkv6_kernel_matches_plain_version(cuda_device, dtype, B, T, H, N,
                                            chunk, kw):
     from repro_torch.kernels import wkv6 as kernel
@@ -307,6 +343,72 @@ def test_wkv6_kernel_matches_plain_version(cuda_device, dtype, B, T, H, N,
                                y_want.float().cpu().numpy(), **WKV_TOL[dtype])
     np.testing.assert_allclose(s.cpu().numpy(), s_want.cpu().numpy(),
                                **WKV_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,N,chunk,mixed", [
+    (1, 64, 2, 32, 32, False), (1, 64, 2, 32, 32, True),
+    (1, 64, 1, 64, 64, False), (1, 64, 1, 64, 64, True),
+], ids=["n32", "n32-mixed", "n64", "n64-mixed"])
+def test_wkv6_kernel_holds_cancelling_products(cuda_device, B, T, H, N,
+                                               chunk, mixed):
+    """|r|, |k|, |v| ~ 100 in bf16: sums of large terms that cancel, where
+    the bf16 tolerance is relative (the atol is negligible).  The kernel's
+    products enter the tensor cores as three bf16 terms of each fp32
+    operand, as close to the plain version as fp32 arithmetic; one bf16
+    term per operand fails here by hundreds of entries
+    (``wkv6.subchunk_model(split=1)`` on the CPU).  fp32 inputs are not
+    held at this scale: fp32's rtol 1e-4 is below the reference's own
+    distance from exact arithmetic on such entries."""
+    x = _wkv_inputs(B, T, H, N, torch.bfloat16, cuda_device, scale=100.0,
+                    mixed=mixed)
+    y, s = ops.wkv6(*x, chunk=chunk)
+    y_want, s_want = ref.wkv6_chunked_ref(*x, chunk=chunk)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(y.float().cpu().numpy(),
+                               y_want.float().cpu().numpy(),
+                               **WKV_TOL[torch.bfloat16])
+    np.testing.assert_allclose(s.cpu().numpy(), s_want.cpu().numpy(),
+                               **WKV_TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_wkv6_kernel_repeats_give_the_same_bits(cuda_device, dtype):
+    """No atomics: three calls on the same inputs, the same y and state."""
+    x = _wkv_inputs(4, 256, 8, 64, dtype, cuda_device, seed=6, mixed=True)
+    outs = [ops.wkv6(*x, chunk=64) for _ in range(3)]
+    for y, s in outs[1:]:
+        assert torch.equal(y, outs[0][0]) and torch.equal(s, outs[0][1])
+
+
+@pytest.mark.cuda
+def test_wkv6_bf16_instances_run_on_the_tensor_cores(cuda_device):
+    """Every bf16 instance (N = 16, 32, 64) of the built library holds
+    HMMA (or HGMMA) instructions, by ``cuobjdump -sass``."""
+    import re
+    import shutil
+    import subprocess
+    from pathlib import Path
+
+    from repro_torch.kernels import _build
+
+    _build.load("wkv6")
+    exe = shutil.which("cuobjdump") or str(
+        Path(_build.nvcc()).with_name("cuobjdump"))
+    sass = subprocess.run([exe, "-sass", str(_build.library_path("wkv6"))],
+                          capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn is not None and re.search(r"\bHG?MMA\b", line):
+            counts[fn] += 1
+    mma = {f: c for f, c in counts.items() if "wkv6_mma_kernel" in f}
+    assert len(mma) == 3 and all(c > 0 for c in mma.values()), counts
 
 
 @pytest.mark.cuda
@@ -355,6 +457,11 @@ def test_wkv6_kernel_rejects_what_it_does_not_take(cuda_device):
                     device=cuda_device)
     with pytest.raises(ValueError, match="expected the CUDA device"):
         kernel.wkv6(r.cpu(), k, v, w, u, device=cuda_device)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flat = torch.zeros(r.numel() + 1, dtype=torch.bfloat16,
+                           device=cuda_device)
+        rb = flat[1:].view(r.shape)           # contiguous, 2 bytes off
+        kernel.wkv6(rb, rb, rb, rb, u, device=cuda_device)
     before = kernel.launches
     kernel.wkv6(r, k, v, w, u, s0, chunk=16, device=cuda_device)
     kernel.wkv6(r, k, v, w, u, chunk=64, device=cuda_device)
