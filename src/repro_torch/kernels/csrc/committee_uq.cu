@@ -189,3 +189,15 @@ extern "C" int committee_uq_launch(const void* preds, int K, int n, int d,
     default: return (int)cudaErrorInvalidValue;
   }
 }
+
+namespace {
+__global__ void noop_kernel() {}
+}  // namespace
+
+// One empty one-thread kernel on ``stream``: its device time is the launch
+// floor any kernel of this size pays (measured beside committee_uq, which
+// sits on it at the serving shape).  Returns cudaGetLastError().
+extern "C" int committee_uq_noop(void* stream) {
+  noop_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>();
+  return (int)cudaGetLastError();
+}

@@ -11,6 +11,12 @@ across the heads with ``expand`` (stride 0 on h, as Jamba's mixer makes
 them) reaches the kernel as it is, never materialized per head.
 ``state_out`` may be the incoming ``state`` itself (a layer's slice of the
 serving cache): the kernel reads each (b, h) slice before it writes it.
+
+bf16 inputs run on the tensor cores (each chunk staged as a 64-row tile,
+the products C B^T, A x, S^T C^T and x^T (B * dec) by ``mma.sync``, three
+bf16 terms per fp32 operand); ``mma_model`` is that arithmetic in plain
+PyTorch, held against the reference on the CPU.  fp32 inputs run on the
+CUDA cores.
 """
 from __future__ import annotations
 
@@ -21,11 +27,14 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.bf16_terms import mm_terms
 from repro_torch.launch.platform import DeviceLike, resolve_device
 
 HEAD_DIMS = (16, 32, 128)               # P: the kernel's template instances
 STATE_DIMS = (8, 16)                    # N
 MAX_CHUNK = 64
+TILE = 64           # rows the bf16 kernel stages a chunk in (zero-padded)
+PARTS = 3           # bf16 terms of each fp32 operand in the bf16 kernel
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 launches = 0            # kernel launches since the last reset
 _count_lock = threading.Lock()
@@ -51,6 +60,72 @@ def _state_arg(s: torch.Tensor, name: str, shape, dev) -> torch.Tensor:
                          f"{shape} tensor on {dev}, got {tuple(s.shape)} "
                          f"{s.dtype} on {s.device}")
     return s
+
+
+def _copyable(t: torch.Tensor, strides: bool) -> torch.Tensor:
+    """``t`` as the bf16 kernel copies it, in 16-byte pieces: its pointer
+    16-byte aligned and (``strides``) its b, t, h strides multiples of 8
+    elements.  Otherwise a contiguous copy, the same values: an odd view
+    costs a copy, never another result."""
+    if t.data_ptr() % 16 == 0 and not (strides and any(
+            st % 8 for st in t.stride()[:3])):
+        return t
+    return torch.empty(t.shape, dtype=t.dtype, device=t.device).copy_(t)
+
+
+def mma_model(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
+              Cm: torch.Tensor, state: Optional[torch.Tensor] = None, *,
+              chunk: int = 64, split: int = PARTS):
+    """The bf16 kernel's arithmetic in plain PyTorch.  Each chunk of
+    ``chunk`` rows is staged as a tile of ``TILE`` rows, the rows past the
+    chunk as x = B = C = 0 and a = 1 (log a = 0), so they add nothing to y
+    or the state.  Per tile, with incl the cumsum of la = log(max(a,
+    1e-12)) over the tile and total = incl[chunk - 1] (= incl[TILE - 1]):
+
+      G = C @ B^T                                  (bf16 operands, exact),
+      A[t, j] = G[t, j] exp(clip(incl_t - incl_j, -60, 0)) for j <= t, else 0,
+      y = exp(incl) * (C @ S) + A @ x,
+      S' = exp(total) S + (B * exp(clip(total - incl, -60, 0)))^T @ x,
+
+    which is ``ref.ssd_chunked_ref`` on the padded tile, but for the
+    cumsum: the fp32 logs are summed in float64, so incl and each decay
+    formed from it are rounded once, where the plain version's fp32 cumsum
+    rounds at every row.  ``split``: 0 for
+    fp32 products, else the number of bf16 terms of each fp32 operand (S,
+    A, B * dec) as the kernel's ``mma.sync`` takes them
+    (``bf16_terms.mm_terms``; x and C are exact in bf16, so one term each).
+    Returns (y in ``x.dtype``, the state (B, H, N, P) fp32)."""
+    B, T, H, P = x.shape
+    N = Bm.shape[-1]
+    if not 1 <= chunk <= TILE or T % chunk:
+        raise ValueError(f"chunk={chunk} must lie in [1, {TILE}] and "
+                         f"divide T={T}")
+    xf, bf, cf = (z.float().permute(0, 2, 1, 3) for z in (x, Bm, Cm))
+    la = torch.log(a.float().clamp_min(1e-12)).permute(0, 2, 1)
+    S = (torch.zeros((B, H, N, P), device=x.device) if state is None
+         else state.float().clone())
+    mask = torch.tril(torch.ones((TILE, TILE), dtype=torch.bool,
+                                 device=x.device))
+    pad = (0, 0, 0, TILE - chunk)
+    ys = []
+    for c0 in range(0, T, chunk):
+        xs, bs, cs = (torch.nn.functional.pad(z[:, :, c0:c0 + chunk], pad)
+                      for z in (xf, bf, cf))
+        incl = torch.cumsum(torch.nn.functional.pad(
+            la[:, :, c0:c0 + chunk], (0, TILE - chunk)).double(), dim=-1)
+        total = incl[..., -1:]
+        ratio = torch.exp(torch.clamp(
+            (incl[..., :, None] - incl[..., None, :]).float(), -60.0, 0.0))
+        A = torch.where(mask, (cs @ bs.transpose(2, 3)) * ratio, 0.0)
+        y = torch.exp(incl).float()[..., None] * mm_terms(cs, S, split) + \
+            mm_terms(A, xs, split)
+        bd = bs * torch.exp(torch.clamp((total - incl).float(), -60.0,
+                                        0.0))[..., None]
+        S = torch.exp(total).float()[..., None] * S + mm_terms(
+            bd.transpose(2, 3), xs, split)
+        ys.append(y[:, :, :chunk])
+    y = torch.cat(ys, dim=2).permute(0, 2, 1, 3)
+    return y.to(x.dtype), S
 
 
 def ssd(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
@@ -97,6 +172,9 @@ def ssd(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
     if Bm.stride(-1) != 1 or Cm.stride(-1) != 1:
         raise ValueError("ssd kernel takes Bm and Cm with a contiguous last "
                          "(N) dimension")
+    if x.dtype == torch.bfloat16:
+        x, Bm, Cm = (_copyable(t, strides=i > 0) for i, t in
+                     enumerate((x, Bm, Cm)))
     shape = (B, H, N, P)
     if state is not None:
         _state_arg(state, "state", shape, dev)

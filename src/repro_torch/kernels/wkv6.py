@@ -23,6 +23,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.bf16_terms import mm_terms
 from repro_torch.launch.platform import DeviceLike, resolve_device
 
 HEAD_DIMS = (16, 32, 64)                # the kernel's template instances
@@ -54,33 +55,6 @@ def _state_arg(s: torch.Tensor, name: str, shape, dev) -> torch.Tensor:
     return s
 
 
-def split_bf16(x: torch.Tensor, parts: int = 2):
-    """fp32 ``x`` as ``parts`` bf16 terms, each the bf16 rounding of what
-    the ones before leave (hi = bf16(x), lo = bf16(x - hi), ...), returned
-    in fp32: each term keeps 8 more of x's 24 bits."""
-    out = []
-    for _ in range(parts):
-        out.append(x.to(torch.bfloat16).float())
-        x = x - out[-1]
-    return out
-
-
-def _mm(a: torch.Tensor, b: torch.Tensor, split: int) -> torch.Tensor:
-    """a @ b in fp32 (``split`` 0), or as the kernel's tensor cores form
-    it: each operand split into ``split`` bf16 terms and the products of
-    terms i, j with i + j < ``split`` summed in fp32 (the ones dropped are
-    below 2^(-8 split) of the product; a term of an operand exact in bf16
-    past the first is 0)."""
-    if not split:
-        return a @ b
-    at, bt = split_bf16(a, split), split_bf16(b, split)
-    out = torch.zeros(a.shape[:-1] + b.shape[-1:], device=a.device)
-    for i in range(split):
-        for j in range(split - i):
-            out = out + at[i] @ bt[j]
-    return out
-
-
 def subchunk_model(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    w: torch.Tensor, u: torch.Tensor,
                    state: Optional[torch.Tensor] = None, *, sub: int = SUB,
@@ -108,8 +82,9 @@ def subchunk_model(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the result by less than e^-60 |r| |k| |v| per term, so the floor is
     not kept.  ``split``: 0 for fp32 products, else the number of bf16
     terms of each operand of each product, as the kernel's ``mma.sync``
-    forms it with 3 (``_mm``).  Returns (y in ``v.dtype``, the state (B,
-    H, N, N) fp32); equal to ``ref.wkv6_ref`` up to rounding."""
+    forms it with 3 (``bf16_terms.mm_terms``).  Returns (y in ``v.dtype``,
+    the state (B, H, N, N) fp32); equal to ``ref.wkv6_ref`` up to
+    rounding."""
     B, T, H, N = r.shape
     rf, kf, vf = (x.float().permute(0, 2, 1, 3) for x in (r, k, v))
     wc = w.float().clamp_min(1e-12).permute(0, 2, 1, 3)
@@ -133,8 +108,8 @@ def subchunk_model(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 kq = kq * ws[:, :, t]
             kd[:, :, j] = kq
         qd = rs * torch.stack(pre[:L], dim=2)
-        y = _mm(qd, S, split) + _mm(A, vs, split)
-        S = pre[L][..., None] * S + _mm(kd.transpose(2, 3), vs, split)
+        y = mm_terms(qd, S, split) + mm_terms(A, vs, split)
+        S = pre[L][..., None] * S + mm_terms(kd.transpose(2, 3), vs, split)
         ys.append(y)
     y = torch.cat(ys, dim=2).permute(0, 2, 1, 3)
     return y.to(v.dtype), S

@@ -45,14 +45,14 @@ from repro_torch.serving import ServeEngine
 
 # every kernel symbol of each hand-written kernel: flash's tiled prefill
 # kernel, its split-KV decode kernels (bf16 mma, fp32) and their merge, and
-# its fp32 prefill kernel; wkv6's bf16 (mma) and fp32 kernels
+# its fp32 prefill kernel; wkv6's and ssd's bf16 (mma) and fp32 kernels
 KERNEL_GROUPS = (("flash_attention", ("flash_tiled_kernel",
                                       "flash_split_mma_kernel",
                                       "flash_split_kernel",
                                       "flash_combine_kernel",
                                       "flash_attention_kernel")),
                  ("wkv6", ("wkv6_mma_kernel", "wkv6_fp32_kernel")),
-                 ("ssd", ("ssd_kernel",)))
+                 ("ssd", ("ssd_mma_kernel", "ssd_fp32_kernel")))
 # archs too large for one card, cut as their config files state
 ONE_CARD_CUTS = {"jamba-1.5-large-398b": ONE_CARD_CUT}
 GROUPS = KERNEL_GROUPS + (

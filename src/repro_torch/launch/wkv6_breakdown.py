@@ -22,14 +22,13 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import re
-import subprocess
 import sys
 from pathlib import Path
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.launch import kernel_variants as kv
 from repro_torch.launch import platform
 
 SHAPE = (8, 512, 64, 64)
@@ -39,9 +38,7 @@ PRODUCTS = ("for (int s = 0; s < kSubs; ++s) {\n      const int tb = s * kSub;"
 
 
 def _cut(src: str, loop: str) -> str:
-    if loop not in src:
-        raise RuntimeError(f"wkv6.cu no longer holds the loop {loop[:40]!r}")
-    return src.replace(loop, loop.replace("< kSubs", "< 0"), 1)
+    return kv.cut(src, loop, loop.replace("< kSubs", "< 0"))
 
 
 VARIANTS = {
@@ -53,32 +50,12 @@ VARIANTS = {
 
 
 def _build_variants(out_dir: Path):
-    src = (_build.CSRC / "wkv6.cu").read_text()
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, edit in VARIANTS.items():
-        cu = out_dir / f"wkv6_{name}.cu"
-        cu.write_text(edit(src))
-        cmd = [_build.nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
-               "-o", str(out_dir / f"libwkv6_{name}.so"), str(cu)]
-        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                       stderr=subprocess.STDOUT, text=True)
-    libs, ptxas = {}, {}
-    for name, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"{name}: nvcc exited {proc.returncode}\n{log}")
-        ptxas[name] = [
-            f"{m.group(1)}: {m.group(3)} registers, {m.group(2)}"
-            for m in re.finditer(
-                r"entry function '\S*?(wkv6_(?:mma|fp32)_kernelILi\d+)\S*'"
-                r"[\s\S]*?(\d+ bytes spill stores, \d+ bytes spill loads)"
-                r"[\s\S]*?Used (\d+) registers", log)]
-        lib = ctypes.CDLL(str(out_dir / f"libwkv6_{name}.so"))
+    libs, ptxas = kv.build_variants("wkv6", VARIANTS, out_dir,
+                                    r"wkv6_(?:mma|fp32)_kernelILi\d+")
+    for lib in libs.values():
         lib.wkv6_launch.argtypes = [ctypes.c_void_p] * 8 + \
             [ctypes.c_int] * 6 + [ctypes.c_void_p]
         lib.wkv6_launch.restype = ctypes.c_int
-        libs[name] = lib
     return libs, ptxas
 
 
@@ -96,27 +73,6 @@ def _launcher(lib, x, chunk, dtype_code):
         if err:
             raise RuntimeError(f"wkv6 launch failed: CUDA error {err}")
     return call
-
-
-def graph_ms(fn, calls=10, replays=10) -> float:
-    """Device ms per call: ``calls`` calls in one CUDA graph, replayed."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / (calls * replays)
 
 
 def _inputs(B, T, H, N, dtype, gen):
@@ -145,7 +101,7 @@ def main(argv=None) -> int:
     ms = {name: [] for name in libs}
     for _ in range(2):
         for name, lib in libs.items():
-            ms[name].append(graph_ms(_launcher(lib, x, 64, 1)))
+            ms[name].append(kv.graph_ms(_launcher(lib, x, 64, 1)))
     for name, t in ms.items():
         print(f"bf16 {name} {SHAPE}: " + ", ".join(f"{v:.6f}" for v in t)
               + f" ms per call [{card}]")
@@ -154,7 +110,7 @@ def main(argv=None) -> int:
     for B in (4, 8):
         xb = [t[:B].contiguous() if t.dim() == 4 else t for t in xf]
         for chunk in (64, 32, 16):
-            fp32[f"B{B}_chunk{chunk}"] = t = graph_ms(
+            fp32[f"B{B}_chunk{chunk}"] = t = kv.graph_ms(
                 _launcher(libs["kernel"], xb, chunk, 0))
             print(f"fp32 kernel B={B} chunk={chunk}: {t:.6f} ms per call "
                   f"[{card}]")

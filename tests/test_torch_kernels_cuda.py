@@ -473,15 +473,17 @@ SSD_TOL = WKV_TOL
 
 
 def _ssd_inputs(B, T, H, P, N, dtype, device, seed=8, a_lo=0.3, a_hi=1.0,
-                state=True, broadcast=False):
-    """x, B, C normal and a uniform in [a_lo, a_hi), all in ``dtype``; the
-    state fp32 (or none).  ``broadcast``: B and C one (B, T, N) projection
-    expanded across the heads (stride 0), as Jamba's mixer makes them."""
+                state=True, broadcast=False, scale=1.0):
+    """x, B, C normal times ``scale`` and a uniform in [a_lo, a_hi) (a_lo =
+    a_hi = 1: no decay), all in ``dtype``; the state fp32 (or none).
+    ``broadcast``: B and C one (B, T, N) projection expanded across the
+    heads (stride 0), as Jamba's mixer makes them."""
     rng = np.random.RandomState(seed)
-    x = rng.randn(B, T, H, P).astype(np.float32)
+    x = rng.randn(B, T, H, P).astype(np.float32) * scale
     a = rng.uniform(a_lo, a_hi, (B, T, H)).astype(np.float32)
     hb = 1 if broadcast else H
-    Bm, Cm = (rng.randn(B, T, hb, N).astype(np.float32) for _ in range(2))
+    Bm, Cm = (rng.randn(B, T, hb, N).astype(np.float32) * scale
+              for _ in range(2))
     s0 = rng.randn(B, H, N, P).astype(np.float32) if state else None
     x, a, Bm, Cm = (torch.from_numpy(v).to(device, dtype)
                     for v in (x, a, Bm, Cm))
@@ -505,8 +507,11 @@ def _ssd_inputs(B, T, H, P, N, dtype, device, seed=8, a_lo=0.3, a_hi=1.0,
     (1, 128, 2, 32, 16, 32, dict(a_lo=1e-4, a_hi=2e-4)),  # strong decay
     (1, 128, 2, 32, 16, 64, dict(a_lo=0.999, a_hi=1.0)),  # decay near 1
     (2, 64, 2, 128, 8, 64, dict(state=False)),    # no incoming state
+    (1, 128, 2, 32, 16, 32, dict(a_lo=1.0, a_hi=1.0)),    # a = 1
+    (2, 128, 4, 128, 16, 64, dict(a_lo=1.0, a_hi=1.0, broadcast=True)),
 ], ids=["sweep-p16", "sweep-p32", "p128", "jamba-broadcast", "smoke",
-        "c48", "c1", "strong-decay", "near-one", "no-state"])
+        "c48", "c1", "strong-decay", "near-one", "no-state", "a-one",
+        "a-one-broadcast"])
 def test_ssd_kernel_matches_plain_version(cuda_device, dtype, B, T, H, P, N,
                                           chunk, kw):
     from repro_torch.kernels import ssd as kernel
@@ -524,6 +529,86 @@ def test_ssd_kernel_matches_plain_version(cuda_device, dtype, B, T, H, P, N,
                                y_want.float().cpu().numpy(), **SSD_TOL[dtype])
     np.testing.assert_allclose(s.cpu().numpy(), s_want.cpu().numpy(),
                                **SSD_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,P,N,chunk,kw", [
+    (1, 128, 2, 32, 16, 32, {}),
+    (1, 128, 2, 128, 8, 64, {}),
+    (2, 128, 4, 128, 16, 64, dict(broadcast=True)),
+    (1, 128, 2, 128, 16, 16, dict(a_lo=1.0, a_hi=1.0)),
+    (1, 96, 2, 16, 16, 48, dict(state=False)),
+], ids=["p32", "n8", "broadcast", "a-one-c16", "p16-c48"])
+def test_ssd_kernel_holds_cancelling_products(cuda_device, B, T, H, P, N,
+                                              chunk, kw):
+    """|x|, |B|, |C| ~ 100 in bf16: sums of large terms that cancel, where
+    the bf16 tolerance is relative (the atol is negligible).  The kernel's
+    fp32 operands enter the tensor cores as three bf16 terms each; two
+    terms fail here (``ssd.mma_model(split=2)`` on the CPU).  Where terms
+    of ~1e6 cancel to ~1e2, one ulp of one fp32 log moves y by more than
+    the tolerance, so each entry must lie within it of the plain version
+    or, where that is further off, of the recurrence in float64.  fp32
+    inputs are not held at this scale: fp32's rtol 1e-4 is below the fp32
+    plain version's own distance from exact arithmetic on such entries."""
+    x = _ssd_inputs(B, T, H, P, N, torch.bfloat16, cuda_device, scale=100.0,
+                    **kw)
+    y, s = ops.ssd(*x, chunk=chunk)
+    want = ref.ssd_chunked_ref(*x, chunk=chunk)
+    torch.cuda.synchronize()
+    xd = [v.double() if v is not None else None for v in x]
+    S = xd[4] if xd[4] is not None else torch.zeros(
+        (B, H, N, P), dtype=torch.float64, device=cuda_device)
+    ys = []
+    for t in range(T):
+        S = xd[1][:, t, :, None, None] * S + \
+            xd[2][:, t, :, :, None] * xd[0][:, t, :, None, :]
+        ys.append(torch.einsum("bhn,bhnp->bhp", xd[3][:, t], S))
+    rtol, atol = (SSD_TOL[torch.bfloat16][k] for k in ("rtol", "atol"))
+    for got, plain, exact in zip((y, s), want, (torch.stack(ys, 1), S)):
+        got, plain = got.double(), plain.double()
+        off = ((got - plain).abs() > atol + rtol * plain.abs()) & \
+            ((got - exact).abs() > atol + rtol * exact.abs())
+        assert torch.isfinite(got).all() and not off.any(), int(off.sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_ssd_kernel_repeats_give_the_same_bits(cuda_device, dtype):
+    """No atomics: three calls on the same inputs, the same y and state."""
+    x = _ssd_inputs(4, 256, 8, 128, 16, dtype, cuda_device, seed=6,
+                    broadcast=True)
+    outs = [ops.ssd(*x, chunk=64) for _ in range(3)]
+    for y, s in outs[1:]:
+        assert torch.equal(y, outs[0][0]) and torch.equal(s, outs[0][1])
+
+
+@pytest.mark.cuda
+def test_ssd_bf16_instances_run_on_the_tensor_cores(cuda_device):
+    """Every bf16 instance (P = 16, 32, 128) of the built library holds
+    HMMA (or HGMMA) instructions, by ``cuobjdump -sass``."""
+    import re
+    import shutil
+    import subprocess
+    from pathlib import Path
+
+    from repro_torch.kernels import _build
+
+    _build.load("ssd")
+    exe = shutil.which("cuobjdump") or str(
+        Path(_build.nvcc()).with_name("cuobjdump"))
+    sass = subprocess.run([exe, "-sass", str(_build.library_path("ssd"))],
+                          capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn is not None and re.search(r"\bHG?MMA\b", line):
+            counts[fn] += 1
+    mma = {f: c for f, c in counts.items() if "ssd_mma_kernel" in f}
+    assert len(mma) == 3 and all(c > 0 for c in mma.values()), counts
 
 
 @pytest.mark.cuda
@@ -548,6 +633,26 @@ def test_ssd_kernel_reads_broadcast_B_and_C_as_materialized(cuda_device):
     assert Bm.stride(2) == 0
     y, s = ops.ssd(x, a, Bm, Cm, s0, chunk=32)
     y2, s2 = ops.ssd(x, a, Bm.contiguous(), Cm.contiguous(), s0, chunk=32)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(s, s2)
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_takes_unaligned_bf16_views(cuda_device):
+    """The bf16 kernel copies x, B and C in 16-byte pieces; a view off that
+    grain (x 2 bytes off, B and C rows of N + 1) is copied by the wrapper
+    first and gives the same bits as the aligned tensors."""
+    x, a, Bm, Cm, s0 = _ssd_inputs(2, 128, 4, 32, 16, torch.bfloat16,
+                                   cuda_device, seed=7)
+    flat = torch.zeros(x.numel() + 1, dtype=x.dtype, device=cuda_device)
+    xo = flat[1:].view(x.shape)
+    xo.copy_(x)
+    wide = torch.zeros((2, 2, 128, 4, 17), dtype=x.dtype, device=cuda_device)
+    wide[0, ..., :16], wide[1, ..., :16] = Bm, Cm
+    bo, co = wide[0, ..., :16], wide[1, ..., :16]
+    assert xo.data_ptr() % 16 and bo.stride(1) % 8
+    y, s = ops.ssd(xo, a, bo, co, s0, chunk=64)
+    y2, s2 = ops.ssd(x, a, Bm, Cm, s0, chunk=64)
     torch.cuda.synchronize()
     assert torch.equal(y, y2) and torch.equal(s, s2)
 

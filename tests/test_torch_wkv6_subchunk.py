@@ -22,7 +22,7 @@ import pytest
 import torch
 
 from repro.kernels.wkv6 import wkv6 as jwkv6
-from repro_torch.kernels import ref
+from repro_torch.kernels import bf16_terms, ref
 from repro_torch.kernels import wkv6 as kernel
 
 TOL = {"float32": dict(rtol=1e-4, atol=5e-3),
@@ -137,7 +137,7 @@ def test_split_bf16_terms_add_back_to_the_operand():
     remainder is below 2^-24 |x|), two keep 16."""
     x = torch.from_numpy(np.random.RandomState(0).randn(4096)
                          .astype(np.float32) * 1e3)
-    terms = kernel.split_bf16(x, 3)
+    terms = bf16_terms.split_bf16(x, 3)
     for t in terms:
         assert torch.equal(t, t.to(torch.bfloat16).float())
     err3 = (x.double() - sum(t.double() for t in terms)).abs()
