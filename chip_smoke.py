@@ -7,17 +7,23 @@ Phases (each raises on a failed check; the script exits non-zero):
 
 1. describe the card and build every CUDA kernel from ``src/repro_torch/
    kernels/csrc`` (one ``nvcc`` per source, all started together);
-2. committee kernel phase: ``committee_uq`` against its plain PyTorch
-   version on the same CUDA tensors, over a sweep of shapes including
-   non-finite members, in fp32 and (the kernel's own load path) bf16 and
-   fp16, and timed beside its plain version, its bound and the nearest
-   one-call PyTorch yardstick, and an empty one-thread kernel beside it
-   (the launch floor);
+2. committee kernel phase: both entries of ``committee_uq`` (the five
+   outputs; the engine's packed entry, which also masks rows past a
+   device-resident ``n_valid``) against their plain PyTorch versions on
+   the same CUDA tensors, over a sweep of shapes including non-finite
+   members, in fp32 and (the kernel's own load path) bf16 and fp16, and
+   timed beside their plain versions, their bound and the nearest one-call
+   PyTorch yardstick at the serving shape and at (4, 65536, 24), and an
+   empty one-thread kernel beside them (the launch floor);
 3. committee serving phase at ``PotentialConfig()`` full width: a K=4
    committee behind ``make_engine`` -> ``CommitteeServer`` ->
-   ``ServingQueue``, fed by 4 client threads, then the same microbatches
-   replayed through a CPU engine with the same weights; the kernel's launch
-   count must equal the engine's dispatch count;
+   ``ServingQueue``, fed by 4 client threads, each shape bucket one
+   captured CUDA graph, replayed; then the same microbatches replayed
+   through a CPU engine with the same weights; the kernel's launch count
+   (added at every replay) must equal the engine's dispatch count, and
+   each bucket is captured once; each bucket's dispatch time; then new
+   weights through ``refresh_from_device`` on both engines, and the card
+   must equal the CPU again;
 4. flash phase: ``flash_attention`` against its plain version on the same
    CUDA tensors over the reference's sweep, decode with ``kv_len`` (0, 1,
    on and either side of a split boundary), the sliding-window decode,
@@ -284,11 +290,42 @@ def _check_uq(preds):
     return err
 
 
-def uq_bound(K, n, d):
-    """Least time for the work: each input byte read once, each output
-    written once; ~6 fp32 operations per element folded plus the
-    finalization, at the published peaks."""
-    nbytes = K * n * d * 4 + n * d * 4 + 3 * n * 4 + n
+def _check_uq_packed(preds, n_valid):
+    """The packed entry vs its plain version on one input, rows at or past
+    ``n_valid`` masked; returns the worst abs error.  Threshold and mask
+    rule as ``_check_uq``; the kernel writes into a given buffer."""
+    K, n, d = preds.shape
+    want = ref.committee_uq_ref(preds, 0.0)
+    s = want[1][want[4] > 0]
+    thr = float(s.median()) if s.numel() else 0.0
+    nv = torch.tensor(n_valid, dtype=torch.int32, device="cuda")
+    out = torch.empty(ref.packed_uq_nbytes(n, d), dtype=torch.uint8,
+                      device="cuda")
+    if ops.committee_uq_packed(preds, thr, nv, out=out) is not out:
+        raise AssertionError("committee_uq_packed did not write its out")
+    torch.cuda.synchronize()
+    got = ref.packed_uq_views(out, n, d)
+    want = ref.packed_uq_views(ref.committee_uq_packed_ref(preds, thr, nv),
+                               n, d)
+    tag = f"packed K={K} n={n} d={d} n_valid={n_valid}"
+    err = max(_max_err(got[0], want[0], MEAN_RTOL, MEAN_ATOL, f"{tag} mean"),
+              _max_err(got[1], want[1], STD_RTOL, STD_ATOL, f"{tag} sstd"),
+              _max_err(got[2], want[2], STD_RTOL, STD_ATOL, f"{tag} cstd"))
+    if not torch.equal(got[3], want[3]):
+        raise AssertionError(f"{tag}: finite counts differ")
+    away = (want[1] - thr).abs() > STD_ATOL + STD_RTOL * abs(thr)
+    if not torch.equal(got[4][away], want[4][away]) \
+            or bool(got[4][n_valid:].any()):
+        raise AssertionError(f"{tag}: mask differs away from the threshold")
+    return err
+
+
+def uq_bound(K, n, d, packed=False):
+    """Least time for the work: each input byte read once (the packed
+    entry also reads n_valid), each output written once; ~6 fp32
+    operations per element folded plus the finalization, at the published
+    peaks."""
+    nbytes = K * n * d * 4 + n * d * 4 + 3 * n * 4 + n + (4 if packed else 0)
     flops = 6 * K * n * d + 4 * n * d
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FP32_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
@@ -325,30 +362,65 @@ def phase_kernels():
     print(f"committee_uq: kernel == plain version on {low_cases} bf16 and "
           f"fp16 cases (the same tensor, NaN/inf members included); worst "
           f"|err| {low:.3e} (same tolerances)")
+    # the engine's packed entry, n_valid below n (0 for n = 1)
+    packed, packed_cases = 0.0, 0
+    for K in (1, 4, 8, 64):
+        for n in (1, 33, 64, 4096, 65536):
+            for d in (3, 24, 200):
+                poison = n in (33, 4096)
+                packed = max(packed, _check_uq_packed(
+                    _uq_inputs(K, n, d, gen, poison), (2 * n) // 3))
+                packed_cases += 1
+    for dtype in (torch.bfloat16, torch.float16):
+        for K, n, d in (SERVE_SHAPE, (8, 4096, 200)):
+            packed = max(packed, _check_uq_packed(
+                _uq_inputs(K, n, d, gen, True).to(dtype), n - 5))
+            packed_cases += 1
+    worst = max(worst, packed)
+    print(f"committee_uq packed entry: kernel == plain version on "
+          f"{packed_cases} cases (fp32, bf16, fp16; n_valid < n; NaN/inf "
+          f"members); worst |err| {packed:.3e} (same tolerances)")
 
     timings = {}
-    for shape in (SERVE_SHAPE, (8, 65536, 24), (64, 65536, 24)):
+    for shape in (SERVE_SHAPE, (4, 65536, 24), (8, 65536, 24),
+                  (64, 65536, 24)):
         K, n, d = shape
         preds = _uq_inputs(K, n, d, gen, False)
-        fns = {"ms": lambda: ops.committee_uq(preds, 1.0),
-               "plain_ms": lambda: ref.committee_uq_ref(preds, 1.0),
+        nv = torch.tensor(n - 1, dtype=torch.int32, device="cuda")
+        out = torch.empty(ref.packed_uq_nbytes(n, d), dtype=torch.uint8,
+                          device="cuda")
+        fns = {"ms": lambda: ops.committee_uq_packed(preds, 1.0, nv,
+                                                     out=out),
+               "plain_ms": lambda: ref.committee_uq_packed_ref(
+                   preds, 1.0, nv, out=out),
+               "five_output_ms": lambda: ops.committee_uq(preds, 1.0),
+               "five_output_plain_ms": lambda: ref.committee_uq_ref(
+                   preds, 1.0),
                "library_ms": lambda: torch.std_mean(preds, 0, correction=1)}
         t = {k: graph_ms(f) for k, f in fns.items()}
         t.update({k.replace("ms", "eager_ms"): time_ms(f)
                   for k, f in fns.items()})
-        t["bound_ms"], t["bound_by"] = uq_bound(K, n, d)
+        t["bound_ms"], t["bound_by"] = uq_bound(K, n, d, packed=True)
+        t["five_output_bound_ms"], _ = uq_bound(K, n, d)
         if shape == SERVE_SHAPE:
             half = preds.to(torch.bfloat16)
-            t["bf16_ms"] = graph_ms(lambda: ops.committee_uq(half, 1.0))
+            t["bf16_ms"] = graph_ms(lambda: ops.committee_uq_packed(
+                half, 1.0, nv, out=out))
         timings[shape] = t
         print(f"committee_uq K={K} n={n} d={d}: device time per call "
-              f"(CUDA graph) kernel {t['ms']:.6f} ms, plain "
-              f"{t['plain_ms']:.6f} ms, torch.std_mean "
-              f"{t['library_ms']:.6f} ms; eager per call kernel "
-              f"{t['eager_ms']:.6f} ms, plain {t['plain_eager_ms']:.6f} ms, "
-              f"torch.std_mean {t['library_eager_ms']:.6f} ms; bound "
-              f"{t['bound_ms']:.6f} ms ({t['bound_by']})"
-              + (f"; bf16 members: kernel {t['bf16_ms']:.6f} ms"
+              f"(CUDA graph) packed entry {t['ms']:.6f} ms (plain "
+              f"{t['plain_ms']:.6f}), five-output entry "
+              f"{t['five_output_ms']:.6f} ms (plain "
+              f"{t['five_output_plain_ms']:.6f}), torch.std_mean "
+              f"{t['library_ms']:.6f} ms; eager per call packed "
+              f"{t['eager_ms']:.6f} ms, five-output "
+              f"{t['five_output_eager_ms']:.6f} ms, torch.std_mean "
+              f"{t['library_eager_ms']:.6f} ms; bound packed "
+              f"{t['bound_ms']:.6f} ms ({t['bound_by']}; share "
+              f"{t['bound_ms'] / t['ms']:.3f}), five-output "
+              f"{t['five_output_bound_ms']:.6f} ms (share "
+              f"{t['five_output_bound_ms'] / t['five_output_ms']:.3f})"
+              + (f"; bf16 members: packed {t['bf16_ms']:.6f} ms"
                  if "bf16_ms" in t else ""))
     # the launch floor: an empty one-thread kernel from the same library,
     # launched without the wrapper (so not counted), under the same graph
@@ -365,8 +437,12 @@ def phase_kernels():
     t["launch_floor_ms"] = graph_ms(noop)
     print(f"launch floor: an empty one-thread kernel (committee_uq_noop) "
           f"{t['launch_floor_ms']:.6f} ms per call (CUDA graph), beside "
-          f"committee_uq's {t['ms']:.6f} ms at K={SERVE_SHAPE[0]} "
+          f"committee_uq's packed entry {t['ms']:.6f} ms and five-output "
+          f"entry {t['five_output_ms']:.6f} ms at K={SERVE_SHAPE[0]} "
           f"n={SERVE_SHAPE[1]} d={SERVE_SHAPE[2]}")
+    big = timings[(4, 65536, 24)]
+    t.update({f"large_{k}": big[k] for k in (
+        "ms", "five_output_ms", "bound_ms", "five_output_bound_ms")})
     return worst, t
 
 
@@ -394,9 +470,12 @@ class _Recorder:
     def __init__(self, server):
         self.server = server
         self.batches, self.results = [], []
+        self.seconds = 0.0              # host time inside predict
 
     def predict(self, rows):
+        t0 = time.perf_counter()
         out = self.server.predict(rows)
+        self.seconds += time.perf_counter() - t0
         self.batches.append(np.stack(rows))
         self.results.append(out)
         return out
@@ -428,9 +507,16 @@ def phase_serving(smi):
     server = CommitteeServer(engine, obuf, device="cuda")
     rec = _Recorder(server)
     rows = _requests(1024, SEED)
-    for nb in (8, 16, 32, 64):                   # first use of each bucket
+    buckets = (8, 16, 32, 64)
+    for nb in buckets:                           # first use: the capture
         engine.score(rows[:nb], advance=False)
     torch.cuda.synchronize()
+    if engine.trace_counts != {nb: 1 for nb in buckets} or any(
+            b.graph is None or b.launches != 1
+            for b in engine._buckets.values()):
+        raise AssertionError(f"expected one captured graph with one "
+                             f"committee_uq launch per bucket, got "
+                             f"{engine.trace_counts}")
 
     n_clients, per_client = 4, 256
     t_sub = np.zeros(len(rows))
@@ -465,14 +551,35 @@ def phase_serving(smi):
         if mean.shape != (1, row.size) or not np.isfinite(mean).all() \
                 or not np.isfinite(uq.scalar_std).all():
             raise AssertionError("served answer not finite or misshapen")
+    if engine.trace_counts != {nb: 1 for nb in buckets}:
+        raise AssertionError(f"a bucket was captured again: "
+                             f"{engine.trace_counts}")
     lat = (t_done - t_sub) * 1e3
     print(f"serving PotentialConfig() K={PCFG.committee_size} "
           f"in_dim={3 * PCFG.n_atoms}: {len(rows)} requests from "
           f"{n_clients} clients in {wall:.4f} s = {len(rows) / wall:.1f} "
           f"req/s, p50 {np.percentile(lat, 50):.3f} ms, p99 "
           f"{np.percentile(lat, 99):.3f} ms, {queue.dispatches} dispatches, "
-          f"{server.routed} rows routed to the oracle buffer "
-          f"[{smi}]")
+          f"{server.routed} rows routed to the oracle buffer; one captured "
+          f"graph per bucket {engine.trace_counts} [{smi}]")
+    print(f"serving burst wall split: {rec.seconds:.4f} s inside "
+          f"CommitteeServer.predict ({len(rec.batches)} dispatches, "
+          f"{1e3 * rec.seconds / max(len(rec.batches), 1):.4f} ms each), "
+          f"{wall - rec.seconds:.4f} s in the queue, the clients and "
+          f"waiting ({100 * rec.seconds / wall:.1f} % in predict) [{smi}]")
+    per_bucket = {}
+    for nb in buckets:                           # steady-state dispatch
+        batch = rows[:nb]
+        for _ in range(3):
+            engine.score(batch, advance=False)
+        t0 = time.perf_counter()
+        for _ in range(50):
+            engine.score(batch, advance=False)
+        per_bucket[nb] = (time.perf_counter() - t0) * 1e3 / 50
+    print("captured dispatch, host ms per FusedEngine.score (advance=False, "
+          "50 calls): " + ", ".join(f"{nb} rows {ms:.4f}"
+                                    for nb, ms in per_bucket.items())
+          + f" [{smi}]")
 
     # the same microbatches, in the same order, through the plain path
     cpu_engine = acq.make_engine(
@@ -509,8 +616,36 @@ def phase_serving(smi):
     print(f"serving replay: {len(rec.batches)} microbatches, card == CPU "
           f"plain path (masks identical, worst |err| {worst:.3e} at rtol "
           f"{ENGINE_RTOL} atol {ENGINE_ATOL}); committee_uq launches "
-          f"{launches} == engine dispatches {dispatches}")
-    return launches
+          f"{launches} == engine dispatches {dispatches}, counted over "
+          f"graph replays")
+
+    # new weights into the buffers the captured graphs read
+    gen = torch.Generator().manual_seed(SEED + 1)
+    fresh = pot.init_committee(PCFG, gen, device="cpu")
+    ptrs = [t.data_ptr() for t in cmte.tree_leaves(engine.cparams)]
+    engine.refresh_from_device(cmte.tree_map(lambda t: t.cuda(), fresh))
+    cpu_engine.refresh_from_device(fresh)
+    if [t.data_ptr() for t in cmte.tree_leaves(engine.cparams)] != ptrs:
+        raise AssertionError("refresh_from_device moved a param buffer")
+    ref_worst = 0.0
+    for nb in (5, 16, 33, 64):
+        batch = _requests(nb, SEED + nb)
+        uq_g, uq_c = engine.score(batch), cpu_engine.score(batch)
+        ref_worst = max(
+            ref_worst,
+            _max_err(torch.from_numpy(uq_g.mean), torch.from_numpy(uq_c.mean),
+                     ENGINE_RTOL, ENGINE_ATOL, f"refreshed {nb} mean"),
+            _max_err(torch.from_numpy(uq_g.scalar_std),
+                     torch.from_numpy(uq_c.scalar_std), ENGINE_RTOL,
+                     ENGINE_ATOL, f"refreshed {nb} sstd"))
+        if not np.array_equal(uq_g.mask, uq_c.mask):
+            raise AssertionError(f"refreshed {nb}: selection masks differ")
+    if engine.trace_counts != {nb: 1 for nb in buckets}:
+        raise AssertionError("a refresh caused a capture")
+    print(f"refresh check: new weights by refresh_from_device on both "
+          f"engines, card == CPU on 4 batches (masks identical, worst "
+          f"|err| {ref_worst:.3e}); no buffer moved, no new capture")
+    return launches, per_bucket
 
 
 # ---------------------------------------------------------------------------
@@ -1707,7 +1842,7 @@ def main() -> int:
     info = _timed("describe and build", phase_describe)
     smi = info["nvidia_smi"]
     worst, t = _timed("committee_uq", phase_kernels)
-    launches = _timed("committee serving", phase_serving, smi)
+    launches, per_bucket = _timed("committee serving", phase_serving, smi)
     fa_worst, fa_t = _timed("flash_attention", phase_flash, smi)
     fa_launches, fa_paths = _timed("llama serving", phase_lm, smi)
     _timed("llama card vs CPU", phase_card_vs_cpu, LM_ARCH,
@@ -1737,13 +1872,21 @@ def main() -> int:
         "name": "committee_uq", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/committee_uq.cu",
         "replaces": "src/repro/kernels/committee_uq.py:116",
+        "entry": "committee_uq_packed",
         "launches": launches, "max_abs_err": worst,
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         "eager_ms": t["eager_ms"], "plain_eager_ms": t["plain_eager_ms"],
         "library_eager_ms": t["library_eager_ms"],
         "bf16_ms": t["bf16_ms"],
-        "launch_floor_ms": t["launch_floor_ms"]}, {
+        "five_output_ms": t["five_output_ms"],
+        "five_output_plain_ms": t["five_output_plain_ms"],
+        "large_ms": t["large_ms"],
+        "large_five_output_ms": t["large_five_output_ms"],
+        "large_bound_ms": t["large_bound_ms"],
+        "large_five_output_bound_ms": t["large_five_output_bound_ms"],
+        "launch_floor_ms": t["launch_floor_ms"],
+        "dispatch_ms_by_bucket": per_bucket}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:108",

@@ -9,9 +9,11 @@ and the serving path to the oracle buffer.
   * ``FusedEngine`` — the vmapped committee forward, the ``committee_uq``
     statistics (the hand-written CUDA kernel on the card, its plain PyTorch
     version on the CPU) and the selection-rule pipeline, run as ONE program
-    per power-of-two shape bucket on the engine's device.  Per call the host
-    uploads the padded batch once and downloads the five small outputs in
-    one copy.
+    per power-of-two shape bucket on the engine's device: on the card one
+    captured CUDA graph per bucket, replayed; on the CPU the same program
+    body, run eagerly.  Per call the host uploads the padded batch and the
+    two run-time scalars in one copy and downloads the five small outputs,
+    packed by the kernel, in one copy.
   * Rules        — composable selection logic (``ThresholdRule``,
     ``TopFractionRule``, ``DiversityRule``) in tensor ops on the engine's
     device.  Rules may be STATEFUL (``stateful = True`` + ``init_state`` /
@@ -30,6 +32,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import logging
 import threading
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
@@ -41,7 +44,8 @@ from repro_torch.core.committee import (
     committee_size, make_committee_apply, shape_bucket, tree_leaves,
     tree_map, tree_paths,
 )
-from repro_torch.kernels import ops
+from repro_torch.kernels import committee_uq as cuq_kernel
+from repro_torch.kernels import ops, ref
 from repro_torch.launch.platform import DeviceLike, resolve_device
 
 log = logging.getLogger(__name__)
@@ -94,16 +98,18 @@ class UQStats:
     """Per-round statistics handed to selection rules: tensors on the
     engine's device over the PADDED bucket.  ``valid`` masks real rows
     (padding rows are never selectable); ``n_valid`` is the true input
-    count and ``stream`` the traffic tag, both Python ints passed at run
-    time — one program per bucket serves every n and both streams."""
+    count and ``stream`` the traffic tag, both 0-d int32 tensors on the
+    device, filled at run time — one program per bucket serves every n and
+    both streams, and no rule reads either on the host (a CUDA graph
+    replays the program with new values)."""
 
     x: Any                      # (nb, in_dim) the stacked proposal batch
     mean: Any                   # (nb, d)
     scalar_std: Any             # (nb,)
     component_std: Any          # (nb,)
     valid: Any                  # (nb,) bool
-    n_valid: Any                # int
-    stream: Any = STREAM_EXCHANGE  # int: STREAM_EXCHANGE | STREAM_SERVE
+    n_valid: Any                # 0-d int32 tensor
+    stream: Any = STREAM_EXCHANGE  # 0-d int32: STREAM_EXCHANGE | STREAM_SERVE
     finite_members: Any = None  # (nb,) int32 finite-member count
 
 
@@ -155,6 +161,15 @@ class ThresholdRule(SelectionRule):
         return mask & (stats.scalar_std > _f32(self.threshold))
 
 
+@functools.lru_cache(maxsize=64)
+def k_table(n: int, fraction: float, device: torch.device) -> torch.Tensor:
+    """``[int(round(m * fraction)) for m in range(n + 1)]`` (float64
+    rounding, the reference's trace-time table) as int32 on ``device``,
+    uploaded once per (n, fraction, device)."""
+    return torch.tensor([int(round(m * fraction)) for m in range(n + 1)],
+                        dtype=torch.int32, device=device)
+
+
 @dataclasses.dataclass(frozen=True)
 class TopFractionRule(SelectionRule):
     """Keep exactly the top ``round(fraction * n_valid)`` most-uncertain
@@ -167,13 +182,14 @@ class TopFractionRule(SelectionRule):
 
     def apply(self, stats: UQStats, mask):
         n = int(mask.shape[0])
-        # k is the host's int(round(m * fraction)) in float64, EXACTLY —
-        # fp32 arithmetic cannot reproduce float64 rounding for arbitrary
+        # k must be the host's int(round(m * fraction)) in float64, EXACTLY
+        # — fp32 arithmetic cannot reproduce float64 rounding for arbitrary
         # (m, fraction) (e.g. 45*0.7: fp32 lands on 31.5 -> 32, float64 on
-        # 31.499999999999996 -> 31); n_valid is a host int, so the k table
-        # the reference builds at trace time is one host expression here
-        m = min(max(int(stats.n_valid), 0), n)
-        k = int(round(m * self.fraction))
+        # 31.499999999999996 -> 31).  As in the reference, the exact k of
+        # every m <= n is a table built on the host once per bucket, and
+        # the device-resident n_valid indexes it
+        k = k_table(n, self.fraction, mask.device).index_select(
+            0, stats.n_valid.reshape(1).clamp(0, n).long())
         score = torch.where(mask, stats.scalar_std,
                             torch.full_like(stats.scalar_std, -np.inf))
         order = torch.argsort(-score, stable=True)   # ties by lower index
@@ -191,7 +207,8 @@ class DiversityRule(SelectionRule):
 
     A Python loop of tensor ops over the bucket, the reference's
     ``fori_loop``: indices stay on the device (``index_select`` /
-    ``index_put_``), so no step syncs with the host.  Distances come from
+    ``index_put_``), so no step syncs with the host and the loop is
+    captured into the bucket's CUDA graph as it stands.  Distances come from
     direct differences (not the Gram identity, which cancels in fp32) with
     O(n * d) memory.
     """
@@ -225,15 +242,24 @@ def default_rules(threshold: float) -> Tuple[SelectionRule, ...]:
 # ---------------------------------------------------------------------------
 
 
+def _copy_leaves(dst: Any, src: Any) -> None:
+    """Copy every leaf of ``src`` into the same leaf of ``dst``, in one
+    call (one host round trip, whatever the number of leaves)."""
+    d, s = tree_leaves(dst), tree_leaves(src)
+    if d:
+        torch._foreach_copy_(d, s)
+
+
 class UQEngine:
     """One interface for committee scoring.  ``score`` is the ONLY call the
     controller makes on the hot path.
 
     ``rule_state`` carries the state of stateful rules across rounds — one
-    dict per stateful rule, in pipeline order.  ``score(..., advance=False)``
-    evaluates the pipeline against the current state WITHOUT advancing it
-    (read-only serving, re-scoring).  ``state_dict`` / ``load_state_dict``
-    snapshot the carried state to host numpy and restore it."""
+    dict per stateful rule, in pipeline order; its tensors are the engine's
+    own buffers, updated in place.  ``score(..., advance=False)`` evaluates
+    the pipeline against the current state WITHOUT advancing it (read-only
+    serving, re-scoring).  ``state_dict`` / ``load_state_dict`` snapshot the
+    carried state to host numpy and restore it into the same buffers."""
 
     rule_state: Tuple[Any, ...] = ()
 
@@ -260,26 +286,31 @@ class UQEngine:
     def _state_guard(self, advance: bool):
         """Lock held by advancing scorers: without it, concurrent rounds
         would both update from the same base state and the second store
-        would drop the first round's update.  advance=False scorers stay
-        lock-free — they only read the state tuple."""
+        would drop the first round's update.  advance=False scorers take
+        no state lock — they only read the state."""
         if advance and self.rule_state:
             return self._state_lock
         return contextlib.nullcontext()
 
+    def _copy_into(self, dst: Any, src: Any) -> None:
+        """Copy the leaves of ``src`` into the buffers of ``dst``."""
+        _copy_leaves(dst, src)
+
     def state_dict(self) -> Tuple[Any, ...]:
-        """Host-numpy snapshot of the carried cross-round rule state."""
-        return tree_map(lambda t: t.detach().cpu().numpy(),
+        """Host-numpy snapshot (a copy) of the carried cross-round rule
+        state."""
+        return tree_map(lambda t: t.detach().to("cpu", copy=True).numpy(),
                         tuple(self.rule_state))
 
     def load_state_dict(self, state: Sequence[Any]):
-        """Restore a ``state_dict`` snapshot — if it structurally matches
-        the CURRENT rule pipeline (same rule count, keys and shapes).  A
-        mismatched snapshot is skipped with a warning and the fresh state
-        kept: the controller re-converges instead of failing mid-round."""
-        restored = tree_map(
-            lambda a: torch.as_tensor(np.asarray(a)).to(self.device),
-            tuple(state))
-        cur, new = tuple(self.rule_state), restored
+        """Restore a ``state_dict`` snapshot into the carried state's
+        buffers — if it structurally matches the CURRENT rule pipeline
+        (same rule count, keys and shapes).  A mismatched snapshot is
+        skipped with a warning and the fresh state kept: the controller
+        re-converges instead of failing mid-round."""
+        new = tree_map(lambda a: torch.as_tensor(np.asarray(a)),
+                       tuple(state))
+        cur = tuple(self.rule_state)
         if tree_paths(cur) != tree_paths(new) or any(
                 tuple(a.shape) != tuple(b.shape)
                 for a, b in zip(tree_leaves(cur), tree_leaves(new))):
@@ -289,53 +320,131 @@ class UQEngine:
                 "acquisition state re-converges from scratch",
                 tree_paths(new), tree_paths(cur))
             return
-        self.rule_state = restored
+        self._copy_into(cur, new)
+
+
+class _Bucket:
+    """One shape bucket's static buffers.  ``dev_in`` holds the padded
+    batch (nb, in_dim) f32 followed by ``n_valid`` and ``stream`` (int32),
+    the program's inputs; ``host_in`` is its host twin (pinned on the card,
+    the same tensor on the CPU), so one copy uploads all three.  ``packed``
+    is the program's output (``ref.packed_uq_views`` layout) and
+    ``host_out`` its pinned host twin.  On the card with capture on,
+    ``graph`` is the captured program, ``new_state`` its rule-state
+    outputs and ``launches`` the ``committee_uq`` launches one replay
+    makes."""
+
+    def __init__(self, nb: int, in_dim: int, device: torch.device):
+        self.nb, self.in_dim = nb, in_dim
+        self.lock = threading.Lock()
+        xbytes = nb * in_dim * 4
+        self.dev_in = torch.zeros(xbytes + 8, dtype=torch.uint8,
+                                  device=device)
+        cuda = device.type == "cuda"
+        self.host_in = torch.zeros(xbytes + 8, dtype=torch.uint8,
+                                   pin_memory=True) if cuda else self.dev_in
+        host = self.host_in.numpy()
+        self.host_x = host[:xbytes].view(np.float32).reshape(nb, in_dim)
+        self.host_scalars = host[xbytes:].view(np.int32)
+        self.x = self.dev_in[:xbytes].view(torch.float32).view(nb, in_dim)
+        scalars = self.dev_in[xbytes:].view(torch.int32)
+        self.n_valid, self.stream = scalars[0], scalars[1]
+        self.d: Optional[int] = None
+        self.packed: Optional[torch.Tensor] = None
+        self.host_out: Optional[torch.Tensor] = None
+        self.graph = None
+        self.new_state: Tuple[Any, ...] = ()
+        self.launches = 0
+        self.event = torch.cuda.Event() if cuda else None
+
+    def set_output(self, packed: torch.Tensor) -> None:
+        """Keep the program's packed output buffer (and its host twin)."""
+        self.packed = packed
+        self.d = (packed.numel() - self.nb) // (4 * self.nb) - 3
+        if packed.device.type == "cuda":
+            self.host_out = torch.empty(packed.numel(), dtype=torch.uint8,
+                                        pin_memory=True)
 
 
 class FusedEngine(UQEngine):
     """One program per shape bucket: committee forward + UQ + selection.
 
-    The vmapped committee forward, the ``ops.committee_uq`` statistics and
-    the rule pipeline run on the engine's device; only ``(mean, scalar_std,
-    component_std, mask, finite)`` cross back to the host, in ONE copy —
-    the ``(K, n, d)`` prediction tensor never leaves the device.
+    The vmapped committee forward, ``ops.committee_uq_packed`` (the
+    statistics and the row-validity mask, packed into one buffer by the
+    kernel on the card) and the rule pipeline run on the engine's device;
+    only ``(mean, scalar_std, component_std, finite, mask)`` cross back to
+    the host, in ONE copy — the ``(K, n, d)`` prediction tensor never
+    leaves the device.  With the default pipeline (a lone
+    ``ThresholdRule`` at the engine's threshold) the kernel's mask is the
+    final mask; any other pipeline folds over the kernel's statistics and
+    writes its mask into the packed buffer.
 
-    Varying input counts are padded to power-of-two shape buckets; each
-    bucket's program is built once (``trace_counts`` records builds per
-    bucket; tests assert <= 1) and the true count enters it at run time, so
-    fraction-of-n rules need no rebuild.  ``dispatches`` counts programs
-    run — one ``committee_uq`` launch each on the card.
+    Varying input counts are padded to power-of-two shape buckets.  On the
+    card each bucket's program is captured ONCE as a CUDA graph at its
+    first use (after a warm-up on the engine's side stream) and replayed
+    from then on: the batch and the run-time scalars ``n_valid`` and
+    ``stream`` are staged in one pinned buffer and uploaded in one copy,
+    the graph is replayed, the packed output comes back in one copy, and
+    the host waits once, on an event.  A failed capture raises; no bucket
+    runs eagerly in its place.  ``capture=False`` runs the same program
+    eagerly on the card (comparisons, profiles); the CPU always runs it
+    eagerly.  ``trace_counts`` records program builds per bucket (captures
+    on the card; tests assert <= 1); ``dispatches`` counts programs run —
+    one ``committee_uq`` launch each on the card, added to the kernel's
+    count at every replay.
+
+    The committee params and the carried rule state are buffers owned by
+    the engine: ``refresh_from_device``, assigning ``cparams`` and
+    ``load_state_dict`` copy into them, so every captured graph sees the
+    new values.  An advancing round copies the program's new rule state
+    into the carried state; ``advance=False`` leaves it untouched.
 
     ``apply_fn(params, x)`` maps a single member's params over a batch
     ``x: (n, in_dim) -> (n, out_dim)``; ``cparams`` is the stacked committee
-    (leading K axis), moved to ``device`` (default: the CUDA device; raises
+    (leading K axis), copied to ``device`` (default: the CUDA device; raises
     without CUDA).
     """
+
+    # one capture at a time in the process (the kernel's capture count is
+    # read around it)
+    _capture_lock = threading.Lock()
 
     def __init__(self, apply_fn: Callable, cparams: Any, threshold: float,
                  *, rules: Optional[Sequence[SelectionRule]] = None,
                  min_bucket: int = 8, block_n: int = 128,
-                 mesh=None, device: DeviceLike = None):
+                 mesh=None, device: DeviceLike = None,
+                 capture: bool = True):
         if mesh is not None:
             raise NotImplementedError(
                 "the mesh-parallel engine comes with the multi-device slice "
                 "(ROADMAP §A item 8)")
         self.device = resolve_device(device)
         self.apply = make_committee_apply(apply_fn)
-        self.cparams = tree_map(lambda t: t.to(self.device), cparams)
+        self._cparams = tree_map(
+            lambda t: t.to(self.device, copy=True), cparams)
         self.threshold = float(threshold)
         self.rules = tuple(rules) if rules is not None \
             else default_rules(threshold)
+        # the kernel's mask (valid & finite & sstd > threshold) is the
+        # whole default pipeline's answer
+        self._kernel_mask_final = (
+            len(self.rules) == 1 and type(self.rules[0]) is ThresholdRule
+            and _f32(self.rules[0].threshold) == _f32(self.threshold))
         self._init_rule_state()
         self.min_bucket = min_bucket
         self.block_n = block_n
+        self.capture = bool(capture) and self.device.type == "cuda"
         self.version = -1                      # last WeightStore version seen
-        self._cache: Dict[int, Callable] = {}
+        self._buckets: Dict[int, _Bucket] = {}
         self.trace_counts: Dict[int, int] = {}
         # the exchange loop, the Manager and the serving queue may score
-        # through the SAME engine: program builds and counters need locks
+        # through the SAME engine: bucket builds, the order of work on the
+        # engine's stream and the counters need locks
         self._compile_lock = threading.Lock()
+        self._enqueue_lock = threading.Lock()
         self._counter_lock = threading.Lock()
+        self._stream = torch.cuda.Stream(self.device) \
+            if self.device.type == "cuda" else None
         self.dispatches = 0
         # host<->device traffic accounting
         self.bytes_to_device = 0
@@ -350,54 +459,123 @@ class FusedEngine(UQEngine):
 
     @property
     def size(self) -> int:
-        return committee_size(self.cparams)
+        return committee_size(self._cparams)
 
-    # ------------------------------------------------------------- programs
-    def _compiled_locked(self, nb: int) -> Callable:
-        # caller holds self._compile_lock
-        fn = self._cache.get(nb)
-        if fn is None:
-            self.trace_counts[nb] = self.trace_counts.get(nb, 0) + 1
-            rows = torch.arange(nb, device=self.device)
+    @property
+    def cparams(self) -> Any:
+        """The engine's committee params (its own buffers)."""
+        return self._cparams
 
-            def fused(cparams, x, n_valid: int, stream: int, rstate):
-                preds = self.apply(cparams, x).contiguous()
-                mean, sstd, cstd, _, finite = ops.committee_uq(
-                    preds, self.threshold, block_n=self.block_n)
-                valid = rows < n_valid
-                stats = UQStats(x=x, mean=mean, scalar_std=sstd,
-                                component_std=cstd, valid=valid,
-                                n_valid=n_valid, stream=stream,
-                                finite_members=finite)
-                mask = valid
-                new_state, si = [], 0
-                for rule in self.rules:
-                    if rule.stateful:
-                        stats, mask, ns = rule.apply_stateful(
-                            stats, mask, rstate[si])
-                        mask = mask & valid
-                        new_state.append(ns)
-                        si += 1
-                    else:
-                        mask = rule.apply(stats, mask) & valid
-                # quarantine floor: a row no finite member scored carries
-                # no information — never selectable, whatever the rules say
-                mask = mask & (finite > 0)
-                return mean, sstd, cstd, mask, finite, tuple(new_state)
+    @cparams.setter
+    def cparams(self, tree: Any) -> None:
+        # copied into the existing buffers: rebinding would leave every
+        # captured graph reading the old weights
+        self._load_params(tree)
 
-            fn = fused
-            self._cache[nb] = fn
-        return fn
+    # ------------------------------------------------------------- program
+    def program(self, cparams, x, n_valid, stream, rstate, *, out=None):
+        """The bucket program: ``x`` (nb, in_dim) f32, ``n_valid`` and
+        ``stream`` 0-d int32 tensors, ``rstate`` the carried rule state.
+        Returns ``(packed, new_state)``: the packed outputs (written into
+        ``out`` when given) and the rules' new state.  Reads nothing on the
+        host, so the card captures it as it stands."""
+        preds = self.apply(cparams, x).contiguous()
+        packed = ops.committee_uq_packed(preds, self.threshold, n_valid,
+                                         out=out)
+        if self._kernel_mask_final:
+            return packed, ()
+        nb, d = preds.shape[1], preds.shape[2]
+        mean, sstd, cstd, finite, out_mask = ref.packed_uq_views(
+            packed, nb, d)
+        valid = torch.arange(nb, device=x.device) < n_valid
+        stats = UQStats(x=x, mean=mean, scalar_std=sstd, component_std=cstd,
+                        valid=valid, n_valid=n_valid, stream=stream,
+                        finite_members=finite)
+        mask = valid
+        new_state, si = [], 0
+        for rule in self.rules:
+            if rule.stateful:
+                stats, mask, ns = rule.apply_stateful(stats, mask, rstate[si])
+                mask = mask & valid
+                new_state.append(ns)
+                si += 1
+            else:
+                mask = rule.apply(stats, mask) & valid
+        # quarantine floor: a row no finite member scored carries no
+        # information — never selectable, whatever the rules say
+        out_mask.copy_(mask & (finite > 0))
+        return packed, tuple(new_state)
 
-    def _dispatch(self, nb: int, args):
-        fn = self._cache.get(nb)
-        if fn is None:
+    def _bucket(self, nb: int, in_dim: int) -> _Bucket:
+        b = self._buckets.get(nb)
+        if b is None:
             with self._compile_lock:
-                fn = self._compiled_locked(nb)
-        out = fn(*args)
-        with self._counter_lock:
-            self.dispatches += 1
-        return out
+                b = self._buckets.get(nb)
+                if b is None:
+                    b = _Bucket(nb, in_dim, self.device)
+                    if not self.capture:
+                        self.trace_counts[nb] = \
+                            self.trace_counts.get(nb, 0) + 1
+                    self._buckets[nb] = b
+        if b.in_dim != in_dim:
+            raise ValueError(f"engine bucket {nb} takes rows of {b.in_dim} "
+                             f"inputs, got {in_dim}")
+        return b
+
+    def _run_program(self, b: _Bucket):
+        packed, new_state = self.program(
+            self._cparams, b.x, b.n_valid, b.stream, self.rule_state,
+            out=b.packed)
+        if b.packed is None:
+            b.set_output(packed)
+        return new_state
+
+    def _capture(self, b: _Bucket) -> None:
+        """Warm up, then capture the bucket's program as a CUDA graph, on
+        the engine's stream (the caller holds the enqueue lock and the
+        stream is current).  The warm-up loads the kernel library,
+        initialises cuBLAS and fills the rules' device caches (LSH
+        projection, k table), none of which may happen under capture."""
+        with FusedEngine._capture_lock:
+            for _ in range(2):
+                self._run_program(b)
+            graph = torch.cuda.CUDAGraph()
+            before = cuq_kernel.captured
+            with torch.cuda.graph(graph, stream=self._stream,
+                                  capture_error_mode="thread_local"):
+                _, new_state = self.program(
+                    self._cparams, b.x, b.n_valid, b.stream,
+                    self.rule_state, out=b.packed)
+            b.launches = cuq_kernel.captured - before
+            b.graph, b.new_state = graph, new_state
+            with self._counter_lock:
+                self.trace_counts[b.nb] = self.trace_counts.get(b.nb, 0) + 1
+
+    def _dispatch(self, b: _Bucket, advance: bool) -> np.ndarray:
+        """Run the bucket's program on the staged inputs; returns a host
+        copy of the packed outputs.  Caller holds ``b.lock``."""
+        if self._stream is None:                       # the CPU: eagerly
+            with self._enqueue_lock:
+                new_state = self._run_program(b)
+                if advance:
+                    _copy_leaves(self.rule_state, new_state)
+            return b.packed.numpy().copy()
+        with self._enqueue_lock, torch.cuda.stream(self._stream):
+            b.dev_in.copy_(b.host_in, non_blocking=True)
+            if self.capture:
+                if b.graph is None:
+                    self._capture(b)
+                b.graph.replay()
+                cuq_kernel.count_replays(b.launches)
+                new_state = b.new_state
+            else:
+                new_state = self._run_program(b)
+            if advance:             # the state lives on this stream alone
+                _copy_leaves(self.rule_state, new_state)
+            b.host_out.copy_(b.packed, non_blocking=True)
+            b.event.record(self._stream)
+        b.event.synchronize()
+        return b.host_out.numpy().copy()
 
     def _pad_batch(self, list_data: Sequence[np.ndarray]):
         """Stack proposals into one padded (bucket, in_dim) float32 batch.
@@ -427,39 +605,26 @@ class FusedEngine(UQEngine):
             x[i] = r
         return x, n, nb
 
-    @staticmethod
-    def _to_host(mean, sstd, cstd, mask, finite):
-        """ONE device-to-host copy of the five outputs: their bytes are
-        packed into one buffer on the device, copied, and viewed back."""
-        nb, d = mean.shape
-        parts = (mean.reshape(-1), sstd, cstd, finite, mask)
-        buf = torch.cat([p.view(torch.uint8) for p in parts]).cpu().numpy()
-        out, off = [], 0
-        for p, dt in zip(parts, (np.float32, np.float32, np.float32,
-                                 np.int32, np.bool_)):
-            nbytes = p.numel() * p.element_size()
-            out.append(buf[off:off + nbytes].view(dt))
-            off += nbytes
-        m, s, c, f, k = out
-        return m.reshape(nb, d), s, c, k, f
-
     # -------------------------------------------------------------- score
     def score(self, list_data: Sequence[np.ndarray], *,
               advance: bool = True,
               stream: int = STREAM_EXCHANGE) -> UQResult:
         x, n, nb = self._pad_batch(list_data)
-        xd = torch.from_numpy(x).to(self.device)
-        with self._state_guard(advance):
-            out = self._dispatch(
-                nb, (self.cparams, xd, int(n), int(stream), self.rule_state))
-            if advance:
-                self.rule_state = out[5]
-        mean, sstd, cstd, mask, finite = self._to_host(*out[:5])
+        # buffers and programs are built outside inference mode whatever
+        # the caller's mode: a graph captured in it computes no forces
+        with torch.inference_mode(False):
+            b = self._bucket(nb, x.shape[1])
+            with self._state_guard(advance), b.lock:
+                b.host_x[...] = x
+                b.host_scalars[...] = (n, stream)
+                buf = self._dispatch(b, advance)
+                d = b.d
+        mean, sstd, cstd, finite, mask = ref.packed_uq_views(buf, nb, d)
         finite_n = finite[:n]
         with self._counter_lock:
+            self.dispatches += 1
             self.bytes_to_device += x.nbytes
-            self.bytes_to_host += (mean.nbytes + sstd.nbytes + cstd.nbytes
-                                   + mask.nbytes + finite.nbytes)
+            self.bytes_to_host += buf.nbytes
             if finite_n.size:
                 self.last_finite_min = int(finite_n.min())
                 if self.last_finite_min < self.size:
@@ -472,18 +637,45 @@ class FusedEngine(UQEngine):
             "exploration-fleet slice (ROADMAP §A item 6)")
 
     # -------------------------------------------------------------- weights
+    def _copy_into(self, dst: Any, src: Any) -> None:
+        """Copy ``src``'s leaves into the engine's buffers ``dst``, ordered
+        on the card against every dispatch: on the engine's stream, after
+        the caller's stream, which then waits for the copies."""
+        if self._stream is None:
+            return super()._copy_into(dst, src)
+        cur = torch.cuda.current_stream(self.device)
+        self._stream.wait_stream(cur)
+        with torch.cuda.stream(self._stream):
+            super()._copy_into(dst, src)
+        cur.wait_stream(self._stream)
+
+    def _load_params(self, cparams) -> None:
+        cur = self._cparams
+        if tree_paths(cparams) != tree_paths(cur) or any(
+                tuple(a.shape) != tuple(b.shape)
+                for a, b in zip(tree_leaves(cparams), tree_leaves(cur))):
+            raise ValueError(
+                "committee params must keep the engine's keys and shapes "
+                f"(committee size {self.size})")
+        with self._enqueue_lock:
+            self._copy_into(cur, cparams)
+
+    def load_state_dict(self, state: Sequence[Any]):
+        with self._enqueue_lock:
+            super().load_state_dict(state)
+
     def refresh_from_device(self, cparams) -> int:
         """Weight handoff from a trainer on the same device: the stacked
-        tree is placed on the engine's device (no copy when it already
-        lies there) — no packed host round trip, so
-        ``refresh_host_bytes`` stays untouched.  The committee size must
-        not change."""
+        tree is copied device to device into the engine's own buffers
+        (which every captured graph reads) — no packed host round trip,
+        so ``refresh_host_bytes`` stays untouched.  The committee size and
+        every leaf's shape must not change."""
         k = committee_size(cparams)
         if k != self.size:
             raise ValueError(
                 f"refresh_from_device: committee size changed ({k} vs "
                 f"{self.size})")
-        self.cparams = tree_map(lambda t: t.to(self.device), cparams)
+        self._load_params(cparams)
         self.device_refreshes += 1
         return 1
 
@@ -532,6 +724,7 @@ def make_engine(
     force_legacy: bool = False,
     mesh=None,
     device: DeviceLike = None,
+    capture: bool = True,
 ) -> UQEngine:
     """Build the acquisition engine from ``PALRunConfig`` knobs.
 
@@ -543,6 +736,8 @@ def make_engine(
 
     When no explicit ``rules=`` are given, the pipeline comes from the
     config's budget knobs (``core/budget.rules_from_config``).
+    ``capture=False`` runs the engine's bucket programs eagerly on the card
+    instead of replaying captured CUDA graphs (``FusedEngine``).
     """
     dev = resolve_device(device)
     if wants_legacy(run_cfg, committee, force_legacy):
@@ -564,5 +759,5 @@ def make_engine(
         rules=rules,
         block_n=getattr(run_cfg, "uq_block_n", 128),
         min_bucket=getattr(run_cfg, "uq_bucket", 8),
-        device=dev,
+        device=dev, capture=capture,
     )

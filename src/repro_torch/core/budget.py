@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.acquisition import (
-    STREAM_SERVE, SelectionRule, ThresholdRule, UQStats,
+    STREAM_SERVE, SelectionRule, ThresholdRule, UQStats, _f32,
 )
 
 
@@ -101,9 +101,10 @@ class OracleBudgetController:
                target: Optional[float] = None) -> Dict[str, Any]:
         """One control step.  ``rate`` is the realized selected fraction of
         this round (0-d fp32 tensor); ``target`` overrides the configured
-        target for this round (the stream's own target)."""
+        target for this round (the stream's own target: a 0-d fp32 tensor
+        on the device, or a float)."""
         rate = rate.to(torch.float32)
-        tgt = self.target if target is None else float(target)
+        tgt = self.target if target is None else target
         err = rate - tgt
         leak = 1.0 - 1.0 / max(self.horizon, 1)
         integral = state["integral"] * leak + err
@@ -222,17 +223,19 @@ class BudgetRule(SelectionRule):
         return self.controller.init_state(self.thr_init)
 
     def apply_stateful(self, stats: UQStats, mask, state):
+        # n_valid and stream are 0-d device tensors: nothing here reads
+        # the host, so the round can be captured in a CUDA graph
         thr = state["threshold"]
         sel = mask & (stats.scalar_std > thr)
-        n = max(int(stats.n_valid), 1)
-        rate = torch.sum(sel).to(torch.float32) / float(n)
+        n = stats.n_valid.clamp_min(1).to(torch.float32)
+        rate = torch.sum(sel).to(torch.float32) / n
         lo, hi = self._bounds()
         t_serve = self.target if self.target_serve is None \
             else float(self.target_serve)
         if t_serve == self.target:      # shared budget: single-target path
             return stats, sel, self.controller.update(state, rate, lo, hi)
-        target = t_serve if int(stats.stream) == STREAM_SERVE \
-            else self.target
+        target = torch.where(stats.stream == STREAM_SERVE, _f32(t_serve),
+                             _f32(self.target)).to(torch.float32)
         return stats, sel, self.controller.update(state, rate, lo, hi,
                                                   target=target)
 

@@ -33,6 +33,24 @@ def committee_uq(preds: torch.Tensor, threshold: float, *,
                      f"{preds.device}")
 
 
+def committee_uq_packed(preds: torch.Tensor, threshold: float,
+                        n_valid: torch.Tensor, *,
+                        out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The acquisition engine's fused entry: ``committee_uq``'s statistics
+    and mask = row < n_valid & finite > 0 & scalar_std > fp32(threshold),
+    packed into one uint8 buffer (``ref.packed_uq_views`` reads it).
+    ``n_valid`` is a one-element int32 tensor on the device of ``preds``;
+    ``out`` is written when given."""
+    if preds.device.type == "cpu":
+        return ref.committee_uq_packed_ref(preds, threshold, n_valid,
+                                           out=out)
+    if preds.device.type == "cuda":
+        return _cuq.committee_uq_packed(preds, threshold, n_valid, out=out,
+                                        device=preds.device)
+    raise ValueError(f"committee_uq_packed: no implementation for device "
+                     f"{preds.device}")
+
+
 def plain_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None, q_offset: int = 0,
                     kv_len=None, q_chunk: int = 1024) -> torch.Tensor:

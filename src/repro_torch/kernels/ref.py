@@ -45,6 +45,55 @@ def committee_uq_ref(preds: torch.Tensor, threshold: float):
     return mean, scalar_std, component_std, mask, cnt
 
 
+def packed_uq_nbytes(n: int, d: int) -> int:
+    """Bytes of the packed statistics of ``n`` rows of width ``d``."""
+    return n * (d + 3) * 4 + n
+
+
+def packed_uq_views(buf, n: int, d: int):
+    """``(mean (n, d), scalar_std (n,), component_std (n,), finite (n,),
+    mask (n,))``: views into a packed buffer, a 1-D uint8 tensor or numpy
+    array of ``packed_uq_nbytes(n, d)`` bytes.  The layout is mean (f32),
+    scalar std (f32), component std (f32), finite (i32), mask (bool)."""
+    if isinstance(buf, torch.Tensor):
+        f32, i32, b8 = torch.float32, torch.int32, torch.bool
+    else:
+        f32, i32, b8 = np.float32, np.int32, np.bool_
+    nd = n * d
+    f = buf[:(nd + 2 * n) * 4].view(f32)
+    return (f[:nd].reshape(n, d), f[nd:nd + n], f[nd + n:],
+            buf[(nd + 2 * n) * 4:(nd + 3 * n) * 4].view(i32),
+            buf[(nd + 3 * n) * 4:].view(b8))
+
+
+def committee_uq_packed_ref(preds: torch.Tensor, threshold: float,
+                            n_valid: torch.Tensor,
+                            out: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """The acquisition engine's packed statistics: ``committee_uq_ref``
+    and mask = row < n_valid & finite > 0 & scalar_std > fp32(threshold),
+    in one uint8 buffer laid out as ``packed_uq_views`` reads it.
+    ``n_valid`` is a 0-d (or one-element) integer tensor, never read on the
+    host; ``out``, when given, is written and returned (1-D uint8 of
+    ``packed_uq_nbytes(n, d)`` bytes on the device of ``preds``)."""
+    mean, sstd, cstd, mask, cnt = committee_uq_ref(preds, threshold)
+    n, d = mean.shape
+    rows = torch.arange(n, device=preds.device)
+    mask = mask & (rows < n_valid.reshape(()))
+    nbytes = packed_uq_nbytes(n, d)
+    if out is None:
+        out = torch.empty(nbytes, dtype=torch.uint8, device=preds.device)
+    elif (out.device != preds.device or out.dtype != torch.uint8
+          or out.dim() != 1 or out.numel() != nbytes):
+        raise ValueError(f"committee_uq_packed: out must be a 1-D uint8 "
+                         f"buffer of {nbytes} bytes on {preds.device}, got "
+                         f"{out.dtype} {tuple(out.shape)} on {out.device}")
+    for dst, src in zip(packed_uq_views(out, n, d),
+                        (mean, sstd, cstd, cnt, mask)):
+        dst.copy_(src)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Attention
 # ---------------------------------------------------------------------------

@@ -147,6 +147,248 @@ def test_committee_uq_kernel_refuses_integer_input(cuda_device, dtype):
     assert kernel.launches == before
 
 
+def _packed_case(K, n, d, dtype):
+    x = torch.from_numpy(_preds(K, n, d, seed=K * 1000 + n + d)).to(dtype)
+    return x, torch.tensor((2 * n) // 3, dtype=torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=["fp32", "bf16", "fp16"])
+@pytest.mark.parametrize("d", [3, 24, 256])
+@pytest.mark.parametrize("n", [1, 7, 64, 4096])
+@pytest.mark.parametrize("K", [1, 2, 4, 8])
+def test_committee_uq_packed_matches_plain_version(cuda_device, K, n, d,
+                                                   dtype):
+    """The engine's fused entry: the statistics, the finite counts and
+    mask = row < n_valid & finite > 0 & scalar_std > threshold, written
+    into the caller's packed buffer (non-finite members, n_valid < n)."""
+    from repro_torch.kernels import committee_uq as kernel
+
+    x, n_valid = _packed_case(K, n, d, dtype)
+    out = torch.full((ref.packed_uq_nbytes(n, d),), 7, dtype=torch.uint8,
+                     device=cuda_device)
+    before = kernel.launches
+    got = ops.committee_uq_packed(x.to(cuda_device), 0.9,
+                                  n_valid.to(cuda_device), out=out)
+    assert got is out and kernel.launches == before + 1
+    want = ref.packed_uq_views(
+        ref.committee_uq_packed_ref(x, 0.9, n_valid).numpy(), n, d)
+    got = ref.packed_uq_views(out.cpu().numpy(), n, d)
+    np.testing.assert_allclose(got[0], want[0], **MEAN_TOL)
+    np.testing.assert_allclose(got[1], want[1], **STD_TOL)
+    np.testing.assert_allclose(got[2], want[2], **STD_TOL)
+    np.testing.assert_array_equal(got[3], want[3])
+    away = np.abs(want[1] - 0.9) > STD_TOL["atol"] + STD_TOL["rtol"] * 0.9
+    np.testing.assert_array_equal(got[4][away], want[4][away])
+    assert not got[4][int(n_valid):].any()
+
+
+@pytest.mark.cuda
+def test_committee_uq_packed_rejects_what_it_does_not_take(cuda_device):
+    from repro_torch.kernels import committee_uq as kernel
+
+    x = torch.zeros(4, 8, 3, device=cuda_device)
+    nv = torch.tensor(5, dtype=torch.int32, device=cuda_device)
+    size = ref.packed_uq_nbytes(8, 3)
+    before = kernel.launches
+    for bad in (torch.empty(size - 1, dtype=torch.uint8, device=cuda_device),
+                torch.empty(size, dtype=torch.uint8),
+                torch.empty(size // 4, dtype=torch.int32,
+                            device=cuda_device)):
+        with pytest.raises(ValueError, match="out must be"):
+            kernel.committee_uq_packed(x, 0.1, nv, out=bad,
+                                       device=cuda_device)
+    for bad in (nv.long(), nv.cpu(), torch.zeros(2, dtype=torch.int32,
+                                                 device=cuda_device)):
+        with pytest.raises(ValueError, match="n_valid"):
+            kernel.committee_uq_packed(x, 0.1, bad, device=cuda_device)
+    assert kernel.launches == before
+
+
+# the engine on the card: the serving path's own committee (forces of an MLP
+# potential by autograd), cut to test size
+ENGINE_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def _potential_engines(rules, **kw):
+    """A captured and an eager engine on the card and one on the CPU, all
+    with the same weights."""
+    from repro_torch.configs.pal_potential import PotentialConfig
+    from repro_torch.core import acquisition as acq
+    from repro_torch.models import potential as pot
+
+    cfg = PotentialConfig(n_atoms=4, committee_size=3, hidden=(16, 16),
+                          n_rbf=8)
+
+    def apply(p, flat_batch):
+        def one(flat):
+            _, f = pot.energy_forces(p, flat.reshape(cfg.n_atoms, 3), cfg)
+            return f.reshape(-1)
+        return torch.func.vmap(one)(flat_batch)
+
+    cparams = pot.init_committee(cfg, torch.Generator().manual_seed(0),
+                                 device="cpu")
+    make = lambda dev, capture=True: acq.FusedEngine(  # noqa: E731
+        apply, cparams, 0.5, rules=rules(), device=dev, capture=capture,
+        **kw)
+    return make("cuda"), make("cuda", False), make("cpu"), cparams
+
+
+def _configs(n, seed):
+    rng = np.random.RandomState(seed)
+    lattice = np.stack(np.meshgrid([0, 1.3], [0, 1.3], [0, 1.3]),
+                       -1).reshape(-1, 3)[:4].reshape(-1)
+    return (lattice + rng.randn(n, 12) * 0.1).astype(np.float32)
+
+
+def _assert_uq_equal(got, want, where, exact=False):
+    for key in ("mean", "scalar_std", "component_std"):
+        g, w = getattr(got, key), getattr(want, key)
+        if exact:
+            np.testing.assert_array_equal(g, w, err_msg=f"{where} {key}")
+        else:
+            np.testing.assert_allclose(g, w, err_msg=f"{where} {key}",
+                                       **ENGINE_TOL)
+    np.testing.assert_array_equal(got.mask, want.mask, err_msg=where)
+    np.testing.assert_array_equal(got.finite_members, want.finite_members,
+                                  err_msg=where)
+
+
+def _engine_pipelines():
+    from repro_torch.core import acquisition as acq
+    from repro_torch.core import budget
+
+    return {
+        "default": lambda: None,
+        "budget_reweight": lambda: (
+            budget.RollingReweightRule(n_buckets=16, decay=0.8),
+            budget.BudgetRule(target=0.3, thr_init=0.5, horizon=8,
+                              target_serve=0.45)),
+        "top_fraction": lambda: (acq.TopFractionRule(0.3),),
+        "diversity": lambda: (acq.ThresholdRule(0.2),
+                              acq.DiversityRule(0.05)),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pipeline", ["default", "budget_reweight",
+                                      "top_fraction", "diversity"])
+def test_captured_engine_matches_eager_and_cpu(cuda_device, pipeline):
+    """Captured engine == eager engine on the card (the same kernels in the
+    same order: the same bits) == the CPU engine, over rounds that advance
+    and rounds that do not, across buckets and both streams; one capture
+    per bucket, one committee_uq launch per replay."""
+    from repro_torch.core import acquisition as acq
+    from repro_torch.kernels import committee_uq as kernel
+
+    graph, eager, cpu, _ = _potential_engines(_engine_pipelines()[pipeline])
+    for r, n in enumerate((10, 3, 16, 9, 20, 16, 5, 31)):
+        batch = _configs(n, seed=r)
+        stream = acq.STREAM_SERVE if r % 3 == 2 else acq.STREAM_EXCHANGE
+        advance = r % 4 != 3
+        before, d0 = kernel.launches, graph.dispatches
+        got = graph.score(batch, advance=advance, stream=stream)
+        if r >= 5:                     # every bucket captured by now
+            assert kernel.launches - before == graph.dispatches - d0 == 1
+        _assert_uq_equal(got, eager.score(batch, advance=advance,
+                                          stream=stream), f"r{r}", exact=True)
+        _assert_uq_equal(got, cpu.score(batch, advance=advance,
+                                        stream=stream), f"r{r} vs CPU")
+        for a, b in zip(graph.state_dict(), cpu.state_dict()):
+            for key in b:
+                np.testing.assert_allclose(a[key], b[key], rtol=1e-5,
+                                           atol=1e-7, err_msg=f"r{r} {key}")
+    assert graph.trace_counts == {8: 1, 16: 1, 32: 1}
+    assert all(b.launches == 1 for b in graph._buckets.values())
+
+
+@pytest.mark.cuda
+def test_captured_engine_ignores_grad_mode_at_capture(cuda_device):
+    """A bucket captured inside torch.no_grad() or torch.inference_mode()
+    (forces by torch.func.grad under vmap) gives the same bits."""
+    base, _, _, cparams = _potential_engines(
+        _engine_pipelines()["budget_reweight"])
+    batch = _configs(12, seed=3)
+    want = base.score(batch, advance=False)
+    for ctx in (torch.no_grad, torch.inference_mode):
+        eng, _, _, _ = _potential_engines(
+            _engine_pipelines()["budget_reweight"])
+        with ctx():
+            got = eng.score(batch, advance=False)
+        _assert_uq_equal(got, want, ctx.__name__, exact=True)
+        assert eng.trace_counts == {16: 1}
+
+
+@pytest.mark.cuda
+def test_captured_engine_two_threads_at_once(cuda_device):
+    """Two threads score one engine at once, both capturing buckets at
+    first use: the advancing thread's results and the final state equal
+    the same rounds on the CPU; the read-only thread's statistics equal
+    the CPU's (its masks follow whichever state it read)."""
+    import threading
+
+    graph, _, cpu, _ = _potential_engines(
+        _engine_pipelines()["budget_reweight"])
+    adv = [_configs(n, seed=10 + i) for i, n in enumerate((12, 16, 9) * 4)]
+    ro = [_configs(n, seed=50 + i) for i, n in enumerate((30, 20, 7) * 4)]
+    got_adv, got_ro, errors = [], [], []
+
+    def run(batches, out, advance):
+        try:
+            for b in batches:
+                out.append(graph.score(b, advance=advance))
+        except Exception as e:               # surfaced below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(adv, got_adv, True)),
+               threading.Thread(target=run, args=(ro, got_ro, False))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not errors, errors
+    for i, b in enumerate(adv):
+        _assert_uq_equal(got_adv[i], cpu.score(b), f"advancing {i}")
+    for a, b in zip(graph.state_dict(), cpu.state_dict()):
+        for key in b:
+            np.testing.assert_allclose(a[key], b[key], rtol=1e-5, atol=1e-7)
+    for i, b in enumerate(ro):
+        want = cpu.score(b, advance=False)
+        for key in ("mean", "scalar_std", "component_std"):
+            np.testing.assert_allclose(getattr(got_ro[i], key),
+                                       getattr(want, key), **ENGINE_TOL)
+    assert graph.trace_counts == {8: 1, 16: 1, 32: 1}
+
+
+@pytest.mark.cuda
+def test_captured_engine_sees_refresh_and_restore(cuda_device):
+    """After capture, refresh_from_device and load_state_dict copy into the
+    buffers the graphs read: the answers change to the CPU engine's with
+    the same weights and state, and no buffer moves."""
+    graph, _, cpu, cparams = _potential_engines(
+        _engine_pipelines()["budget_reweight"])
+    batch = _configs(16, seed=7)
+    graph.score(batch)
+    cpu.score(batch)
+    ptrs = [t.data_ptr() for t in graph.cparams.values()]
+    sptrs = [t.data_ptr() for s in graph.rule_state for t in s.values()]
+    new = {k: v * 1.5 for k, v in cparams.items()}
+    graph.refresh_from_device({k: v.to(cuda_device) for k, v in new.items()})
+    cpu.refresh_from_device(new)
+    snap = cpu.state_dict()
+    cpu.score(batch)
+    graph.score(batch)
+    graph.load_state_dict(snap)
+    cpu.load_state_dict(snap)
+    _assert_uq_equal(graph.score(batch), cpu.score(batch), "refreshed")
+    assert [t.data_ptr() for t in graph.cparams.values()] == ptrs
+    assert [t.data_ptr() for s in graph.rule_state
+            for t in s.values()] == sptrs
+    assert graph.device_refreshes == 1 and graph.refresh_host_bytes == 0
+    assert graph.trace_counts == {16: 1}
+
+
 FA_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 
 
