@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving paths on one CUDA card.
+"""Drive the PyTorch/CUDA port's serving and training paths on one CUDA card.
 
     PYTHONPATH=src python3 chip_smoke.py
 
@@ -24,6 +24,21 @@ Phases (each raises on a failed check; the script exits non-zero):
    each bucket is captured once; each bucket's dispatch time; then new
    weights through ``refresh_from_device`` on both engines, and the card
    must equal the CPU again;
+3b. committee training phase at ``PotentialConfig()`` full width, as
+   ``examples/potential_md.py``'s random baseline runs it: 2048 random
+   near-equilibrium lattice geometries labelled by the port's
+   ``lj_energy_forces``, a ``CommitteeTrainer`` (K=4, batch 64, lr 1e-3,
+   the force loss) whose step is one captured CUDA graph: captured ==
+   eager bit for bit and == the CPU's losses (rtol 1e-4) over the first 20
+   steps, one capture and one replay per step, then 400 captured steps
+   after which the held-out force MAE must be lower; the trained weights
+   handed device to device (``refresh_from_device(snapshot_cparams())``)
+   to the phase's captured engine: 0 host bytes, no new capture, the card
+   == a CPU engine with the same weights; a poisoned member rolled back
+   and scored with K-1 finite members; ``committee_uq`` launches ==
+   dispatches over the phase; the K x policy sweep (K 8/32/64 x fp32/
+   bf16/int8 moments: ms per captured step, state bytes ==
+   ``stacked_state_nbytes``, peak memory);
 4. flash phase: ``flash_attention`` against its plain version on the same
    CUDA tensors over the reference's sweep, decode with ``kv_len`` (0, 1,
    on and either side of a split boundary), the sliding-window decode,
@@ -117,6 +132,7 @@ from repro_torch.kernels import flash_attention as fa_kernel  # noqa: E402
 from repro_torch.kernels import ssd as ssd_kernel  # noqa: E402
 from repro_torch.kernels import wkv6 as wkv_kernel  # noqa: E402
 from repro_torch.launch import platform  # noqa: E402
+from repro_torch.launch import train_profile  # noqa: E402
 from repro_torch.models import model_zoo  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import potential as pot  # noqa: E402
@@ -451,15 +467,9 @@ def phase_kernels():
 # ---------------------------------------------------------------------------
 
 PCFG = PotentialConfig()
-
-
-def member_forces(p, flat_batch):                # (n, 3A) -> (n, 3A)
-    """ONE committee member's force field over a batch of flat coords —
-    the apply_fn of the CommitteeSpec."""
-    def one(flat):
-        _, f = pot.energy_forces(p, flat.reshape(PCFG.n_atoms, 3), PCFG)
-        return f.reshape(-1)
-    return torch.func.vmap(one)(flat_batch)
+# ONE committee member's force field over flat coords: the CommitteeSpec's
+# apply_fn, (n, 3A) -> (n, 3A)
+member_forces = train_profile.member_forces
 
 
 class _Recorder:
@@ -646,6 +656,171 @@ def phase_serving(smi):
           f"engines, card == CPU on 4 batches (masks identical, worst "
           f"|err| {ref_worst:.3e}); no buffer moved, no new capture")
     return launches, per_bucket
+
+
+# ---------------------------------------------------------------------------
+# 3b. the training slice at PotentialConfig() full width
+# ---------------------------------------------------------------------------
+
+TRAIN_LOSS_RTOL = 1e-4            # card vs CPU per-step losses, fp32
+TRAIN_THRESHOLD = 0.3             # examples/potential_md.py's std_threshold
+
+
+def force_mae(cparams, coords, forces):
+    """Committee-mean force MAE on flat held-out geometries."""
+    c = torch.from_numpy(coords).cuda().reshape(len(coords), PCFG.n_atoms, 3)
+    _, f = pot.batched_committee_energy_forces(cparams, c, PCFG)
+    f_mean = f.mean(dim=1).reshape(len(coords), -1)
+    return float((f_mean - torch.from_numpy(forces).cuda()).abs().mean())
+
+
+def _state_leaves(tr):
+    return [t.cpu() for t in torch.utils._pytree.tree_leaves(tr.cstate)]
+
+
+def phase_training(smi):
+    """The paper's retrain step and the handoff back to scoring, as
+    ``examples/potential_md.py``'s random baseline runs it: random
+    near-equilibrium lattice geometries labelled by the port's
+    ``lj_energy_forces``, a ``CommitteeTrainer`` at ``PotentialConfig()``
+    (K=4, batch 64, lr 1e-3, a 2048-row ring), its step one captured CUDA
+    graph; card == eager card (bits) == CPU (losses) over the first 20
+    steps, then 400 captured steps; the force MAE on a held-out set must
+    fall; the trained weights handed device to device to the phase's
+    captured engine, which must then answer as a CPU engine with the same
+    weights; a poisoned member rolled back and scored with K-1 finite
+    members; the K x policy sweep."""
+    cp = train_profile.committee()
+    run_cfg = PALRunConfig(std_threshold=TRAIN_THRESHOLD)
+    engine = acq.make_engine(run_cfg, committee=acq.CommitteeSpec(
+        train_profile.member_forces, cp), device="cuda")
+    batches = [train_profile.geometries(n, 30 + n) for n in (8, 13, 40, 64)]
+    for b in batches:                            # the engine's captures
+        engine.score(b, advance=False)
+    counts, dispatch0 = dict(engine.trace_counts), engine.dispatches
+    cuq_kernel.launches = 0                      # this path starts here
+    t0 = time.perf_counter()
+    data = train_profile.dataset()
+    held = train_profile.geometries(256, seed=2)
+    held_f = train_profile.lj_labels(held)
+    card = train_profile.make_trainer(cp)
+    eager = train_profile.make_trainer(cp, capture=False)
+    cpu = train_profile.make_trainer(cp, device="cpu")
+    for tr in (card, eager, cpu):
+        tr.add_blocks(data)
+    print(f"training data: {len(data)} geometries labelled by "
+          f"lj_energy_forces on the card, {time.perf_counter() - t0:.2f} s")
+    mae0 = force_mae(card.snapshot_cparams(), held, held_f)
+    worst = 0.0
+    for t in range(20):
+        lg = card.train(steps=1)["loss"]
+        if not np.array_equal(lg, eager.train(steps=1)["loss"]):
+            raise AssertionError(f"step {t}: captured != eager losses")
+        worst = max(worst, _max_err(
+            torch.from_numpy(lg), torch.from_numpy(cpu.train(steps=1)["loss"]),
+            TRAIN_LOSS_RTOL, 0.0, f"step {t} card vs CPU loss"))
+    for a, b in zip(_state_leaves(card), _state_leaves(eager)):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError("captured state != eager state after 20 "
+                                 "steps")
+    if card.captures != 1 or card.graph_replays != 20:
+        raise AssertionError(f"expected one capture and 20 replays, got "
+                             f"{card.captures} and {card.graph_replays}")
+    print(f"training card vs CPU: 20 steps, captured == eager bit for bit "
+          f"(losses and the whole state), losses == CPU within rtol "
+          f"{TRAIN_LOSS_RTOL} (worst |err| {worst:.3e}); one capture")
+    cap_ms = train_profile.step_ms(card, 50)
+    eager_ms = train_profile.step_ms(eager, 50)
+    t0 = time.perf_counter()
+    out = card.train(steps=400)
+    round_s = time.perf_counter() - t0
+    if card.captures != 1 or card.graph_replays != card.steps_done:
+        raise AssertionError(f"{card.graph_replays} replays for "
+                             f"{card.steps_done} steps, {card.captures} "
+                             f"captures")
+    mae1 = force_mae(card.snapshot_cparams(), held, held_f)
+    if not (np.isfinite(out["loss"]).all() and mae1 < mae0):
+        raise AssertionError(f"force MAE did not fall: {mae0} -> {mae1}")
+    print(f"training step PotentialConfig() K={PCFG.committee_size} batch "
+          f"{train_profile.BATCH} fp32: captured {cap_ms:.4f} ms, eager "
+          f"{eager_ms:.4f} ms ({eager_ms / cap_ms:.2f}x); 400-step round "
+          f"{round_s:.4f} s wall; held-out force MAE {mae0:.4f} -> "
+          f"{mae1:.4f} after {card.steps_done} steps [{smi}]")
+
+    # the handoff into the phase's captured engine
+    t0 = time.perf_counter()
+    engine.refresh_from_device(card.snapshot_cparams())
+    first = engine.score(batches[-1])
+    handoff_ms = (time.perf_counter() - t0) * 1e3
+    if engine.refresh_host_bytes != 0 or engine.device_refreshes != 1:
+        raise AssertionError("the handoff moved host bytes")
+    cpu_engine = acq.make_engine(run_cfg, committee=acq.CommitteeSpec(
+        train_profile.member_forces,
+        cmte.tree_map(lambda t: t.cpu(), card.snapshot_cparams())),
+        device="cpu")
+    ref_worst, picked = 0.0, 0
+    for i, b in enumerate(batches):
+        uq_g = first if i == len(batches) - 1 else engine.score(b)
+        uq_c = cpu_engine.score(b)
+        for key in ("mean", "scalar_std", "component_std"):
+            ref_worst = max(ref_worst, _max_err(
+                torch.from_numpy(getattr(uq_g, key)),
+                torch.from_numpy(getattr(uq_c, key)), ENGINE_RTOL,
+                ENGINE_ATOL, f"trained {len(b)} {key}"))
+        away = np.abs(uq_c.scalar_std - TRAIN_THRESHOLD) > (
+            ENGINE_ATOL + ENGINE_RTOL * TRAIN_THRESHOLD)
+        if not np.array_equal(uq_g.mask[away], uq_c.mask[away]):
+            raise AssertionError(f"trained {len(b)}: masks differ")
+        if not np.array_equal(uq_g.finite_members, uq_c.finite_members):
+            raise AssertionError(f"trained {len(b)}: finite counts differ")
+        picked += int(uq_g.mask.sum())
+    warm_ms = train_profile.refresh_then_score_ms(card, engine,
+                                                  batches[-1])
+    if engine.trace_counts != counts or engine.refresh_host_bytes != 0:
+        raise AssertionError(f"a handoff caused a capture or moved host "
+                             f"bytes: {engine.trace_counts}")
+    print(f"handoff: refresh_from_device(snapshot_cparams()) + the first "
+          f"64-row captured score {handoff_ms:.4f} ms the first time, "
+          f"{warm_ms:.4f} ms warm (mean of 20); 0 host bytes, no new "
+          f"capture {engine.trace_counts}; card == CPU engine on the trained "
+          f"weights (worst |err| {ref_worst:.3e}, masks equal off the "
+          f"threshold, {picked} rows selected) [{smi}]")
+
+    card.poison_member(1)
+    out = card.train(steps=5)
+    if out["member_ok"][1] or not out["member_ok"][[0, 2, 3]].all():
+        raise AssertionError(f"quarantine verdict {out['member_ok']}")
+    engine.refresh_from_device(card.snapshot_cparams())
+    uq = engine.score(batches[-1])
+    if not (uq.finite_members == PCFG.committee_size - 1).all() or not \
+            np.isfinite(uq.scalar_std).all():
+        raise AssertionError("the poisoned member was not quarantined in "
+                             "scoring")
+    launches = cuq_kernel.launches
+    dispatches = engine.dispatches - dispatch0
+    if launches != dispatches or launches == 0:
+        raise AssertionError(f"committee_uq launches {launches} != engine "
+                             f"dispatches {dispatches}")
+    print(f"poisoned member 1: rolled back on every step (member_ok "
+          f"{out['member_ok'].tolist()}), scored with "
+          f"{PCFG.committee_size - 1} finite members on every row; "
+          f"committee_uq launches {launches} == engine dispatches "
+          f"{dispatches}")
+
+    del card, eager, cpu
+    gc.collect()
+    sweep = train_profile.sweep(data)
+    for name, r in sweep.items():
+        if r["state_bytes"] != r["stacked_state_nbytes"] or \
+                r["captures"] != 1 or not r["finite"]:
+            raise AssertionError(f"sweep {name}: {r}")
+        print(f"sweep {name}: {r['ms_per_step']:.4f} ms per captured step, "
+              f"state {r['state_bytes']} B == stacked_state_nbytes, peak "
+              f"{r['peak_bytes'] / 2**20:.1f} MiB [{smi}]")
+    return launches, {"step_ms": cap_ms, "eager_step_ms": eager_ms,
+                      "round_400_s": round_s, "handoff_ms": handoff_ms,
+                      "handoff_warm_ms": warm_ms,
+                      "mae": (mae0, mae1)}
 
 
 # ---------------------------------------------------------------------------
@@ -1843,6 +2018,8 @@ def main() -> int:
     smi = info["nvidia_smi"]
     worst, t = _timed("committee_uq", phase_kernels)
     launches, per_bucket = _timed("committee serving", phase_serving, smi)
+    train_launches, train_t = _timed("committee training", phase_training,
+                                     smi)
     fa_worst, fa_t = _timed("flash_attention", phase_flash, smi)
     fa_launches, fa_paths = _timed("llama serving", phase_lm, smi)
     _timed("llama card vs CPU", phase_card_vs_cpu, LM_ARCH,
@@ -1886,7 +2063,10 @@ def main() -> int:
         "large_bound_ms": t["large_bound_ms"],
         "large_five_output_bound_ms": t["large_five_output_bound_ms"],
         "launch_floor_ms": t["launch_floor_ms"],
-        "dispatch_ms_by_bucket": per_bucket}, {
+        "dispatch_ms_by_bucket": per_bucket,
+        "training_launches": train_launches,
+        "training_step_ms": train_t["step_ms"],
+        "training_eager_step_ms": train_t["eager_step_ms"]}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:108",

@@ -2,7 +2,8 @@
 
 Only ``PRESETS`` and ``reduced_config`` live here for now: the serving
 driver (``launch/serve.py``) shrinks an arch with them, as the reference's
-does.  The training driver itself comes with the training slice.
+does.  The LM training driver itself comes with the rest of the LM zoo
+(ROADMAP §A item 5); the committee trainer is ``training/``.
 """
 from __future__ import annotations
 

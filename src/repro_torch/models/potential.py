@@ -7,13 +7,16 @@ of pairwise distances; total energy = sum of atomic energies; forces =
 (the committee axis and the batch axis) and come out the same inside
 ``torch.no_grad()`` or ``torch.inference_mode()``.
 
-The analytic oracles (Lennard-Jones, Morse) and ``potential_loss`` come with
-the training slice.
+The analytic oracles (Lennard-Jones, Morse; forces by ``torch.func.grad``)
+label training data, and ``potential_loss`` is the energy + force fit the
+committee trainer runs: its force term differentiates through
+``energy_forces``, a double backward that composes with ``torch.func.grad``
+over the params and ``torch.func.vmap`` over the committee and the batch.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 from torch.func import grad_and_value, vmap
@@ -111,3 +114,53 @@ def batched_committee_energy_forces(cparams: Params, coords: torch.Tensor,
     def one(c):
         return committee_energy_forces(cparams, c, cfg)
     return vmap(one)(coords)
+
+
+# ---------------------------------------------------------------------------
+# Analytic oracles (ground-truth stand-ins for DFT)
+# ---------------------------------------------------------------------------
+
+
+def lennard_jones(coords: torch.Tensor, eps: float = 1.0,
+                  sigma: float = 1.0):
+    d = _pair_distances(coords)
+    a = coords.shape[0]
+    mask = 1.0 - torch.eye(a, dtype=coords.dtype, device=coords.device)
+    sr6 = (sigma / d) ** 6
+    return 0.5 * torch.sum(mask * 4.0 * eps * (sr6 ** 2 - sr6))
+
+
+def lj_energy_forces(coords: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    g, e = grad_and_value(lennard_jones)(coords)
+    return e, -g
+
+
+def morse(coords: torch.Tensor, de: float = 1.0, a: float = 1.2,
+          r0: float = 1.2):
+    d = _pair_distances(coords)
+    n = coords.shape[0]
+    mask = 1.0 - torch.eye(n, dtype=coords.dtype, device=coords.device)
+    return 0.5 * torch.sum(mask * de * (1.0 - torch.exp(-a * (d - r0))) ** 2)
+
+
+def morse_energy_forces(coords: torch.Tensor):
+    g, e = grad_and_value(morse)(coords)
+    return e, -g
+
+
+# ---------------------------------------------------------------------------
+# Training-side loss (energy + force matching)
+# ---------------------------------------------------------------------------
+
+
+def potential_loss(params: Params, batch, cfg: PotentialConfig,
+                   force_weight: float = 10.0):
+    """batch: {"coords": (B,A,3), "energy": (B,), "forces": (B,A,3)}."""
+    def one(c):
+        return energy_forces(params, c, cfg)
+
+    e, f = vmap(one)(batch["coords"])
+    e_loss = torch.mean((e - batch["energy"]) ** 2)
+    f_loss = torch.mean((f - batch["forces"]) ** 2)
+    return e_loss + force_weight * f_loss, {"e_mse": e_loss, "f_mse": f_loss}

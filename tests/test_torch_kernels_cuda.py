@@ -389,6 +389,183 @@ def test_captured_engine_sees_refresh_and_restore(cuda_device):
     assert graph.trace_counts == {16: 1}
 
 
+# the committee trainer on the card: one captured CUDA graph per trainer,
+# the potential's force loss (a double backward) at test size
+TRAIN_LOSS_TOL = {"fp32": 1e-4, "bf16": 1e-3, "int8": 1e-3}
+
+
+def _force_trainer(device, policy="fp32", capture=True, k=3):
+    """A committee trainer on the force loss of a small MLP potential,
+    with labelled near-lattice geometries in its ring; the same weights
+    and data on every device."""
+    from repro_torch.configs.pal_potential import PotentialConfig
+    from repro_torch.models import potential as pot
+    from repro_torch.training import CommitteeTrainer
+
+    cfg = PotentialConfig(n_atoms=4, committee_size=k, hidden=(16, 16),
+                          n_rbf=8)
+
+    def forces(p, flat_batch):
+        def one(flat):
+            _, f = pot.energy_forces(p, flat.reshape(cfg.n_atoms, 3), cfg)
+            return f.reshape(-1)
+        return torch.func.vmap(one)(flat_batch)
+
+    def loss(p, b):
+        return torch.mean((forces(p, b["x"]) - b["y"]) ** 2), {}
+
+    cparams = pot.init_committee(cfg, torch.Generator().manual_seed(0),
+                                 device="cpu")
+    tr = CommitteeTrainer(loss, cparams, batch=16, lr=1e-3, seed=3,
+                          replay_capacity=128, memory_policy=policy,
+                          device=device, capture=capture)
+    xs = _configs(96, seed=21)
+    ys = np.stack([pot.lj_energy_forces(torch.from_numpy(c).reshape(4, 3))[1]
+                   .reshape(-1).numpy() for c in xs])
+    tr.add_blocks(list(zip(xs, ys)))
+    return tr, forces, cparams
+
+
+def _cpu_state(tr):
+    import torch.utils._pytree as pytree
+    return [t.cpu() for t in pytree.tree_leaves(tr.cstate)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["fp32", "bf16", "int8"])
+def test_captured_trainer_matches_eager_and_cpu(cuda_device, policy):
+    """Captured trainer == eager trainer on the card bit for bit (the same
+    kernels in the same order) over 10 steps, and the CPU's losses within
+    rtol 1e-4 (fp32; 1e-3 with bf16/int8 moments, where one rounding of a
+    stored moment may fall the other way); one capture, one replay a
+    step."""
+    cap, _, _ = _force_trainer("cuda", policy)
+    eager, _, _ = _force_trainer("cuda", policy, capture=False)
+    cpu, _, _ = _force_trainer("cpu", policy)
+    for t in range(10):
+        lc = cap.train(steps=1)["loss"]
+        np.testing.assert_array_equal(lc, eager.train(steps=1)["loss"])
+        np.testing.assert_allclose(lc, cpu.train(steps=1)["loss"],
+                                   rtol=TRAIN_LOSS_TOL[policy],
+                                   err_msg=f"step {t}")
+    for a, b in zip(_cpu_state(cap), _cpu_state(eager)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert cap.captures == 1 and cap.graph_replays == 10
+    assert eager.captures == 0 and eager.graph_replays == 0
+    if policy == "fp32":
+        for a, b in zip(_cpu_state(cap), _cpu_state(cpu)):
+            if a.is_floating_point():
+                np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4,
+                                           atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_trainer_captures_once_in_any_grad_mode(cuda_device):
+    """Rounds with an interrupt, a round inside torch.inference_mode() and
+    blocks added after the capture: one capture, one replay per step, the
+    ring's buffer never moves and the graph sees its new rows."""
+    class Stop:
+        def __init__(self):
+            self.n = 0
+
+        def test(self):
+            self.n += 1
+            return self.n % 4 == 0
+
+    tr, _, cparams = _force_trainer("cuda")
+    ptr, gen = tr.replay._buf.data_ptr(), tr.replay.generation
+    first = tr.train(steps=10, interrupt=Stop())["loss"]
+    assert tr.steps_done == 4 and tr.captures == 1
+    with torch.inference_mode():
+        tr.train(steps=30)
+    tr.add_blocks(list(zip(_configs(40, seed=5), np.zeros((40, 12),
+                                                          np.float32))))
+    assert len(tr.replay) == 128 and int(tr.replay.size_dev) == 128
+    tr.train(steps=5)
+    assert tr.captures == 1 and tr.graph_replays == tr.steps_done == 39
+    assert tr.replay._buf.data_ptr() == ptr and tr.replay.generation == gen
+    assert not torch.equal(tr.cparams["w0"].cpu(), cparams["w0"])
+    assert np.isfinite(first).all()
+
+
+@pytest.mark.cuda
+def test_trainer_restore_and_poison_after_capture(cuda_device):
+    """load_state_dict and poison_member write into the buffers the graph
+    reads: a restored captured trainer continues bit for bit as another
+    one restored from the same snapshot, and a poisoned member is rolled
+    back by the replayed quarantine."""
+    a, _, _ = _force_trainer("cuda", "int8")
+    b, _, _ = _force_trainer("cuda", "int8")
+    a.train(steps=3)
+    b.train(steps=1)                       # b captured too
+    snap = a.state_dict()
+    a.train(steps=4)
+    ptrs = [t.data_ptr() for t in _leaves(a)]
+    a.load_state_dict(snap)
+    b.load_state_dict(snap)
+    assert [t.data_ptr() for t in _leaves(a)] == ptrs
+    a.train(steps=3)
+    b.train(steps=3)
+    for x, y in zip(_cpu_state(a), _cpu_state(b)):
+        assert torch.equal(x, y)
+    a.poison_member(1)
+    opt1 = [t[1].cpu() for t in _leaves(a.cstate.opt)]
+    out = a.train(steps=3)
+    assert not out["member_ok"][1] and out["member_ok"][[0, 2]].all()
+    assert all(torch.equal(x, y[1].cpu())
+               for x, y in zip(opt1, _leaves(a.cstate.opt)))
+    assert a.captures == b.captures == 1
+
+
+def _leaves(tree):
+    import torch.utils._pytree as pytree
+    return pytree.tree_leaves(tree.cstate if hasattr(tree, "cstate")
+                              else tree)
+
+
+@pytest.mark.cuda
+def test_trainer_handoff_then_score_on_another_thread(cuda_device):
+    """Steps enqueued on the trainer's stream with no host sync, then
+    ``snapshot_cparams``; another thread refreshes the captured engine with
+    the snapshot and scores at once: the engine holds exactly the trained
+    weights, answers as the CPU engine with them, moves 0 host bytes and
+    captures nothing new."""
+    import threading
+
+    from repro_torch.core import acquisition as acq
+
+    tr, forces, cparams = _force_trainer("cuda")
+    tr.train(steps=2)
+    eng = acq.FusedEngine(forces, cparams, 0.5, device="cuda")
+    batch = _configs(16, seed=8)
+    eng.score(batch)
+    counts = dict(eng.trace_counts)
+    with torch.inference_mode(False), tr._state_lock:
+        for _ in range(20):
+            tr._step()                       # enqueued, not synced
+    snap = tr.snapshot_cparams()
+    out, errors = [], []
+
+    def consume():
+        try:
+            eng.refresh_from_device(snap)
+            out.append(eng.score(batch))
+        except Exception as e:               # surfaced below
+            errors.append(e)
+
+    t = threading.Thread(target=consume)
+    t.start()
+    t.join(timeout=300)
+    assert not t.is_alive() and not errors, errors
+    for k, v in tr.cparams.items():
+        assert torch.equal(eng.cparams[k].cpu(), v.cpu()), k
+    cpu = acq.FusedEngine(forces, {k: v.cpu() for k, v in
+                                   tr.cparams.items()}, 0.5, device="cpu")
+    _assert_uq_equal(out[0], cpu.score(batch), "after the handoff")
+    assert eng.refresh_host_bytes == 0 and eng.device_refreshes == 1
+    assert eng.trace_counts == counts
+
+
 FA_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 
 
