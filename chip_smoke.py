@@ -39,6 +39,25 @@ Phases (each raises on a failed check; the script exits non-zero):
    dispatches over the phase; the K x policy sweep (K 8/32/64 x fp32/
    bf16/int8 moments: ms per captured step, state bytes ==
    ``stacked_state_nbytes``, peak memory);
+3c. the paper's whole loop through ``repro_torch.core.PAL`` at
+   ``PotentialConfig()`` full width, as the quickstart twin
+   (``repro_torch.examples.quickstart``) configures it: 8 host MD
+   generators of 1000 steps, the captured engine scoring every exchange
+   round through ``committee_uq``, 4 Lennard-Jones oracle workers on the
+   card, the captured trainer (400-step rounds, batch 64, a 2048-row
+   ring), weights handed back device to device every round, autosaves;
+   the run must end on the generators' stop with no crash, escalation or
+   unjoined thread, one capture per bucket and one for the trainer,
+   launches == dispatches, 0 refresh host bytes, the engine holding the
+   trainer's weights bit for bit and answering as a CPU engine with them;
+   then a resume from its checkpoint (iteration, trainer and engine state
+   bit for bit, training continuing identically) and a second run under
+   ``FaultPlan.acceptance(member=1)`` (0 escalations, 2 restarts, 6
+   events, K-1 finite members, one capture per bucket); prints the
+   exchange and label rates, the rate with the trainer busy and idle,
+   round wall, release-to-yield latency, handoff ms, oracle ms per label
+   and the device's busy share over the run (CUDA events around every
+   graph replay);
 4. flash phase: ``flash_attention`` against its plain version on the same
    CUDA tensors over the reference's sweep, decode with ``kv_len`` (0, 1,
    on and either side of a split boundary), the sliding-window decode,
@@ -821,6 +840,406 @@ def phase_training(smi):
                       "round_400_s": round_s, "handoff_ms": handoff_ms,
                       "handoff_warm_ms": warm_ms,
                       "mae": (mae0, mae1)}
+
+
+# ---------------------------------------------------------------------------
+# 3c. the paper's whole loop: PAL on the card
+# ---------------------------------------------------------------------------
+
+RUNTIME_STEPS = 1000              # proposals per MD generator, then it stops
+RUNTIME_THRESHOLD = 0.25          # the quickstart's std_threshold
+
+
+def _runtime_cfg(tmp):
+    """The quickstart's PAL configuration at ``PotentialConfig()``: 8 MD
+    generators, 4 LJ oracle workers, retrain blocks of 16, the fused
+    trainer (400 steps a round, batch 64, lr 1e-3, a 2048-row ring), weights
+    handed over every round, an autosave every 300 exchange rounds."""
+    return PALRunConfig(
+        result_dir=tmp, gene_process=8, orcl_process=4, pred_process=4,
+        ml_process=4, retrain_size=16, std_threshold=RUNTIME_THRESHOLD,
+        patience=5, weight_sync_every=1, train_steps=400, train_batch=64,
+        train_lr=1e-3, train_replay_capacity=2048,
+        checkpoint_every_iters=300)
+
+
+def _runtime_pal(tmp, chaos=None, resume=False):
+    from repro_torch.core import PAL
+    from repro_torch.examples import quickstart
+
+    return PAL(
+        _runtime_cfg(tmp),
+        make_generator=lambda r, d: quickstart.MDGenerator(
+            r, d, n_atoms=PCFG.n_atoms, max_steps=RUNTIME_STEPS),
+        make_oracle=lambda r, d: quickstart.LJOracle(r, d, device="cuda"),
+        committee=acq.CommitteeSpec(member_forces, train_profile.committee()),
+        loss_fn=train_profile.member_force_loss, chaos=chaos,
+        resume=resume, device="cuda")
+
+
+class _LoopClock:
+    """Host timestamps of one PAL run, taken by wrapping its objects'
+    methods (the runtime itself is not instrumented): each exchange
+    round's end, each trainer round's start, end and steps, each block
+    release by the Manager and each weight handoff's duration."""
+
+    def __init__(self, pal):
+        self.rounds, self.releases, self.exchange, self.handoffs = \
+            [], [], [], []
+        tr, ex, mgr = pal.committee_trainer, pal.exchange, pal.manager
+        train, step, release = tr.train, ex.step, mgr._release_training_data
+        publish = pal._publish_committee
+
+        def timed_train(*a, **kw):
+            t0, s0 = time.perf_counter(), tr.steps_done
+            out = train(*a, **kw)
+            self.rounds.append((t0, time.perf_counter(),
+                                tr.steps_done - s0))
+            return out
+
+        def timed_step():
+            out = step()
+            self.exchange.append(time.perf_counter())
+            return out
+
+        def timed_release():
+            n = mgr.releases
+            release()
+            if mgr.releases > n:
+                self.releases.append(time.perf_counter())
+
+        def timed_publish():
+            t0 = time.perf_counter()
+            publish()
+            self.handoffs.append(time.perf_counter() - t0)
+
+        tr.train, ex.step = timed_train, timed_step
+        mgr._release_training_data = timed_release
+        pal._publish_committee = timed_publish
+
+    def split(self, t0, t1):
+        """Exchange rounds a second with the trainer busy and idle, and the
+        release-to-yield latencies (a release during a trainer round to
+        that round's end)."""
+        busy = sum(min(e, t1) - max(s, t0) for s, e, _ in self.rounds
+                   if e > t0 and s < t1)
+        n_busy = sum(any(s <= t <= e for s, e, _ in self.rounds)
+                     for t in self.exchange)
+        n_idle = len(self.exchange) - n_busy
+        idle = (t1 - t0) - busy
+        yields = []
+        for s, e, _ in self.rounds:
+            inside = [r for r in self.releases if s < r < e]
+            if inside:
+                yields.append((e - inside[0]) * 1e3)
+        return (n_busy / busy if busy > 0 else float("nan"),
+                n_idle / idle if idle > 0 else float("nan"), busy, idle,
+                yields)
+
+
+class _ReplaySpans:
+    """CUDA events around every CUDA-graph replay while the context is
+    open: the engine's bucket graphs on its stream, the trainer's step
+    graph on its own.  ``torch.profiler`` is not used here: stopping it
+    (a device-wide synchronize) while two other threads replay graphs
+    hung the process on the card."""
+
+    def __enter__(self):
+        self.spans = []
+        self._orig = orig = torch.cuda.CUDAGraph.replay
+        spans = self.spans
+
+        def replay(graph):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            orig(graph)
+            e.record()
+            spans.append((s, e))
+
+        torch.cuda.CUDAGraph.replay = replay
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.CUDAGraph.replay = self._orig
+
+    def busy_share(self):
+        """(union of the replays' device intervals over the span from the
+        first replay's start to the last one's end, replays, span ms)."""
+        if not self.spans:
+            return None, 0, 0.0
+        torch.cuda.synchronize()
+        ref = self.spans[0][0]
+        iv = sorted((ref.elapsed_time(s), ref.elapsed_time(e))
+                    for s, e in self.spans)
+        busy, end = 0.0, -np.inf
+        for s0, e0 in iv:
+            if e0 > end:
+                busy += e0 - max(s0, end)
+                end = e0
+        window = max(e0 for _, e0 in iv) - iv[0][0]
+        return busy / window, len(iv), window
+
+
+def _run_until_stop(pal, what):
+    """Start ``pal`` and wait for its stop token (a generator's step
+    limit), then shut it down; returns the report, its counters, the
+    counters that must be 0, and the host times of start and stop."""
+    t0 = time.perf_counter()
+    pal.start()
+    if not pal.stop_event.wait(120):
+        raise AssertionError(f"{what}: no stop token within 120 s")
+    t1 = time.perf_counter()
+    pal.shutdown()
+    rep = pal.report()
+    c = rep["counters"]
+    bad = {k: c.get(k, 0) for k in ("runtime.thread_crashes",
+                                    "supervisor.escalations",
+                                    "runtime.unjoined_threads")}
+    return rep, c, bad, t0, t1
+
+
+def _oracle_alone_and_queued(tr, rows, n=20):
+    """Host ms per LJ label on the card's default stream: alone, and while
+    another thread runs a 400-step round on the trainer's own stream (the
+    label's read-back waits on the default stream only, so it should not
+    wait for the round); and that round's wall ms."""
+    from repro_torch.examples import quickstart
+
+    oracle = quickstart.LJOracle(0, "", device="cuda")
+    oracle.run_calc(rows[0])
+    t0 = time.perf_counter()
+    for x in rows[:n]:
+        oracle.run_calc(x)
+    lone = (time.perf_counter() - t0) * 1e3 / n
+    done = []
+    th = threading.Thread(target=lambda: done.append(
+        (time.perf_counter(), tr.train(steps=400), time.perf_counter())))
+    th.start()
+    time.sleep(0.02)                     # the round's replays are queued
+    t0 = time.perf_counter()
+    for x in rows[:n]:
+        oracle.run_calc(x)
+    queued = (time.perf_counter() - t0) * 1e3 / n
+    th.join(timeout=60)
+    if th.is_alive() or not done:
+        raise AssertionError("the 400-step round did not finish")
+    return lone, queued, (done[0][2] - done[0][0]) * 1e3
+
+
+def phase_runtime(smi):
+    """The paper's loop on the card through ``repro_torch.core.PAL``:
+    host MD generators, the captured ``FusedEngine`` scoring through the
+    ``committee_uq`` kernel, LJ oracle workers on the card, the captured
+    ``CommitteeTrainer`` retraining all K members, the weights handed back
+    device to device; then the same under the acceptance fault plan; then
+    a resume from run 1's checkpoint."""
+    import tempfile
+
+    from repro_torch.core import FaultPlan
+
+    held = train_profile.geometries(256, seed=2)
+    held_f = train_profile.lj_labels(held)
+    mae0 = force_mae(cmte.tree_map(lambda t: t.cuda(),
+                                   train_profile.committee()), held, held_f)
+    with tempfile.TemporaryDirectory() as tmp1, \
+            tempfile.TemporaryDirectory() as tmp2:
+        # --- run 1: the loop ------------------------------------------------
+        pal = _runtime_pal(tmp1)
+        clock = _LoopClock(pal)
+        cuq_kernel.launches = 0                  # this path starts here
+        with _ReplaySpans() as spans:
+            rep, c, bad, t0, t1 = _run_until_stop(pal, "run 1")
+        launches, dispatches = cuq_kernel.launches, pal.engine.dispatches
+        busy = spans.busy_share()
+        eng, tr = pal.engine, pal.committee_trainer
+        tok = pal.stop_token
+        if tok is None or not tok.origin.startswith("generator"):
+            raise AssertionError(f"run 1 stopped by {tok}")
+        if any(bad.values()):
+            raise AssertionError(f"run 1: {bad}")
+        if not (rep["labeled_total"] > 0 and c.get("train.retrains", 0) >= 2
+                and rep["device_weight_refreshes"] >= 1):
+            raise AssertionError(
+                f"run 1 did not label, retrain twice and hand weights "
+                f"over: {rep['labeled_total']} labels, "
+                f"{c.get('train.retrains')} rounds, "
+                f"{rep['device_weight_refreshes']} refreshes")
+        if eng.refresh_host_bytes != 0:
+            raise AssertionError("run 1: a handoff moved host bytes")
+        if pal.checkpointer.saves < 1:
+            raise AssertionError("run 1: no autosave")
+        if not eng.trace_counts or any(v != 1 for v in
+                                       eng.trace_counts.values()):
+            raise AssertionError(f"run 1: a bucket was captured twice: "
+                                 f"{eng.trace_counts}")
+        if tr.captures != 1 or tr.graph_replays != tr.steps_done:
+            raise AssertionError(f"run 1 trainer: {tr.captures} captures, "
+                                 f"{tr.graph_replays} replays for "
+                                 f"{tr.steps_done} steps")
+        # each bucket is captured inside the run: its two warm-up runs
+        # launch the kernel once each, then every dispatch is one replay
+        warm = 2 * len(eng.trace_counts)
+        if launches != dispatches + warm or dispatches == 0:
+            raise AssertionError(f"run 1: committee_uq launches {launches} "
+                                 f"!= engine dispatches {dispatches} + "
+                                 f"{warm} warm-up launches")
+        snap = tr.snapshot_cparams()
+        for k, v in snap.items():
+            if not torch.equal(eng.cparams[k], v):
+                raise AssertionError(f"run 1: engine param {k} != the "
+                                     f"trainer's")
+        probe = train_profile.geometries(64, seed=91)
+        uq_g = eng.score(probe, advance=False)
+        cpu_engine = acq.make_engine(
+            _runtime_cfg(tmp1), committee=acq.CommitteeSpec(
+                member_forces, cmte.tree_map(lambda t: t.cpu(), snap)),
+            device="cpu")
+        uq_c = cpu_engine.score(probe, advance=False)
+        worst = 0.0
+        for key in ("mean", "scalar_std", "component_std"):
+            worst = max(worst, _max_err(
+                torch.from_numpy(getattr(uq_g, key)),
+                torch.from_numpy(getattr(uq_c, key)), ENGINE_RTOL,
+                ENGINE_ATOL, f"run 1 trained {key}"))
+        away = np.abs(uq_c.scalar_std - RUNTIME_THRESHOLD) > (
+            ENGINE_ATOL + ENGINE_RTOL * RUNTIME_THRESHOLD)
+        if not np.array_equal(uq_g.mask[away], uq_c.mask[away]):
+            raise AssertionError("run 1: card and CPU masks differ")
+        mae1 = force_mae(snap, held, held_f)
+        wall = t1 - t0
+        it = c.get("exchange.iterations", 0)
+        rate_busy, rate_idle, s_busy, s_idle, yields = clock.split(t0, t1)
+        rounds = [e - s for s, e, _ in clock.rounds]
+        oracle = pal.monitor.timer("oracle.run_calc")
+        warm_ms = train_profile.refresh_then_score_ms(tr, eng, probe)
+        saves = pal.checkpointer.saves
+        pal.checkpoint()                         # the state to resume from
+        print(f"runtime run 1 PotentialConfig() K={PCFG.committee_size}, 8 "
+              f"MD generators x {RUNTIME_STEPS} steps, 4 LJ oracles: stopped "
+              f"by {tok.origin}; {it} exchange rounds in {wall:.4f} s = "
+              f"{it / wall:.2f} it/s, {rep['labeled_total']} labels = "
+              f"{rep['labeled_total'] / wall:.2f} labels/s; {saves} "
+              f"autosaves [{smi}]")
+        print(f"runtime exchange rate: trainer busy {rate_busy:.2f} it/s "
+              f"over {s_busy:.3f} s, trainer idle {rate_idle:.2f} it/s over "
+              f"{s_idle:.3f} s [{smi}]")
+        print(f"runtime retraining: {c['train.retrains']} rounds, "
+              f"{tr.steps_done} captured steps, round wall mean "
+              f"{1e3 * np.mean(rounds):.4f} ms (max "
+              f"{1e3 * np.max(rounds):.4f}); release-to-yield "
+              + (f"mean {np.mean(yields):.4f} ms, max {np.max(yields):.4f} "
+                 f"ms over {len(yields)} interrupted rounds"
+                 if yields else "not measured (no release inside a round)")
+              + f" [{smi}]")
+        print(f"runtime handoff: refresh_from_device(snapshot_cparams()) in "
+              f"the loop mean {1e3 * np.mean(clock.handoffs):.4f} ms over "
+              f"{len(clock.handoffs)}; refresh + first 64-row score after "
+              f"the run {warm_ms:.4f} ms (mean of 20); oracle "
+              f"{1e3 * oracle.mean:.4f} ms per label over {oracle.count} in "
+              f"the run [{smi}]")
+        share, n_replays, window_ms = busy
+        print(f"runtime device busy share (the union of the engine's and "
+              f"the trainer's graph replays by CUDA events; the oracles' "
+              f"kernels and the copies not counted) over run 1's "
+              f"{window_ms:.1f} ms from its first replay to its last: "
+              + (f"{100 * share:.2f} % ({n_replays} replays)"
+                 if share is not None else "not measured (no replay)")
+              + f" [{smi}]")
+        print(f"runtime run 1 checks: generator stop, 0 crashes, 0 "
+              f"escalations, 0 unjoined threads; one capture per bucket "
+              f"{eng.trace_counts} and one for the trainer ({tr.graph_replays}"
+              f" replays == steps); committee_uq launches {launches} == "
+              f"engine dispatches {dispatches} + {warm} warm-up launches of "
+              f"the in-run captures; 0 refresh host bytes; engine "
+              f"params == trainer snapshot bit for bit; card == CPU engine on "
+              f"64 fresh geometries (worst |err| {worst:.3e}); held-out "
+              f"force MAE {mae0:.4f} -> {mae1:.4f}")
+
+        # --- resume from run 1's checkpoint ---------------------------------
+        want = pal.committee_trainer.state_dict()
+        res = _runtime_pal(tmp1, resume=True)
+        if res.exchange.iteration != pal.exchange.iteration:
+            raise AssertionError(f"resume: iteration "
+                                 f"{res.exchange.iteration} != "
+                                 f"{pal.exchange.iteration}")
+        got = res.committee_trainer.state_dict()
+        for k in ("steps_done", "step_seq", "rounds"):
+            if got[k] != want[k]:
+                raise AssertionError(f"resume: trainer {k} {got[k]} != "
+                                     f"{want[k]}")
+        for a, b in zip(_state_leaves(res.committee_trainer),
+                        _state_leaves(tr)):
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                raise AssertionError("resume: trainer state differs")
+        for a, b in zip(cmte.tree_leaves(res.engine.state_dict()),
+                        cmte.tree_leaves(eng.state_dict())):
+            if not np.array_equal(a, b):
+                raise AssertionError("resume: engine rule state differs")
+        for k, v in snap.items():
+            if not torch.equal(res.engine.cparams[k], v):
+                raise AssertionError(f"resume: engine param {k} differs")
+        uq_r = res.engine.score(probe, advance=False)
+        res.engine.score(probe[:8], advance=False)
+        res.engine.score(probe[:8], advance=False)
+        if res.engine.trace_counts != {8: 1, 64: 1}:
+            raise AssertionError(f"resume: {res.engine.trace_counts}")
+        for key in ("mean", "scalar_std", "component_std"):
+            _max_err(torch.from_numpy(getattr(uq_r, key)),
+                     torch.from_numpy(getattr(uq_g, key)), ENGINE_RTOL,
+                     ENGINE_ATOL, f"resumed {key}")
+        if not np.array_equal(uq_r.mask[away], uq_g.mask[away]):
+            raise AssertionError("resume: masks differ from run 1's")
+        la = tr.train(steps=3)["loss"]
+        lb = res.committee_trainer.train(steps=3)["loss"]
+        res.committee_trainer.train(steps=2)
+        if not np.array_equal(la, lb) or res.committee_trainer.captures != 1:
+            raise AssertionError("resume: training did not continue bit "
+                                 "for bit with one capture")
+        print(f"runtime resume: iteration {res.exchange.iteration}, trainer "
+              f"state ({got['steps_done']} steps) and engine rule state bit "
+              f"for bit, the engine's params == run 1's trainer's bit for "
+              f"bit and its scores == run 1's, one capture per bucket "
+              f"{res.engine.trace_counts}, 3 more steps equal run 1's")
+        del res, cpu_engine
+        lone_ms, queued_ms, round_ms = _oracle_alone_and_queued(tr, probe)
+        print(f"runtime oracle on the card's default stream: "
+              f"{lone_ms:.4f} ms per label alone, {queued_ms:.4f} ms while "
+              f"a 400-step round ({round_ms:.4f} ms wall) runs on the "
+              f"trainer's stream [{smi}]")
+
+        # --- run 2: the acceptance fault plan --------------------------------
+        pal2 = _runtime_pal(tmp2, chaos=FaultPlan.acceptance(member=1))
+        t2 = time.perf_counter()
+        rep2, c2, bad2, _, _ = _run_until_stop(pal2, "run 2")
+        fired = rep2["chaos_fired"]
+        if (c2.get("supervisor.escalations", 0) != 0
+                or rep2["thread_restarts"] != 2 or len(fired) != 6
+                or rep2["uq_finite_members_min"] != PCFG.committee_size - 1
+                or any(v != 1 for v in pal2.engine.trace_counts.values())
+                or bad2["runtime.unjoined_threads"]):
+            raise AssertionError(
+                f"run 2: escalations {c2.get('supervisor.escalations', 0)}, "
+                f"restarts {rep2['thread_restarts']}, fired {fired}, "
+                f"finite min {rep2['uq_finite_members_min']}, captures "
+                f"{pal2.engine.trace_counts}, {bad2}")
+        print(f"runtime run 2 under FaultPlan.acceptance(member=1): stopped "
+              f"by {pal2.stop_token.origin} in "
+              f"{time.perf_counter() - t2:.2f} s; 6 events fired {fired}; "
+              f"{rep2['thread_restarts']} restarts, 0 escalations; finite "
+              f"members min {rep2['uq_finite_members_min']}; one capture per "
+              f"bucket {pal2.engine.trace_counts}; {rep2['labeled_total']} "
+              f"labels, {c2.get('train.retrains')} rounds [{smi}]")
+        del pal2
+    return launches, dispatches, {
+        "iterations_per_s": it / wall,
+        "labels_per_s": rep["labeled_total"] / wall,
+        "retrains": c["train.retrains"], "round_ms": 1e3 * np.mean(rounds),
+        "release_to_yield_ms": float(np.mean(yields)) if yields else None,
+        "handoff_ms": 1e3 * float(np.mean(clock.handoffs)),
+        "refresh_score_ms": warm_ms, "oracle_ms": 1e3 * oracle.mean,
+        "oracle_alone_ms": lone_ms, "oracle_queued_ms": queued_ms,
+        "busy_share": share, "mae": (mae0, mae1)}
 
 
 # ---------------------------------------------------------------------------
@@ -2020,6 +2439,8 @@ def main() -> int:
     launches, per_bucket = _timed("committee serving", phase_serving, smi)
     train_launches, train_t = _timed("committee training", phase_training,
                                      smi)
+    rt_launches, rt_dispatches, rt = _timed("PAL runtime", phase_runtime,
+                                            smi)
     fa_worst, fa_t = _timed("flash_attention", phase_flash, smi)
     fa_launches, fa_paths = _timed("llama serving", phase_lm, smi)
     _timed("llama card vs CPU", phase_card_vs_cpu, LM_ARCH,
@@ -2066,7 +2487,12 @@ def main() -> int:
         "dispatch_ms_by_bucket": per_bucket,
         "training_launches": train_launches,
         "training_step_ms": train_t["step_ms"],
-        "training_eager_step_ms": train_t["eager_step_ms"]}, {
+        "training_eager_step_ms": train_t["eager_step_ms"],
+        "runtime_launches": rt_launches,
+        "runtime_dispatches": rt_dispatches,
+        "runtime_iterations_per_s": rt["iterations_per_s"],
+        "runtime_labels_per_s": rt["labels_per_s"],
+        "runtime_busy_share": rt["busy_share"]}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:108",

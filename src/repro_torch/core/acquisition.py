@@ -21,12 +21,14 @@ and the serving path to the oracle buffer.
     across rounds — ``core/budget.py`` builds the cross-round oracle-rate
     controller (``BudgetRule``) and the rolling re-weighting rule
     (``RollingReweightRule``) on this protocol.
+  * ``LegacyEngine`` — the per-member backend for arbitrary ``UserModel``
+    kernels: K ``predict`` calls, float64 host statistics, then the SAME
+    rule objects run eagerly on CPU tensors.
   * ``make_engine`` — config-driven factory (``PALRunConfig`` knobs).
 
 Not ported yet (each raises ``NotImplementedError`` naming the ROADMAP item
-that brings it): the per-member ``LegacyEngine`` and ``refresh_from(store)``
-(item 5, runtime), ``score_after`` (item 6, exploration fleet) and the mesh
-path (item 8, multi-device).
+that brings it): ``score_after`` (the exploration fleet) and the mesh path
+(multi-device).
 """
 from __future__ import annotations
 
@@ -41,11 +43,12 @@ import numpy as np
 import torch
 
 from repro_torch.core.committee import (
-    committee_size, make_committee_apply, shape_bucket, tree_leaves,
-    tree_map, tree_paths,
+    committee_size, make_committee_apply, shape_bucket, stack_members,
+    tree_leaves, tree_map, tree_paths, update,
 )
 from repro_torch.kernels import committee_uq as cuq_kernel
 from repro_torch.kernels import ops, ref
+from repro_torch.launch import platform
 from repro_torch.launch.platform import DeviceLike, resolve_device
 
 log = logging.getLogger(__name__)
@@ -152,13 +155,20 @@ class SelectionRule:
 
 @dataclasses.dataclass(frozen=True)
 class ThresholdRule(SelectionRule):
-    """The paper's central check: select where scalar_std > threshold
-    (an fp32 compare, as on the reference's fused path)."""
+    """The paper's central check: select where scalar_std > threshold.
+
+    Compares in the statistics' native dtype, as the reference does: fp32
+    on the fused path (against the threshold rounded to fp32), float64 on
+    the legacy host path (against the threshold itself — rounding it would
+    drop a row whose std lies between the two)."""
 
     threshold: float
 
     def apply(self, stats: UQStats, mask):
-        return mask & (stats.scalar_std > _f32(self.threshold))
+        std = stats.scalar_std
+        thr = self.threshold if std.dtype == torch.float64 \
+            else _f32(self.threshold)
+        return mask & (std > thr)
 
 
 @functools.lru_cache(maxsize=64)
@@ -190,8 +200,10 @@ class TopFractionRule(SelectionRule):
         # the device-resident n_valid indexes it
         k = k_table(n, self.fraction, mask.device).index_select(
             0, stats.n_valid.reshape(1).clamp(0, n).long())
-        score = torch.where(mask, stats.scalar_std,
-                            torch.full_like(stats.scalar_std, -np.inf))
+        # fp32 scores on both backends (the reference's jnp ranks the
+        # legacy path's float64 statistics in fp32 too)
+        sstd = stats.scalar_std.to(torch.float32)
+        score = torch.where(mask, sstd, torch.full_like(sstd, -np.inf))
         order = torch.argsort(-score, stable=True)   # ties by lower index
         rank = torch.empty(n, dtype=torch.int32, device=mask.device)
         rank[order] = torch.arange(n, dtype=torch.int32, device=mask.device)
@@ -220,9 +232,9 @@ class DiversityRule(SelectionRule):
         x = stats.x.to(torch.float32)
         n = x.shape[0]
         md2 = float(np.float32(self.min_dist) ** 2)
+        sstd = stats.scalar_std.to(torch.float32)
         order = torch.argsort(
-            torch.where(mask, -stats.scalar_std,
-                        torch.full_like(stats.scalar_std, np.inf)),
+            torch.where(mask, -sstd, torch.full_like(sstd, np.inf)),
             stable=True)
         kept = torch.zeros(n, dtype=torch.bool, device=x.device)
         for t in range(n):
@@ -252,7 +264,10 @@ def _copy_leaves(dst: Any, src: Any) -> None:
 
 class UQEngine:
     """One interface for committee scoring.  ``score`` is the ONLY call the
-    controller makes on the hot path.
+    controller makes on the hot path; ``refresh_from`` pulls fresh weights
+    from a ``WeightStore`` (0 for backends whose members refresh
+    themselves); ``uses_models`` tells the PredictionPool whether the
+    per-member ``UserModel`` instances are part of this engine's path.
 
     ``rule_state`` carries the state of stateful rules across rounds — one
     dict per stateful rule, in pipeline order; its tensors are the engine's
@@ -261,6 +276,7 @@ class UQEngine:
     serving, re-scoring).  ``state_dict`` / ``load_state_dict`` snapshot the
     carried state to host numpy and restore it into the same buffers."""
 
+    uses_models: bool = False
     rule_state: Tuple[Any, ...] = ()
 
     def score(self, list_data: Sequence[np.ndarray], *,
@@ -269,9 +285,7 @@ class UQEngine:
         raise NotImplementedError
 
     def refresh_from(self, store) -> int:
-        raise NotImplementedError(
-            "refresh_from(WeightStore) comes with the runtime slice "
-            "(ROADMAP §A item 5: core/weight_sync.py)")
+        return 0
 
     def _init_rule_state(self):
         """One state per stateful rule (pipeline order), on the engine's
@@ -366,6 +380,10 @@ class _Bucket:
                                         pin_memory=True)
 
 
+_MESH = ("the mesh-parallel engine comes with the multi-device slice "
+         "(ROADMAP §A: multi-device)")
+
+
 class FusedEngine(UQEngine):
     """One program per shape bucket: committee forward + UQ + selection.
 
@@ -405,19 +423,13 @@ class FusedEngine(UQEngine):
     without CUDA).
     """
 
-    # one capture at a time in the process (the kernel's capture count is
-    # read around it)
-    _capture_lock = threading.Lock()
-
     def __init__(self, apply_fn: Callable, cparams: Any, threshold: float,
                  *, rules: Optional[Sequence[SelectionRule]] = None,
                  min_bucket: int = 8, block_n: int = 128,
                  mesh=None, device: DeviceLike = None,
                  capture: bool = True):
         if mesh is not None:
-            raise NotImplementedError(
-                "the mesh-parallel engine comes with the multi-device slice "
-                "(ROADMAP §A item 8)")
+            raise NotImplementedError(_MESH)
         self.device = resolve_device(device)
         self.apply = make_committee_apply(apply_fn)
         self._cparams = tree_map(
@@ -535,8 +547,11 @@ class FusedEngine(UQEngine):
         the engine's stream (the caller holds the enqueue lock and the
         stream is current).  The warm-up loads the kernel library,
         initialises cuBLAS and fills the rules' device caches (LSH
-        projection, k table), none of which may happen under capture."""
-        with FusedEngine._capture_lock:
+        projection, k table), none of which may happen under capture.
+        Both run under the process-wide capture lock: one capture at a
+        time (a committee trainer may capture in another thread), and the
+        kernel's capture count is read around it."""
+        with platform.capture_lock:
             for _ in range(2):
                 self._run_program(b)
             graph = torch.cuda.CUDAGraph()
@@ -634,7 +649,7 @@ class FusedEngine(UQEngine):
     def score_after(self, *args, **kwargs):
         raise NotImplementedError(
             "score_after (fused walker advance + scoring) comes with the "
-            "exploration-fleet slice (ROADMAP §A item 6)")
+            "exploration-fleet slice (ROADMAP §A: the exploration fleet)")
 
     # -------------------------------------------------------------- weights
     def _copy_into(self, dst: Any, src: Any) -> None:
@@ -664,6 +679,31 @@ class FusedEngine(UQEngine):
         with self._enqueue_lock:
             super().load_state_dict(state)
 
+    def refresh_from(self, store) -> int:
+        """Refresh the stacked committee from a ``WeightStore`` if anything
+        newer exists.  Prediction member i replicates training member
+        ``i % store.n_members`` (paper: prediction models are replicas of
+        training models), so the committee size K is kept even when fewer
+        trainers publish.  The packed weights are unpacked on the host and
+        copied into the engine's own buffers, so every captured graph sees
+        them; ``refresh_host_bytes`` counts the packed bytes pulled.
+        Returns the number of refreshed committees (0 or 1)."""
+        v = store.version()
+        if v <= self.version:
+            return 0
+        K = self.size
+        packs = [store.pull_packed(i % store.n_members) for i in range(K)]
+        if any(p is None for p in packs):
+            return 0              # not all trainers have published yet
+        with self._counter_lock:
+            self.refresh_host_bytes += sum(p[0].nbytes for p in packs)
+        like = tree_map(lambda t: torch.empty(tuple(t.shape[1:]),
+                                              dtype=t.dtype), self._cparams)
+        self._load_params(stack_members(
+            [update(like, packs[i][0]) for i in range(K)]))
+        self.version = v
+        return 1
+
     def refresh_from_device(self, cparams) -> int:
         """Weight handoff from a trainer on the same device: the stacked
         tree is copied device to device into the engine's own buffers
@@ -680,16 +720,96 @@ class FusedEngine(UQEngine):
         return 1
 
 
-_LEGACY = ("LegacyEngine (per-member UserModel scoring) comes with the "
-           "runtime slice (ROADMAP §A item 5)")
-
-
 class LegacyEngine(UQEngine):
-    """The per-member backend (K ``UserModel.predict`` calls, float64 host
-    statistics) is not ported yet."""
+    """Per-member backend for arbitrary ``UserModel`` kernels (the paper's
+    original per-process structure): K sequential ``model.predict`` calls
+    (or a user ``predict_all_override``), float64 host statistics, then the
+    SAME rule objects run eagerly on CPU tensors — swapping a user model in
+    never changes selection semantics, only throughput.  The engine has no
+    device: its statistics are host numpy, as in the reference, and its
+    carried rule state lives in CPU tensors.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_LEGACY)
+    Weight refresh stays with the PredictionPool (the models own their
+    parameters), hence ``uses_models`` and the no-op ``refresh_from``.
+    """
+
+    uses_models = True
+
+    def __init__(self, predict_all: Callable[[Sequence[np.ndarray]],
+                                             np.ndarray],
+                 threshold: float,
+                 *, rules: Optional[Sequence[SelectionRule]] = None):
+        self.predict_all = predict_all
+        self.threshold = float(threshold)
+        self.rules = tuple(rules) if rules is not None \
+            else default_rules(threshold)
+        self.device = torch.device("cpu")
+        self._init_rule_state()
+        self.last_finite_min: Optional[int] = None
+        self.quarantine_rounds = 0
+
+    def score(self, list_data: Sequence[np.ndarray], *,
+              advance: bool = True,
+              stream: int = STREAM_EXCHANGE) -> UQResult:
+        with self._state_guard(advance):
+            return self._score(list_data, advance=advance, stream=stream)
+
+    def _score(self, list_data: Sequence[np.ndarray], *,
+               advance: bool, stream: int = STREAM_EXCHANGE) -> UQResult:
+        preds = np.asarray(self.predict_all(list_data), dtype=np.float64)
+        k = preds.shape[0]
+        fin = np.isfinite(preds).all(axis=tuple(range(2, preds.ndim)))  # (K, n)
+        cnt = fin.sum(axis=0).astype(np.int32)                          # (n,)
+        if fin.all():
+            # steady state: the exact float64 reductions
+            mean = preds.mean(axis=0)
+            std = preds.std(axis=0, ddof=1) if k > 1 \
+                else np.zeros_like(preds[0])
+        else:
+            # degraded-K statistics over the finite members only — the
+            # fused kernel's quarantine semantics (ref.committee_uq_ref)
+            w = fin.reshape(fin.shape + (1,) * (preds.ndim - 2))
+            safe = np.maximum(cnt, 1).astype(np.float64)
+            safe = safe.reshape((-1,) + (1,) * (preds.ndim - 2))
+            mean = np.where(w, preds, 0.0).sum(axis=0) / safe
+            dev = np.where(w, preds - mean, 0.0)
+            var = (dev * dev).sum(axis=0) / np.maximum(
+                cnt - 1, 1).reshape(safe.shape)
+            var[cnt < 2] = 0.0
+            std = np.sqrt(var)
+        flat = std.reshape(std.shape[0], -1)
+        sstd = flat.max(axis=-1)
+        cstd = flat.mean(axis=-1)
+        n = len(list_data)
+        x = torch.from_numpy(np.stack([
+            np.asarray(r, np.float32).reshape(-1) for r in list_data])) \
+            if any(r.needs_inputs for r in self.rules) else None
+        stats = UQStats(
+            x=x, mean=torch.from_numpy(mean),
+            scalar_std=torch.from_numpy(sstd),
+            component_std=torch.from_numpy(cstd),
+            valid=torch.ones(n, dtype=torch.bool),
+            n_valid=torch.tensor(n, dtype=torch.int32),
+            stream=torch.tensor(stream, dtype=torch.int32),
+            finite_members=torch.from_numpy(cnt))
+        mask = torch.ones(n, dtype=torch.bool)
+        states, si = list(self.rule_state), 0
+        for rule in self.rules:
+            if rule.stateful:
+                # the SAME rule code the fused backend captures, eagerly
+                stats, mask, states[si] = rule.apply_stateful(
+                    stats, mask, states[si])
+                si += 1
+            else:
+                mask = rule.apply(stats, mask)
+        mask = mask.numpy().astype(bool) & (cnt > 0)
+        if advance:
+            _copy_leaves(self.rule_state, tuple(states))
+        if cnt.size:
+            self.last_finite_min = int(cnt.min())
+            if self.last_finite_min < k:
+                self.quarantine_rounds += 1
+        return UQResult(mean, sstd, cstd, mask, cnt)
 
 
 # ---------------------------------------------------------------------------
@@ -720,40 +840,55 @@ def make_engine(
     run_cfg,
     *,
     committee: Optional[CommitteeSpec] = None,
+    predict_all: Optional[Callable] = None,
     rules: Optional[Sequence[SelectionRule]] = None,
     force_legacy: bool = False,
     mesh=None,
+    sharding_rules=None,
     device: DeviceLike = None,
     capture: bool = True,
 ) -> UQEngine:
     """Build the acquisition engine from ``PALRunConfig`` knobs.
 
-    Every fused ``uq_impl`` ('auto', 'xla', 'pallas', 'pallas_interpret')
-    builds the same ``FusedEngine``: the implementation of the statistics
-    follows ``device`` (the CUDA kernel on the card, the plain PyTorch
-    version on the CPU).  'legacy' and a mesh (``mesh=`` or ``uq_mesh``)
-    raise ``NotImplementedError``.
+    ``uq_impl``:
+      'auto'   — the fused engine when a ``CommitteeSpec`` is given, the
+                 per-member legacy engine otherwise
+      'xla', 'pallas', 'pallas_interpret'
+               — the same ``FusedEngine``: the implementation of the
+                 statistics follows ``device`` (the CUDA kernel on the
+                 card, the plain PyTorch version on the CPU)
+      'legacy' — per-member ``UserModel.predict`` (``predict_all``) +
+                 float64 host statistics; it has no device
+
+    ``force_legacy`` overrides everything (a ``predict_all_override`` puts
+    the user in control of raw predictions).  A mesh (``mesh=``,
+    ``sharding_rules=`` or ``uq_mesh``) on a fused engine raises
+    ``NotImplementedError``; the legacy path ignores meshes, as in the
+    reference.
 
     When no explicit ``rules=`` are given, the pipeline comes from the
     config's budget knobs (``core/budget.rules_from_config``).
     ``capture=False`` runs the engine's bucket programs eagerly on the card
     instead of replaying captured CUDA graphs (``FusedEngine``).
     """
-    dev = resolve_device(device)
-    if wants_legacy(run_cfg, committee, force_legacy):
-        raise NotImplementedError(_LEGACY)
-    if committee is None:
-        raise ValueError(
-            f"uq_impl={getattr(run_cfg, 'uq_impl', 'auto')!r} is a fused "
-            "backend and needs a CommitteeSpec (apply_fn + stacked cparams)")
-    if mesh is not None or getattr(run_cfg, "uq_mesh", ""):
-        raise NotImplementedError(
-            "the mesh-parallel engine comes with the multi-device slice "
-            "(ROADMAP §A item 8)")
     if rules is None:
         from repro_torch.core import budget as _budget
 
         rules = _budget.rules_from_config(run_cfg)
+    if wants_legacy(run_cfg, committee, force_legacy):
+        if predict_all is None:
+            raise ValueError(
+                "legacy UQ backend needs a predict_all callable "
+                "(no committee spec was provided)")
+        return LegacyEngine(predict_all, run_cfg.std_threshold, rules=rules)
+    dev = resolve_device(device)
+    if committee is None:
+        raise ValueError(
+            f"uq_impl={getattr(run_cfg, 'uq_impl', 'auto')!r} is a fused "
+            "backend and needs a CommitteeSpec (apply_fn + stacked cparams)")
+    if (mesh is not None or sharding_rules is not None
+            or getattr(run_cfg, "uq_mesh", "")):
+        raise NotImplementedError(_MESH)
     return FusedEngine(
         committee.apply_fn, committee.cparams, run_cfg.std_threshold,
         rules=rules,

@@ -225,8 +225,10 @@ class BudgetRule(SelectionRule):
     def apply_stateful(self, stats: UQStats, mask, state):
         # n_valid and stream are 0-d device tensors: nothing here reads
         # the host, so the round can be captured in a CUDA graph
+        # an fp32 compare against the fp32 state on both backends (the
+        # reference's jnp rounds the legacy path's float64 stds to fp32)
         thr = state["threshold"]
-        sel = mask & (stats.scalar_std > thr)
+        sel = mask & (stats.scalar_std.to(torch.float32) > thr)
         n = stats.n_valid.clamp_min(1).to(torch.float32)
         rate = torch.sum(sel).to(torch.float32) / n
         lo, hi = self._bounds()

@@ -77,7 +77,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if kv_seq_shard:
         raise NotImplementedError(
             "attention(kv_seq_shard=True): a sequence-sharded KV cache comes "
-            "with the multi-device slice (ROADMAP §A item 8)")
+            "with the multi-device slice (ROADMAP §A: multi-device)")
     if q.device.type == "cpu":
         return plain_attention(q, k, v, causal=causal, window=window,
                                q_offset=q_offset, kv_len=kv_len,

@@ -8,11 +8,19 @@ from __future__ import annotations
 
 import shutil
 import subprocess
+import threading
 from typing import Any, Dict, Optional, Union
 
 import torch
 
 DeviceLike = Union[str, torch.device, None]
+
+# One CUDA-graph capture at a time in the process, its warm-up included.
+# The acquisition engine's bucket captures and the committee trainer's step
+# capture run in different threads of one PAL run; holding this lock keeps
+# one thread's first-use work (the kernel library's load, cuBLAS
+# initialisation) out of the middle of another thread's capture.
+capture_lock = threading.Lock()
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:

@@ -3,7 +3,8 @@
 Only ``PRESETS`` and ``reduced_config`` live here for now: the serving
 driver (``launch/serve.py``) shrinks an arch with them, as the reference's
 does.  The LM training driver itself comes with the rest of the LM zoo
-(ROADMAP §A item 5); the committee trainer is ``training/``.
+(ROADMAP §A: the rest of the LM zoo); the committee trainer is
+``training/``.
 """
 from __future__ import annotations
 

@@ -15,13 +15,13 @@ from repro_torch.models import rwkv6
 from repro_torch.models import transformer as tfm
 
 _WAITING = {
-    "moe": "the rest of the LM zoo (ROADMAP §A item 9: MoELM of "
+    "moe": "the rest of the LM zoo (ROADMAP §A: MoELM of "
            "models/moe.py, whose moe_ffn is ported; its attention runs the "
            "ported flash_attention kernel)",
-    "encdec": "the rest of the LM zoo (ROADMAP §A item 9: "
+    "encdec": "the rest of the LM zoo (ROADMAP §A: "
               "models/whisper.py; its attention runs the ported "
               "flash_attention kernel)",
-    "vlm": "the rest of the LM zoo (ROADMAP §A item 9: models/internvl.py; "
+    "vlm": "the rest of the LM zoo (ROADMAP §A: models/internvl.py; "
            "its attention runs the ported flash_attention kernel)",
 }
 

@@ -64,6 +64,7 @@ from repro_torch.checkpoint.pytree_ckpt import (
 from repro_torch.configs.base import TrainConfig
 from repro_torch.core.committee import committee_size, member
 from repro_torch.data.replay import ReplayTrainingBuffer
+from repro_torch.launch import platform
 from repro_torch.launch.platform import DeviceLike, resolve_device
 from repro_torch.models.common import torch_dtype
 from repro_torch.optim.adamw import AdamWState, QTensor, resolve_moments
@@ -264,7 +265,7 @@ class CommitteeTrainer:
         if mesh is not None or sharding_rules is not None:
             raise NotImplementedError(
                 "the mesh-sharded committee trainer comes with the "
-                "multi-device slice (ROADMAP §A item 6)")
+                "multi-device slice (ROADMAP §A: multi-device)")
         self.device = resolve_device(device)
         self.size = committee_size(cparams)
         self.steps = int(steps)
@@ -374,14 +375,16 @@ class CommitteeTrainer:
     def _capture(self) -> None:
         """Warm up the pure body twice (kernel and cuBLAS initialisation
         may not happen under capture), then capture the step program, on
-        the trainer's stream (current here)."""
-        for _ in range(2):
-            self._body(self.cstate, self.replay.x, self.replay.y,
-                       self.replay.size_dev, self._seq_dev)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=self._stream,
-                              capture_error_mode="thread_local"):
-            metrics = self._program()
+        the trainer's stream (current here), under the process-wide
+        capture lock (an engine in another thread may be capturing)."""
+        with platform.capture_lock:
+            for _ in range(2):
+                self._body(self.cstate, self.replay.x, self.replay.y,
+                           self.replay.size_dev, self._seq_dev)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=self._stream,
+                                  capture_error_mode="thread_local"):
+                metrics = self._program()
         self._graph, self._graph_metrics = graph, metrics
         self._graph_ring = self.replay.generation
         self.captures += 1

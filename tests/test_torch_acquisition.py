@@ -23,6 +23,7 @@ from repro_torch.configs.pal_potential import PALRunConfig, PotentialConfig
 from repro_torch.core import acquisition as tacq
 from repro_torch.core import budget as tbud
 from repro_torch.core import committee as tcmte
+from repro_torch.core.weight_sync import WeightStore
 from repro_torch.models import potential as tpot
 
 K, IN_DIM, OUT_DIM = 5, 6, 3
@@ -295,17 +296,33 @@ def test_refresh_from_device_and_deferred_features():
     with pytest.raises(ValueError, match="committee size"):
         eng.refresh_from_device(tcmte.params_from_numpy({"w": ws[:2]},
                                                         "cpu"))
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="exploration fleet"):
         eng.score_after(None, None, 1, 8)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        eng.refresh_from(None)
+    # refresh_from(WeightStore): K members from the store's trainers, into
+    # the same buffers, version-gated
+    store = WeightStore(K)
+    assert eng.refresh_from(store) == 0            # nothing published
+    ptr = eng.cparams["w"].data_ptr()
+    for i in range(K):
+        store.publish_packed(i, (ws[i] * 3).reshape(-1))
+    assert eng.refresh_from(store) == 1 and eng.refresh_from(store) == 0
+    assert eng.refresh_host_bytes == ws.nbytes
+    assert eng.cparams["w"].data_ptr() == ptr
+    np.testing.assert_allclose(eng.score(x).mean, before * 3, rtol=1e-6)
+    # uq_impl="legacy": the per-member engine over predict_all
     spec = tacq.CommitteeSpec(_apply_t, eng.cparams)
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(ValueError, match="predict_all"):
         tacq.make_engine(PALRunConfig(uq_impl="legacy"), committee=spec,
                          device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    legacy = tacq.make_engine(
+        PALRunConfig(uq_impl="legacy", std_threshold=0.3), committee=spec,
+        predict_all=lambda rows: np.einsum("ni,kio->kno", np.stack(rows),
+                                           ws * 3))
+    assert isinstance(legacy, tacq.LegacyEngine)
+    np.testing.assert_allclose(legacy.score(x).mean, before * 3, rtol=1e-6)
+    with pytest.raises(NotImplementedError, match="multi-device"):
         tacq.make_engine(PALRunConfig(uq_mesh="host"), committee=spec,
                          device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="multi-device"):
         tacq.FusedEngine(_apply_t, eng.cparams, 0.3, mesh=object(),
                          device="cpu")

@@ -1,12 +1,14 @@
 """The port stands alone: no ``repro_torch`` module and not
 ``chip_smoke.py`` imports JAX or the reference package, its entry points
-default to the CUDA device and raise without it (no silent CPU fallback),
-and the CPU paths of ``ops`` never touch the kernel loader."""
+(``PAL`` included) default to the CUDA device and raise without it (no
+silent CPU fallback), and the CPU paths of ``ops``, the engine and ``PAL``
+never touch the kernel loader."""
 import os
 import pkgutil
 import re
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 import numpy as np
@@ -16,6 +18,7 @@ import torch
 import repro_torch
 from repro_torch.configs.pal_potential import PALRunConfig
 from repro_torch.core import acquisition as tacq
+from repro_torch.core import PAL
 from repro_torch.core import committee as tcmte
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import committee_uq as kernel
@@ -56,6 +59,13 @@ def test_no_source_imports_jax_or_the_reference():
     assert len(files) > 40
 
 
+def _pal(spec, **kw):
+    return PAL(PALRunConfig(result_dir=tempfile.mkdtemp()),
+               make_generator=lambda rank, rd: None,
+               make_oracle=lambda rank, rd: None, committee=spec,
+               loss_fn=lambda p, b: (torch.mean(b["x"] @ p["w"]), {}), **kw)
+
+
 def _no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
@@ -76,6 +86,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         tcmte.params_from_numpy({"w": np.ones(2)})
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         kernel.committee_uq(torch.zeros(2, 4, 3), 0.1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        _pal(spec)
 
 
 def test_lm_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
@@ -144,6 +156,9 @@ def test_cpu_path_never_touches_the_kernel_loader(monkeypatch):
     eng = tacq.FusedEngine(lambda p, x: x @ p["w"], tcmte.params_from_numpy(
         {"w": np.ones((2, 4, 3), np.float32)}, "cpu"), 0.5, device="cpu")
     eng.score([np.ones(4, np.float32)])
+    pal = _pal(tacq.CommitteeSpec(lambda p, x: x @ p["w"], eng.cparams),
+               device="cpu")
+    pal.engine.score([np.ones(4, np.float32)])
     assert kernel.launches == before
 
 

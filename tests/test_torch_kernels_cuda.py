@@ -394,29 +394,45 @@ def test_captured_engine_sees_refresh_and_restore(cuda_device):
 TRAIN_LOSS_TOL = {"fp32": 1e-4, "bf16": 1e-3, "int8": 1e-3}
 
 
+def _force_cfg(k=3):
+    from repro_torch.configs.pal_potential import PotentialConfig
+
+    return PotentialConfig(n_atoms=4, committee_size=k, hidden=(16, 16),
+                           n_rbf=8)
+
+
+def _forces(p, flat_batch):
+    """A small MLP potential's forces over flat 4-atom geometries."""
+    from repro_torch.models import potential as pot
+
+    cfg = _force_cfg()
+
+    def one(flat):
+        _, f = pot.energy_forces(p, flat.reshape(cfg.n_atoms, 3), cfg)
+        return f.reshape(-1)
+    return torch.func.vmap(one)(flat_batch)
+
+
+def _force_loss(p, b):
+    return torch.mean((_forces(p, b["x"]) - b["y"]) ** 2), {}
+
+
+def _force_cparams(k=3):
+    from repro_torch.models import potential as pot
+
+    return pot.init_committee(_force_cfg(k), torch.Generator().manual_seed(0),
+                              device="cpu")
+
+
 def _force_trainer(device, policy="fp32", capture=True, k=3):
     """A committee trainer on the force loss of a small MLP potential,
     with labelled near-lattice geometries in its ring; the same weights
     and data on every device."""
-    from repro_torch.configs.pal_potential import PotentialConfig
     from repro_torch.models import potential as pot
     from repro_torch.training import CommitteeTrainer
 
-    cfg = PotentialConfig(n_atoms=4, committee_size=k, hidden=(16, 16),
-                          n_rbf=8)
-
-    def forces(p, flat_batch):
-        def one(flat):
-            _, f = pot.energy_forces(p, flat.reshape(cfg.n_atoms, 3), cfg)
-            return f.reshape(-1)
-        return torch.func.vmap(one)(flat_batch)
-
-    def loss(p, b):
-        return torch.mean((forces(p, b["x"]) - b["y"]) ** 2), {}
-
-    cparams = pot.init_committee(cfg, torch.Generator().manual_seed(0),
-                                 device="cpu")
-    tr = CommitteeTrainer(loss, cparams, batch=16, lr=1e-3, seed=3,
+    forces, cparams = _forces, _force_cparams(k)
+    tr = CommitteeTrainer(_force_loss, cparams, batch=16, lr=1e-3, seed=3,
                           replay_capacity=128, memory_policy=policy,
                           device=device, capture=capture)
     xs = _configs(96, seed=21)
@@ -564,6 +580,184 @@ def test_trainer_handoff_then_score_on_another_thread(cuda_device):
     _assert_uq_equal(out[0], cpu.score(batch), "after the handoff")
     assert eng.refresh_host_bytes == 0 and eng.device_refreshes == 1
     assert eng.trace_counts == counts
+
+
+# PAL on the card: the engine's bucket graphs and the trainer's step graph
+# captured by different threads of one run
+
+class _CardGene:
+    """A jittered 4-atom lattice walking on the committee-mean forces,
+    ``limit`` proposals, then the generator's stop criterion."""
+
+    def __init__(self, rank, result_dir, limit=300):
+        self.rng = np.random.RandomState(rank)
+        self.x = _configs(1, seed=40 + rank)[0]
+        self.n, self.limit = 0, limit
+
+    def generate_new_data(self, data_to_gene):
+        self.n += 1
+        if self.n > self.limit:
+            return True, self.x
+        if data_to_gene is not None:
+            self.x = (self.x + 0.002 * np.clip(data_to_gene, -20, 20)
+                      + self.rng.randn(12) * 0.01).astype(np.float32)
+        return False, self.x
+
+    def save_progress(self):
+        pass
+
+    def stop_run(self):
+        pass
+
+
+class _CardOracle:
+    """Lennard-Jones forces of a flat 4-atom geometry, on the card."""
+
+    def __init__(self, rank, result_dir):
+        pass
+
+    def run_calc(self, x):
+        from repro_torch.models import potential as pot
+
+        c = torch.from_numpy(np.asarray(x, np.float32)).cuda().reshape(4, 3)
+        return x, pot.lj_energy_forces(c)[1].reshape(-1).cpu().numpy()
+
+    def stop_run(self):
+        pass
+
+
+def _card_pal(tmp, device="cuda", limit=300, resume=False, **kw):
+    from repro_torch.configs.pal_potential import PALRunConfig
+    from repro_torch.core import PAL, CommitteeSpec
+
+    cfg = PALRunConfig(result_dir=tmp, gene_process=4, orcl_process=2,
+                       retrain_size=8, std_threshold=0.05, patience=3,
+                       train_steps=40, train_batch=16, train_lr=1e-3,
+                       train_replay_capacity=128, **kw)
+    return PAL(cfg, make_generator=lambda r, d: _CardGene(r, d, limit),
+               make_oracle=_CardOracle,
+               committee=CommitteeSpec(_forces, _force_cparams()),
+               loss_fn=_force_loss, resume=resume, device=device)
+
+
+@pytest.mark.cuda
+def test_pal_fused_run_on_the_card(cuda_device):
+    """A fused PAL run on the card, its generators' stop criterion ending
+    it: one capture per engine bucket and one for the trainer, committee_uq
+    launches == engine dispatches (counted over replays) + the captures'
+    warm-up launches, 0 refresh host bytes, no thread crash, every thread
+    joined."""
+    import tempfile
+
+    from repro_torch.kernels import committee_uq as kernel
+
+    pal = _card_pal(tempfile.mkdtemp())
+    launches0 = kernel.launches
+    tok = pal.run(timeout=120)
+    rep = pal.report()
+    assert tok is not None and "generator" in tok.origin, tok
+    c = rep["counters"]
+    assert c.get("runtime.thread_crashes", 0) == 0
+    assert c.get("runtime.unjoined_threads", 0) == 0
+    assert rep["labeled_total"] > 0 and c["train.retrains"] >= 1
+    assert rep["device_weight_refreshes"] >= 1
+    assert pal.engine.refresh_host_bytes == 0
+    assert pal.engine.trace_counts and all(
+        v == 1 for v in pal.engine.trace_counts.values()), \
+        pal.engine.trace_counts
+    tr = pal.committee_trainer
+    assert tr.captures == 1 and tr.graph_replays == tr.steps_done > 0
+    # two warm-up launches per in-run capture, then one replay a dispatch
+    assert kernel.launches - launches0 == \
+        pal.engine.dispatches + 2 * len(pal.engine.trace_counts)
+
+
+@pytest.mark.cuda
+def test_engine_and_trainer_capture_together_from_two_threads(cuda_device):
+    """An engine's first bucket captures and a trainer's step capture,
+    started together from two threads: both succeed (one capture each),
+    the engine answers as the CPU engine with the same weights and the
+    captured trainer trains as an eager one, bit for bit."""
+    import threading
+
+    from repro_torch.core import acquisition as acq
+
+    tr, forces, cparams = _force_trainer("cuda")
+    eager, _, _ = _force_trainer("cuda", capture=False)
+    eng = acq.FusedEngine(forces, cparams, 0.5, device="cuda")
+    batches = [_configs(n, seed=60 + n) for n in (5, 16, 30)]
+    start = threading.Barrier(2)
+    out, errors = {}, []
+
+    def train():
+        try:
+            start.wait()
+            out["loss"] = tr.train(steps=6)["loss"]
+        except Exception as e:               # surfaced below
+            errors.append(e)
+
+    def score():
+        try:
+            start.wait()
+            out["uq"] = [eng.score(b, advance=False) for b in batches]
+        except Exception as e:               # surfaced below
+            errors.append(e)
+
+    threads = [threading.Thread(target=f) for f in (train, score)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    assert tr.captures == 1 and tr.graph_replays == 6
+    assert eng.trace_counts == {8: 1, 16: 1, 32: 1}
+    np.testing.assert_array_equal(out["loss"], eager.train(steps=6)["loss"])
+    for a, b in zip(_cpu_state(tr), _cpu_state(eager)):
+        assert torch.equal(a, b)
+    cpu = acq.FusedEngine(forces, cparams, 0.5, device="cpu")
+    for b, got in zip(batches, out["uq"]):
+        _assert_uq_equal(got, cpu.score(b, advance=False), "two threads")
+
+
+@pytest.mark.cuda
+def test_pal_resume_on_the_card_is_bit_for_bit(cuda_device):
+    """A card PAL's checkpoint (trainer mid-schedule, advanced budget
+    state) resumed by a new card PAL: the trainer's snapshot, the engine's
+    rule state and the iteration come back bit for bit, the engine scores
+    on the restored weights, and both trainers continue identically."""
+    import tempfile
+
+    tmp = tempfile.mkdtemp()
+    a = _card_pal(tmp, oracle_budget=0.3)
+    rows = _configs(96, seed=21)
+    ys = np.stack([_CardOracle(0, tmp).run_calc(x)[1] for x in rows])
+    a.committee_trainer.add_blocks(list(zip(rows, ys)))
+    a.committee_trainer.train(steps=9)
+    for n in (6, 13, 13):
+        a.engine.score(_configs(n, seed=n))
+    a.exchange.iteration = 23
+    a.checkpoint()
+    b = _card_pal(tmp, oracle_budget=0.3, resume=True)
+    assert b.exchange.iteration == 23
+    sa, sb = a.committee_trainer.state_dict(), b.committee_trainer.state_dict()
+    assert sa["steps_done"] == sb["steps_done"] == 9
+    for x, y in zip(_cpu_state(a.committee_trainer),
+                    _cpu_state(b.committee_trainer)):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+    for x, y in zip(a.engine.state_dict(), b.engine.state_dict()):
+        for k in x:
+            np.testing.assert_array_equal(x[k], y[k])
+    for k, v in a.committee_trainer.cparams.items():
+        assert torch.equal(b.engine.cparams[k].cpu(), v.cpu()), k
+    assert b.engine.refresh_host_bytes == 0
+    probe = _configs(16, seed=77)
+    a.engine.refresh_from_device(a.committee_trainer.snapshot_cparams())
+    _assert_uq_equal(b.engine.score(probe, advance=False),
+                     a.engine.score(probe, advance=False), "resumed")
+    la = a.committee_trainer.train(steps=3)["loss"]
+    lb = b.committee_trainer.train(steps=3)["loss"]
+    np.testing.assert_array_equal(la, lb)
+    assert a.committee_trainer.captures == b.committee_trainer.captures == 1
 
 
 FA_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
