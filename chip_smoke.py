@@ -58,6 +58,25 @@ Phases (each raises on a failed check; the script exits non-zero):
    round wall, release-to-yield latency, handoff ms, oracle ms per label
    and the device's busy share over the run (CUDA events around every
    graph replay);
+3d. the exploration fleet (``repro_torch.exploration.WalkerFleet``, each
+   step one replay of ``FusedEngine.score_after``'s captured graph) at
+   ``PotentialConfig()`` full width on weights warm-started as
+   ``examples/potential_md.py`` does: 16 and 64 walkers stepped alone (one
+   capture per fleet bucket, committee_uq launches == steps + 2 warm-up
+   launches, 0 bytes uploaded and 4 + the selected rows' bytes downloaded
+   per step; host ms per step, device ms per replay, kernels per step,
+   proposals/s) beside 64 host ``MDGenerator``s through ``Exchange.step``
+   on the same engine; captured == ``capture=False`` bit for bit at noise
+   0.01, the card == the CPU over 40 steps at noise 0, a ``nan_walker``
+   reset once, a snapshot replaying 10 steps bit for bit; then
+   ``PAL(fleet_walkers=16)`` configured as ``potential_md``'s ``run_al``
+   until ``fleet_max_steps`` (no crash, escalation or unjoined thread, one
+   capture per bucket, fleet and trainer, launches == fleet steps +
+   dispatches + warm-ups, the engine holding the trainer's weights bit for
+   bit; exchange it/s with the trainer busy and idle, labels/s, retrain
+   rounds, handoff ms, oracle ms per label, busy share by CUDA events) and
+   again under ``FaultPlan.acceptance(member=1, fleet=True)`` (7 events, 0
+   escalations);
 4. flash phase: ``flash_attention`` against its plain version on the same
    CUDA tensors over the reference's sweep, decode with ``kv_len`` (0, 1,
    on and either side of a split boundary), the sliding-window decode,
@@ -1240,6 +1259,391 @@ def phase_runtime(smi):
         "refresh_score_ms": warm_ms, "oracle_ms": 1e3 * oracle.mean,
         "oracle_alone_ms": lone_ms, "oracle_queued_ms": queued_ms,
         "busy_share": share, "mae": (mae0, mae1)}
+
+
+# ---------------------------------------------------------------------------
+# 3d. the exploration fleet: WalkerFleet through FusedEngine.score_after
+# ---------------------------------------------------------------------------
+
+FLEET_THRESHOLD = 0.3             # examples/potential_md.py's std_threshold
+FLEET_PATIENCE = 5                # ... and its patience
+FLEET_STEPS = 1000                # fleet_max_steps: the PAL runs' stop
+FLEET_TIMED = 200                 # fleet steps timed alone, per N
+FLEET_POS_ATOL = 5e-5             # card vs CPU walker positions
+SEED_N, WARM_STEPS = 48, 600      # potential_md's warm start
+
+
+def _seed_blocks():
+    """potential_md's foundational set at ``PotentialConfig()``: 48
+    near-equilibrium geometries labelled by the LJ oracle on the card."""
+    xs = train_profile.geometries(SEED_N, seed=7)
+    return list(zip(xs, train_profile.lj_labels(xs)))
+
+
+def _walkers(n):
+    """The trusted states of ``n`` walkers: each quickstart MD generator's
+    first proposal (a jittered lattice), as ``PAL`` derives them."""
+    from repro_torch.examples import quickstart
+
+    return np.stack([quickstart.MDGenerator(r, "", n_atoms=PCFG.n_atoms)
+                     .generate_new_data(None)[1] for r in range(n)])
+
+
+def _fleet(cparams, x0, noise, device="cuda", capture=True, chaos=None):
+    from repro_torch.exploration import FleetConfig, WalkerFleet
+
+    eng = acq.FusedEngine(member_forces, cparams, FLEET_THRESHOLD,
+                          device=device, capture=capture)
+    return WalkerFleet(eng, x0, FleetConfig(noise=noise,
+                                            patience=FLEET_PATIENCE),
+                       chaos=chaos)
+
+
+def _device_profile(fn, calls):
+    """Device operations of ``calls`` calls of ``fn`` by ``torch.profiler``
+    (one thread, nothing else on the card): (kernels, copies and device us
+    per call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = copies = busy = 0.0
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        busy += us
+        if ev.key.startswith(("Memcpy", "Memset")):
+            copies += ev.count
+        else:
+            kernels += ev.count
+    return kernels / calls, copies / calls, busy / calls
+
+
+def _graph_replay_ms(eng, graph, launches, iters=100):
+    """Device ms of one replay of an engine ``graph`` by CUDA events on the
+    engine's stream; the replays' launches are counted."""
+    with eng._enqueue_lock, torch.cuda.stream(eng._stream):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record(eng._stream)
+        for _ in range(iters):
+            graph.replay()
+        end.record(eng._stream)
+    cuq_kernel.count_replays(iters * launches)
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _fleet_alone(cparams, n, smi):
+    """N walkers stepped alone (no throttle): the gates on launches, bytes
+    and captures, then host ms per step, device ms per replay and the
+    device operations per step."""
+    fl = _fleet(cparams, _walkers(n), 0.01)
+    eng = fl.engine
+    key = (fl._cache_key, fl.nb)
+    launches0, up0, down0 = cuq_kernel.launches, eng.bytes_to_device, \
+        eng.bytes_to_host
+    sel_bytes = fl.step().selected.nbytes           # the capture
+    selected = 0
+    t0 = time.perf_counter()
+    for _ in range(FLEET_TIMED):
+        out = fl.step()
+        sel_bytes += out.selected.nbytes
+        selected += out.n_selected
+    host_ms = (time.perf_counter() - t0) * 1e3 / FLEET_TIMED
+    steps = FLEET_TIMED + 1
+    launches = cuq_kernel.launches - launches0
+    sb = eng._step_buckets[key]
+    if eng.step_trace_counts != {key: 1} or eng.trace_counts:
+        raise AssertionError(f"fleet N={n}: captures {eng.step_trace_counts}"
+                             f", score's {eng.trace_counts}")
+    if launches != steps + 2 or sb.launches != 1:
+        raise AssertionError(f"fleet N={n}: committee_uq launches {launches}"
+                             f" != {steps} steps + 2 warm-up launches")
+    if eng.bytes_to_device != up0:
+        raise AssertionError(f"fleet N={n}: {eng.bytes_to_device - up0} "
+                             f"bytes uploaded by the steps")
+    got = eng.bytes_to_host - down0
+    if got != 4 * steps + sel_bytes:
+        raise AssertionError(f"fleet N={n}: {got} bytes downloaded, want 4 "
+                             f"per step + the selected rows, "
+                             f"{4 * steps + sel_bytes}")
+    dev_ms = _graph_replay_ms(eng, sb.graph, sb.launches)
+    kernels, copies, busy_us = _device_profile(fl.step, 20)
+    print(f"fleet N={n} alone (PotentialConfig() K={PCFG.committee_size}, "
+          f"d={3 * PCFG.n_atoms}, threshold {FLEET_THRESHOLD}, no throttle):"
+          f" host {host_ms:.4f} ms per step = {1e3 / host_ms:.2f} steps/s = "
+          f"{n * 1e3 / host_ms:.2f} proposals/s; device {dev_ms:.4f} ms per "
+          f"replay (CUDA events); per step {kernels:.1f} kernels + "
+          f"{copies:.1f} copies, {busy_us:.2f} us device (torch.profiler); "
+          f"{selected} selected over {FLEET_TIMED} steps [{smi}]")
+    return fl, {"host_ms": host_ms, "device_ms": dev_ms, "kernels": kernels,
+                "copies": copies, "steps_per_s": 1e3 / host_ms,
+                "proposals_per_s": n * 1e3 / host_ms, "launches": launches}
+
+
+def _host_generators(eng, n, smi):
+    """The other exploration path on the same engine: ``n`` host
+    ``MDGenerator``s through ``Exchange.step`` (numpy MD steps, then one
+    ``score`` dispatch a round), timed as the fleet is."""
+    from repro_torch.core.controller import (
+        Exchange, ExchangeConfig, PredictionPool,
+    )
+    from repro_torch.examples import quickstart
+
+    gens = [quickstart.MDGenerator(r, "", n_atoms=PCFG.n_atoms)
+            for r in range(n)]
+    ex = Exchange(gens, PredictionPool([], None, engine=eng),
+                  OracleInputBuffer(),
+                  ExchangeConfig(std_threshold=FLEET_THRESHOLD,
+                                 patience=FLEET_PATIENCE, min_interval=0.0))
+    ex.step()                                       # the bucket's capture
+    t0 = time.perf_counter()
+    for _ in range(FLEET_TIMED):
+        ex.step()
+    host_ms = (time.perf_counter() - t0) * 1e3 / FLEET_TIMED
+    b = eng._buckets[cmte.shape_bucket(n)]
+    dev_ms = _graph_replay_ms(eng, b.graph, b.launches)
+    kernels, copies, busy_us = _device_profile(ex.step, 20)
+    print(f"host generators N={n} on the same engine (Exchange.step: {n} "
+          f"numpy MD steps + one score dispatch a round, no throttle): host "
+          f"{host_ms:.4f} ms per round = {1e3 / host_ms:.2f} rounds/s = "
+          f"{n * 1e3 / host_ms:.2f} proposals/s; device {dev_ms:.4f} ms per "
+          f"replay; per round {kernels:.1f} kernels + {copies:.1f} copies, "
+          f"{busy_us:.2f} us device [{smi}]")
+    return {"host_ms": host_ms, "device_ms": dev_ms, "kernels": kernels,
+            "copies": copies, "proposals_per_s": n * 1e3 / host_ms}
+
+
+def _fleet_parity(cparams, smi):
+    """Captured == eager on the card bit for bit at noise 0.01; the card
+    == the CPU at noise 0 over 40 steps; a poisoned walker reset once; a
+    snapshot replaying 10 steps bit for bit."""
+    from repro_torch.core.chaos import ChaosInjector, FaultEvent, FaultPlan
+
+    x0 = _walkers(16)
+    n = len(x0)
+    graph, eager = _fleet(cparams, x0, 0.01), \
+        _fleet(cparams, x0, 0.01, capture=False)
+    for i in range(20):
+        a, b = graph.step(), eager.step()
+        sa, sb = graph.state_dict(), eager.state_dict()
+        if a.n_selected != b.n_selected or not np.array_equal(
+                a.selected, b.selected) or any(
+                not np.array_equal(sa[k], sb[k]) for k in sa) or any(
+                not torch.equal(getattr(a, k), getattr(b, k))
+                for k in ("mask", "mean", "scalar_std", "component_std")):
+            raise AssertionError(f"fleet: captured != eager at step {i}")
+    cpu_params = cmte.tree_map(lambda t: t.cpu(), cparams)
+    g0, c0 = _fleet(cparams, x0, 0.0), _fleet(cpu_params, x0, 0.0, "cpu")
+    worst, flips = 0.0, 0
+    for i in range(40):
+        a, c = g0.step(), c0.step()
+        err = float(np.abs(g0.positions() - c0.positions()).max())
+        worst = max(worst, err)
+        if err > FLEET_POS_ATOL:
+            raise AssertionError(f"fleet card vs CPU: positions differ by "
+                                 f"{err:.3e} at step {i}")
+        std = c.scalar_std.numpy()[:n]
+        away = np.abs(std - np.float32(FLEET_THRESHOLD)) > \
+            1e-4 * FLEET_THRESHOLD
+        flips += int((~away).sum())
+        if not np.array_equal(a.mask.cpu().numpy()[:n][away],
+                              c.mask.numpy()[:n][away]):
+            raise AssertionError(f"fleet card vs CPU: masks differ at step "
+                                 f"{i}")
+    chaos = ChaosInjector(FaultPlan(events=(
+        FaultEvent("fleet.step", 3, "nan_walker", arg=3.0),)))
+    graph.chaos = chaos
+    r0 = graph.stats()["nan_resets"]
+    for _ in range(6):
+        graph.step()
+    if len(chaos.fired) != 1 or graph.stats()["nan_resets"] != r0 + 1 or \
+            not np.isfinite(graph.positions()).all():
+        raise AssertionError(f"fleet: nan_walker fired {chaos.fired}, "
+                             f"nan_resets {graph.stats()['nan_resets']}")
+    snap = graph.state_dict()
+    for _ in range(10):
+        graph.step()
+    want = graph.state_dict()
+    graph.load_state_dict(snap)
+    for _ in range(10):
+        graph.step()
+    got = graph.state_dict()
+    if any(not np.array_equal(got[k], want[k]) for k in want):
+        raise AssertionError("fleet: a restored snapshot did not replay "
+                             "10 steps bit for bit")
+    print(f"fleet parity N=16: captured == capture=False bit for bit over 20 "
+          f"steps at noise 0.01; card == CPU over 40 steps at noise 0 "
+          f"(positions worst |err| {worst:.3e}, masks equal, {flips} "
+          f"row-steps within 1e-4 of the threshold); nan_walker reset once; "
+          f"state_dict/load_state_dict replayed 10 steps bit for bit; one "
+          f"capture {list(graph.engine.step_trace_counts.values())} [{smi}]")
+    return worst
+
+
+def _fleet_pal(tmp, chaos=None):
+    """examples/potential_md.py's ``run_al`` at ``PotentialConfig()``: 16
+    walkers, 4 LJ oracles on the card, retrain blocks of 16, threshold 0.3,
+    patience 5, 400-step rounds of batch 64 at lr 1e-3, weights handed over
+    every round, the default 5 ms exchange throttle; stopped by
+    ``fleet_max_steps``; warm-started as the example does."""
+    from repro_torch.core import PAL
+    from repro_torch.examples import quickstart
+
+    cfg = PALRunConfig(
+        result_dir=tmp, gene_process=8, orcl_process=4, pred_process=4,
+        ml_process=4, retrain_size=16, std_threshold=FLEET_THRESHOLD,
+        patience=FLEET_PATIENCE, weight_sync_every=1, train_steps=400,
+        train_batch=64, train_lr=1e-3, fleet_walkers=16,
+        fleet_max_steps=FLEET_STEPS)
+    pal = PAL(cfg,
+              make_generator=lambda r, d: quickstart.MDGenerator(
+                  r, d, n_atoms=PCFG.n_atoms),
+              make_oracle=lambda r, d: quickstart.LJOracle(r, d,
+                                                           device="cuda"),
+              committee=acq.CommitteeSpec(member_forces,
+                                          train_profile.committee()),
+              loss_fn=train_profile.member_force_loss, chaos=chaos,
+              device="cuda")
+    tr = pal.committee_trainer
+    tr.add_blocks(_seed_blocks())
+    tr.train(steps=WARM_STEPS)
+    pal.engine.refresh_from_device(tr.snapshot_cparams())
+    return pal
+
+
+def phase_fleet(smi):
+    """The device-resident exploration fleet on the card: fleet steps
+    alone at N=16 and N=64 beside the host-generator path at N=64 on the
+    same engine, the parity gates, then ``PAL`` with the fleet as
+    ``potential_md`` runs it, and again under the acceptance fault plan
+    with the fleet's event."""
+    import tempfile
+
+    from repro_torch.core import FaultPlan
+
+    warm = train_profile.make_trainer(train_profile.committee())
+    warm.add_blocks(_seed_blocks())
+    warm.train(steps=WARM_STEPS)               # potential_md's warm start
+    cparams = warm.snapshot_cparams()
+    del warm
+    _, alone16 = _fleet_alone(cparams, 16, smi)
+    fl64, alone64 = _fleet_alone(cparams, 64, smi)
+    host64 = _host_generators(fl64.engine, 64, smi)
+    worst = _fleet_parity(cparams, smi)
+
+    with tempfile.TemporaryDirectory() as tmp1, \
+            tempfile.TemporaryDirectory() as tmp2:
+        pal = _fleet_pal(tmp1)
+        clock = _LoopClock(pal)
+        cuq_kernel.launches = 0                  # this path starts here
+        with _ReplaySpans() as spans:
+            rep, c, bad, t0, t1 = _run_until_stop(pal, "fleet run 1")
+        launches = cuq_kernel.launches
+        busy = spans.busy_share()
+        eng, tr, fl = pal.engine, pal.committee_trainer, pal.fleet
+        tok = pal.stop_token
+        if tok is None or tok.origin != "fleet":
+            raise AssertionError(f"fleet run 1 stopped by {tok}")
+        if any(bad.values()):
+            raise AssertionError(f"fleet run 1: {bad}")
+        if rep["fleet"]["steps"] != FLEET_STEPS or not (
+                rep["labeled_total"] > 0 and c.get("train.retrains", 0) >= 1):
+            raise AssertionError(f"fleet run 1: {rep['fleet']}, "
+                                 f"{rep['labeled_total']} labels, "
+                                 f"{c.get('train.retrains')} rounds")
+        if any(v != 1 for v in eng.trace_counts.values()) or list(
+                eng.step_trace_counts.values()) != [1]:
+            raise AssertionError(f"fleet run 1: captures {eng.trace_counts}"
+                                 f" {eng.step_trace_counts}")
+        if tr.captures != 1 or tr.graph_replays != tr.steps_done:
+            raise AssertionError(f"fleet run 1 trainer: {tr.captures} "
+                                 f"captures, {tr.graph_replays} replays for "
+                                 f"{tr.steps_done} steps")
+        warm = 2 * (len(eng.trace_counts) + len(eng.step_trace_counts))
+        if launches == 0 or launches != (eng.dispatches + eng.step_dispatches
+                                         + warm):
+            raise AssertionError(
+                f"fleet run 1: committee_uq launches {launches} != "
+                f"{eng.step_dispatches} fleet steps + {eng.dispatches} "
+                f"dispatches + {warm} warm-up launches")
+        for k, v in tr.snapshot_cparams().items():
+            if not torch.equal(eng.cparams[k], v):
+                raise AssertionError(f"fleet run 1: engine param {k} != the "
+                                     f"trainer's")
+        if eng.refresh_host_bytes != 0:
+            raise AssertionError("fleet run 1: a handoff moved host bytes")
+        wall = t1 - t0
+        it = c.get("exchange.iterations", 0)
+        rate_busy, rate_idle, s_busy, s_idle, _ = clock.split(t0, t1)
+        oracle = pal.monitor.timer("oracle.run_calc")
+        share, n_replays, window_ms = busy
+        handoff_ms = 1e3 * float(np.mean(clock.handoffs)) \
+            if clock.handoffs else float("nan")
+        print(f"fleet run 1 (potential_md's run_al, PotentialConfig(), 16 "
+              f"walkers, fleet_max_steps {FLEET_STEPS}, 5 ms throttle): "
+              f"{it} exchange rounds in {wall:.4f} s = {it / wall:.2f} it/s "
+              f"(trainer busy {rate_busy:.2f} it/s over {s_busy:.3f} s, idle "
+              f"{rate_idle:.2f} it/s over {s_idle:.3f} s); "
+              f"{rep['labeled_total']} labels = "
+              f"{rep['labeled_total'] / wall:.2f} labels/s; "
+              f"{c['train.retrains']} retrain rounds; handoff mean "
+              f"{handoff_ms:.4f} ms over {len(clock.handoffs)}; oracle "
+              f"{1e3 * oracle.mean:.4f} ms per label over {oracle.count}; "
+              f"fleet {rep['fleet']} [{smi}]")
+        print(f"fleet run 1 device busy share (union of the fleet's, the "
+              f"engine's and the trainer's graph replays by CUDA events) "
+              f"over {window_ms:.1f} ms: "
+              + (f"{100 * share:.2f} % ({n_replays} replays)"
+                 if share is not None else "not measured (no replay)")
+              + f"; checks: fleet stop, 0 crashes/escalations/unjoined, one "
+              f"capture per bucket {eng.trace_counts} and fleet "
+              f"{list(eng.step_trace_counts.values())} and trainer, "
+              f"committee_uq launches {launches} == {eng.step_dispatches} "
+              f"fleet steps + {eng.dispatches} dispatches + {warm} warm-up, "
+              f"engine params == trainer's bit for bit [{smi}]")
+        del pal
+
+        pal2 = _fleet_pal(tmp2, chaos=FaultPlan.acceptance(member=1,
+                                                           fleet=True))
+        t2 = time.perf_counter()
+        rep2, c2, bad2, _, _ = _run_until_stop(pal2, "fleet run 2")
+        fired = rep2["chaos_fired"]
+        if (c2.get("supervisor.escalations", 0) != 0 or len(fired) != 7
+                or rep2["fleet"]["nan_resets"] < 1
+                or any(v != 1 for v in pal2.engine.trace_counts.values())
+                or list(pal2.engine.step_trace_counts.values()) != [1]
+                or bad2["runtime.unjoined_threads"]
+                or pal2.stop_token.origin != "fleet"):
+            raise AssertionError(
+                f"fleet run 2: escalations "
+                f"{c2.get('supervisor.escalations', 0)}, fired {fired}, "
+                f"fleet {rep2['fleet']}, captures {pal2.engine.trace_counts} "
+                f"{pal2.engine.step_trace_counts}, {bad2}, stop "
+                f"{pal2.stop_token}")
+        print(f"fleet run 2 under FaultPlan.acceptance(member=1, fleet=True):"
+              f" stopped by {pal2.stop_token.origin} in "
+              f"{time.perf_counter() - t2:.2f} s; 7 events fired {fired}; "
+              f"{rep2['thread_restarts']} restarts, 0 escalations; fleet "
+              f"{rep2['fleet']}; {rep2['labeled_total']} labels [{smi}]")
+        del pal2
+    return launches, {
+        "alone16": alone16, "alone64": alone64, "host64": host64,
+        "card_vs_cpu_err": worst, "iterations_per_s": it / wall,
+        "iterations_per_s_busy": rate_busy,
+        "iterations_per_s_idle": rate_idle,
+        "labels_per_s": rep["labeled_total"] / wall,
+        "retrains": c["train.retrains"], "handoff_ms": handoff_ms,
+        "oracle_ms": 1e3 * oracle.mean, "busy_share": share}
 
 
 # ---------------------------------------------------------------------------
@@ -2441,6 +2845,7 @@ def main() -> int:
                                      smi)
     rt_launches, rt_dispatches, rt = _timed("PAL runtime", phase_runtime,
                                             smi)
+    fleet_launches, fleet = _timed("exploration fleet", phase_fleet, smi)
     fa_worst, fa_t = _timed("flash_attention", phase_flash, smi)
     fa_launches, fa_paths = _timed("llama serving", phase_lm, smi)
     _timed("llama card vs CPU", phase_card_vs_cpu, LM_ARCH,
@@ -2492,7 +2897,18 @@ def main() -> int:
         "runtime_dispatches": rt_dispatches,
         "runtime_iterations_per_s": rt["iterations_per_s"],
         "runtime_labels_per_s": rt["labels_per_s"],
-        "runtime_busy_share": rt["busy_share"]}, {
+        "runtime_busy_share": rt["busy_share"],
+        "fleet_launches": fleet_launches,
+        "fleet_step_ms": fleet["alone16"]["host_ms"],
+        "fleet_device_ms": fleet["alone16"]["device_ms"],
+        "fleet_proposals_per_s": fleet["alone16"]["proposals_per_s"],
+        "fleet64_step_ms": fleet["alone64"]["host_ms"],
+        "fleet64_proposals_per_s": fleet["alone64"]["proposals_per_s"],
+        "host64_round_ms": fleet["host64"]["host_ms"],
+        "host64_proposals_per_s": fleet["host64"]["proposals_per_s"],
+        "fleet_runtime_iterations_per_s": fleet["iterations_per_s"],
+        "fleet_runtime_labels_per_s": fleet["labels_per_s"],
+        "fleet_runtime_busy_share": fleet["busy_share"]}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:108",

@@ -24,11 +24,15 @@ and the serving path to the oracle buffer.
   * ``LegacyEngine`` — the per-member backend for arbitrary ``UserModel``
     kernels: K ``predict`` calls, float64 host statistics, then the SAME
     rule objects run eagerly on CPU tensors.
+  * ``FusedEngine.score_after`` — the exploration fleet's entry: a caller's
+    walker advance, the same scoring program and a react step folded back
+    into the caller's device-resident carry, one program per (cache key,
+    bucket) — on the card one captured CUDA graph, replayed.  The host gets
+    the selected rows and one int32 count (``FusedStepOut``).
   * ``make_engine`` — config-driven factory (``PALRunConfig`` knobs).
 
-Not ported yet (each raises ``NotImplementedError`` naming the ROADMAP item
-that brings it): ``score_after`` (the exploration fleet) and the mesh path
-(multi-device).
+Not ported yet: the mesh path raises ``NotImplementedError`` naming its
+ROADMAP item (multi-device).
 """
 from __future__ import annotations
 
@@ -94,6 +98,30 @@ class UQResult:
     component_std: np.ndarray   # (n,)
     mask: np.ndarray            # (n,) bool
     finite_members: Optional[np.ndarray] = None   # (n,) int32
+
+
+@dataclasses.dataclass
+class FusedStepOut:
+    """Host-side outcome of one ``FusedEngine.score_after`` round — the
+    fused walker-advance + scoring program of the exploration fleet
+    (``exploration/fleet.py``).
+
+    Unlike ``UQResult``, the per-row statistics stay on the engine's device
+    (``mask``/``scalar_std``/... are tensors over the padded bucket, a copy
+    of the round's outputs): the exchange loop never needs them on the
+    host.  The only host fields are ``n_selected`` (one int32 read back)
+    and ``selected`` — the selected rows, packed to the front of the bucket
+    on the device, of which exactly ``n_selected`` rows are copied back, so
+    unselected walkers cost zero host bytes.
+    """
+
+    n_selected: int             # rows selected this round (host int)
+    selected: np.ndarray        # (n_selected, d) host — the oracle candidates
+    mask: Any                   # (nb,) bool, device
+    mean: Any                   # (nb, d), device
+    scalar_std: Any             # (nb,), device
+    component_std: Any          # (nb,), device
+    finite_members: Any         # (nb,) int32, device
 
 
 @dataclasses.dataclass
@@ -380,6 +408,39 @@ class _Bucket:
                                         pin_memory=True)
 
 
+class _StepBucket:
+    """One ``score_after`` program's static buffers, per (cache key,
+    bucket).  ``scalars`` holds ``n_valid`` and ``stream`` (int32) on the
+    device, uploaded only when they change; ``packed`` is the scoring
+    output, ``sel_x`` the proposal rows with the selected ones packed to
+    the front, ``n_sel`` their count; ``host_n``/``host_sel`` are pinned
+    twins on the card (the same tensors on the CPU).  ``carry`` is the
+    carried tree the program reads and writes in place (a captured graph
+    keeps its addresses), ``graph`` the captured program on the card."""
+
+    def __init__(self, nb: int, device: torch.device):
+        self.nb = nb
+        self.lock = threading.Lock()
+        self.scalars = torch.zeros(2, dtype=torch.int32, device=device)
+        self.n_valid, self.stream = self.scalars[0], self.scalars[1]
+        self.uploaded: Optional[Tuple[int, int]] = None
+        self.n_sel = torch.zeros(1, dtype=torch.int32, device=device)
+        cuda = device.type == "cuda"
+        self.host_n = torch.zeros(1, dtype=torch.int32, pin_memory=True) \
+            if cuda else self.n_sel
+        self.ranks = torch.arange(1, nb + 1, dtype=torch.int64,
+                                  device=device)
+        self.packed: Optional[torch.Tensor] = None
+        self.sel_x: Optional[torch.Tensor] = None
+        self.host_sel: Optional[torch.Tensor] = None
+        self.carry: Optional[Tuple[torch.Tensor, ...]] = None
+        self.d: Optional[int] = None
+        self.graph = None
+        self.new_state: Tuple[Any, ...] = ()
+        self.launches = 0
+        self.event = torch.cuda.Event() if cuda else None
+
+
 _MESH = ("the mesh-parallel engine comes with the multi-device slice "
          "(ROADMAP §A: multi-device)")
 
@@ -417,6 +478,12 @@ class FusedEngine(UQEngine):
     new values.  An advancing round copies the program's new rule state
     into the carried state; ``advance=False`` leaves it untouched.
 
+    ``score_after`` (the exploration fleet) runs a caller's step function
+    and the same scoring body as one program per (cache key, bucket), with
+    its own table: ``step_trace_counts`` (captures per key on the card,
+    program builds on the CPU; <= 1) and ``step_dispatches``, apart from
+    ``score``'s ``trace_counts`` and ``dispatches``.
+
     ``apply_fn(params, x)`` maps a single member's params over a batch
     ``x: (n, in_dim) -> (n, out_dim)``; ``cparams`` is the stacked committee
     (leading K axis), copied to ``device`` (default: the CUDA device; raises
@@ -449,6 +516,9 @@ class FusedEngine(UQEngine):
         self.version = -1                      # last WeightStore version seen
         self._buckets: Dict[int, _Bucket] = {}
         self.trace_counts: Dict[int, int] = {}
+        self._step_buckets: Dict[Tuple[str, int], _StepBucket] = {}
+        self.step_trace_counts: Dict[Tuple[str, int], int] = {}
+        self.step_dispatches = 0
         # the exchange loop, the Manager and the serving queue may score
         # through the SAME engine: bucket builds, the order of work on the
         # engine's stream and the counters need locks
@@ -491,18 +561,29 @@ class FusedEngine(UQEngine):
         Returns ``(packed, new_state)``: the packed outputs (written into
         ``out`` when given) and the rules' new state.  Reads nothing on the
         host, so the card captures it as it stands."""
+        packed, new_state, _, _ = self._score_body(
+            cparams, x, n_valid, stream, rstate, out, want_stats=False)
+        return packed, new_state
+
+    def _score_body(self, cparams, x, n_valid, stream, rstate, out, *,
+                    want_stats: bool):
+        """``program``'s body; also returns the ``UQStats`` the rules saw
+        (built on the kernel-mask path too when ``want_stats``) and the final
+        mask, a view into the packed outputs."""
         preds = self.apply(cparams, x).contiguous()
         packed = ops.committee_uq_packed(preds, self.threshold, n_valid,
                                          out=out)
-        if self._kernel_mask_final:
-            return packed, ()
         nb, d = preds.shape[1], preds.shape[2]
         mean, sstd, cstd, finite, out_mask = ref.packed_uq_views(
             packed, nb, d)
+        if self._kernel_mask_final and not want_stats:
+            return packed, (), None, out_mask
         valid = torch.arange(nb, device=x.device) < n_valid
         stats = UQStats(x=x, mean=mean, scalar_std=sstd, component_std=cstd,
                         valid=valid, n_valid=n_valid, stream=stream,
                         finite_members=finite)
+        if self._kernel_mask_final:
+            return packed, (), stats, out_mask
         mask = valid
         new_state, si = [], 0
         for rule in self.rules:
@@ -516,7 +597,7 @@ class FusedEngine(UQEngine):
         # quarantine floor: a row no finite member scored carries no
         # information — never selectable, whatever the rules say
         out_mask.copy_(mask & (finite > 0))
-        return packed, tuple(new_state)
+        return packed, tuple(new_state), stats, out_mask
 
     def _bucket(self, nb: int, in_dim: int) -> _Bucket:
         b = self._buckets.get(nb)
@@ -646,23 +727,226 @@ class FusedEngine(UQEngine):
                     self.quarantine_rounds += 1
         return UQResult(mean[:n], sstd[:n], cstd[:n], mask[:n], finite_n)
 
-    def score_after(self, *args, **kwargs):
-        raise NotImplementedError(
-            "score_after (fused walker advance + scoring) comes with the "
-            "exploration-fleet slice (ROADMAP §A: the exploration fleet)")
+    # ------------------------------------------------- fused step + score
+    def place_carry(self, carry: Any, nb: int) -> Any:
+        """A copy of the carried tree ``carry`` on the engine's device — the
+        buffers a ``score_after`` caller then owns and passes every round.
+        ``nb`` (the rows' bucket) places rows on a mesh, which comes with
+        the multi-device slice; without one every leaf is copied whole."""
+        return self.carry_call(lambda: tree_map(
+            lambda t: torch.as_tensor(t).to(self.device, copy=True), carry))
+
+    def carry_call(self, fn: Callable[[], Any]) -> Any:
+        """Run ``fn`` (writes into, or reads of, a carry's buffers) ordered
+        against every dispatch: under the enqueue lock, on the engine's
+        stream after the caller's stream, which then waits for it.  Outside
+        inference mode, whatever the caller's: the programs write the
+        carry in place."""
+        with self._enqueue_lock, torch.inference_mode(False):
+            return self._on_stream(fn)
+
+    def step_program(self, step_fn, react_fn, carry, n_valid, stream, rstate,
+                     sb: _StepBucket):
+        """The ``score_after`` program: ``step_fn(carry) -> (x, mid)``, the
+        scoring body on ``x``, ``react_fn(mid, stats, mask)`` (or ``mid``)
+        written back into ``carry``'s buffers, and the selected rows packed
+        to the front of ``sb.sel_x`` in stable order (a cumsum compaction:
+        output slot j takes the row where the running count of selected
+        rows first reaches j + 1), their count into ``sb.n_sel``.  Reads
+        nothing on the host.  Returns the rules' new state."""
+        x, mid = step_fn(carry)
+        packed, new_state, stats, mask = self._score_body(
+            self._cparams, x, n_valid, stream, rstate, sb.packed,
+            want_stats=True)
+        if sb.packed is None:
+            sb.packed = packed
+            sb.d = stats.mean.shape[1]
+            sb.sel_x = torch.empty_like(x)
+            if x.device.type == "cuda":
+                sb.host_sel = torch.empty(tuple(x.shape), dtype=x.dtype,
+                                          pin_memory=True)
+        new_carry = react_fn(mid, stats, mask) if react_fn is not None \
+            else mid
+        csum = torch.cumsum(mask.to(torch.int64), 0)
+        rows = torch.searchsorted(csum, sb.ranks).clamp_(max=sb.nb - 1)
+        torch.index_select(x, 0, rows, out=sb.sel_x)
+        sb.n_sel.copy_(csum[-1:])
+        if tree_paths(new_carry) != tree_paths(carry):
+            raise ValueError(
+                f"score_after: the new carry's keys {tree_paths(new_carry)} "
+                f"are not the carry's {tree_paths(carry)}")
+        dst, src = tree_leaves(carry), tree_leaves(new_carry)
+        pairs = [(a, b) for a, b in zip(dst, src) if a is not b]
+        if pairs:
+            torch._foreach_copy_([a for a, _ in pairs], [b for _, b in pairs])
+        return new_state
+
+    def _step_bucket(self, key: Tuple[str, int], carry: Any) -> _StepBucket:
+        sb = self._step_buckets.get(key)
+        if sb is None:
+            with self._compile_lock:
+                sb = self._step_buckets.get(key)
+                if sb is None:
+                    sb = _StepBucket(key[1], self.device)
+                    sb.carry = tuple(tree_leaves(carry))
+                    if not self.capture:
+                        self.step_trace_counts[key] = \
+                            self.step_trace_counts.get(key, 0) + 1
+                    self._step_buckets[key] = sb
+        leaves = tree_leaves(carry)
+        if len(leaves) != len(sb.carry) or any(
+                a is not b for a, b in zip(leaves, sb.carry)):
+            raise ValueError(
+                f"score_after {key}: the carry must keep the buffers of its "
+                "first round (write new values into them, never rebind): "
+                "the program reads and writes them in place")
+        return sb
+
+    def bind_step(self, cache_key: str, carry: Any, n: int, nb: int,
+                  stream: int = STREAM_EXCHANGE) -> None:
+        """Register ``carry`` as the (cache_key, nb) program's buffers and
+        upload its ``n`` and ``stream`` now, so that no round of a caller
+        that keeps them uploads anything."""
+        sb = self._step_bucket((cache_key, nb), carry)
+        with sb.lock:
+            self.carry_call(lambda: self._upload_step(sb, int(n),
+                                                      int(stream)))
+
+    def _upload_step(self, sb: _StepBucket, n: int, stream: int) -> None:
+        # caller holds sb.lock and the enqueue lock, on the engine's stream
+        if sb.uploaded != (n, stream):
+            sb.scalars.copy_(torch.tensor([n, stream], dtype=torch.int32))
+            sb.uploaded = (n, stream)
+            with self._counter_lock:
+                self.bytes_to_device += 8
+
+    def _capture_step(self, sb: _StepBucket, step_fn, react_fn, carry,
+                      key) -> None:
+        """``_capture`` for a ``score_after`` program.  Its warm-up runs
+        advance the carry in place, so the carry is saved before them and
+        restored after (capture itself runs nothing)."""
+        with platform.capture_lock:
+            saved = [t.clone() for t in sb.carry]
+            for _ in range(2):
+                self.step_program(step_fn, react_fn, carry, sb.n_valid,
+                                  sb.stream, self.rule_state, sb)
+            torch._foreach_copy_(list(sb.carry), saved)
+            graph = torch.cuda.CUDAGraph()
+            before = cuq_kernel.captured
+            with torch.cuda.graph(graph, stream=self._stream,
+                                  capture_error_mode="thread_local"):
+                new_state = self.step_program(
+                    step_fn, react_fn, carry, sb.n_valid, sb.stream,
+                    self.rule_state, sb)
+            sb.launches = cuq_kernel.captured - before
+            sb.graph, sb.new_state = graph, new_state
+            with self._counter_lock:
+                self.step_trace_counts[key] = \
+                    self.step_trace_counts.get(key, 0) + 1
+
+    def score_after(self, step_fn: Callable, carry: Any, n: int, nb: int,
+                    *, react_fn: Optional[Callable] = None,
+                    cache_key: str = "step", advance: bool = True,
+                    stream: int = STREAM_EXCHANGE
+                    ) -> Tuple[Any, FusedStepOut]:
+        """Fuse a caller-supplied advance step with committee scoring:
+        ``step_fn(carry) -> (x, mid)`` produces the (nb, in_dim) proposal
+        batch inside the program, then the committee forward, the
+        ``committee_uq`` statistics and the selection-rule pipeline run as
+        in :meth:`score`, and ``react_fn(mid, stats, mask) -> new_carry``
+        (e.g. the fleet's patience/restart update) folds the round's
+        outcome back — written into ``carry``'s own buffers, which the
+        program reads and writes in place.  One program per (cache_key,
+        bucket): on the card a CUDA graph captured at first use (after a
+        warm-up whose effect on the carry is undone) and replayed.
+
+        ``carry`` is a tree of tensors on the engine's device that the
+        caller owns (``place_carry``) and passes unchanged every round;
+        ``n`` is the true row count and ``nb`` the padded bucket.  ``n``
+        and ``stream`` are uploaded when they change (8 bytes), so the
+        steady state uploads nothing; per call the host reads back the
+        int32 selected count and then exactly the selected rows.
+
+        Stateful-rule state is shared with :meth:`score` under the same
+        ``_state_guard``, so a budget controller meters fleet and served
+        traffic jointly; ``advance=False`` leaves it untouched.  Returns
+        ``(carry, FusedStepOut)``: the same carry, updated."""
+        key = (cache_key, nb)
+        with torch.inference_mode(False):
+            sb = self._step_bucket(key, carry)
+            with self._state_guard(advance), sb.lock:
+                n_sel, packed = self._step_dispatch(
+                    sb, key, step_fn, react_fn, carry, int(n), int(stream),
+                    advance)
+                selected = self._selected_rows(sb, n_sel)
+        mean, sstd, cstd, finite, mask = ref.packed_uq_views(
+            packed, nb, sb.d)
+        with self._counter_lock:
+            self.step_dispatches += 1
+            self.bytes_to_host += 4 + selected.nbytes
+        return carry, FusedStepOut(
+            n_selected=n_sel, selected=selected, mask=mask, mean=mean,
+            scalar_std=sstd, component_std=cstd, finite_members=finite)
+
+    def _step_dispatch(self, sb: _StepBucket, key, step_fn, react_fn, carry,
+                       n: int, stream: int, advance: bool):
+        """Run the step program once; returns the selected count (read back
+        into pinned memory, one event wait) and a copy of the packed
+        outputs on the device.  Caller holds ``sb.lock``."""
+        with self._enqueue_lock, contextlib.ExitStack() as stack:
+            if self._stream is not None:
+                stack.enter_context(torch.cuda.stream(self._stream))
+            self._upload_step(sb, n, stream)
+            if self.capture:
+                if sb.graph is None:
+                    self._capture_step(sb, step_fn, react_fn, carry, key)
+                sb.graph.replay()
+                cuq_kernel.count_replays(sb.launches)
+                new_state = sb.new_state
+            else:
+                new_state = self.step_program(
+                    step_fn, react_fn, carry, sb.n_valid, sb.stream,
+                    self.rule_state, sb)
+            if advance:
+                _copy_leaves(self.rule_state, new_state)
+            packed = sb.packed.clone()
+            if self._stream is None:
+                return int(sb.n_sel[0]), packed
+            sb.host_n.copy_(sb.n_sel, non_blocking=True)
+            sb.event.record(self._stream)
+        sb.event.synchronize()
+        return int(sb.host_n[0]), packed
+
+    def _selected_rows(self, sb: _StepBucket, n_sel: int) -> np.ndarray:
+        """Exactly the first ``n_sel`` rows of ``sb.sel_x``, on the host."""
+        if n_sel == 0:
+            return np.zeros((0,) + tuple(sb.sel_x.shape[1:]), np.float32)
+        if self._stream is None:
+            return sb.sel_x[:n_sel].numpy().copy()
+        with self._enqueue_lock, torch.cuda.stream(self._stream):
+            sb.host_sel[:n_sel].copy_(sb.sel_x[:n_sel], non_blocking=True)
+            sb.event.record(self._stream)
+        sb.event.synchronize()
+        return sb.host_sel[:n_sel].numpy().copy()
 
     # -------------------------------------------------------------- weights
-    def _copy_into(self, dst: Any, src: Any) -> None:
-        """Copy ``src``'s leaves into the engine's buffers ``dst``, ordered
-        on the card against every dispatch: on the engine's stream, after
-        the caller's stream, which then waits for the copies."""
+    def _on_stream(self, fn: Callable[[], Any]) -> Any:
+        """``fn()`` ordered on the card against every dispatch: on the
+        engine's stream, after the caller's stream, which then waits for
+        it."""
         if self._stream is None:
-            return super()._copy_into(dst, src)
+            return fn()
         cur = torch.cuda.current_stream(self.device)
         self._stream.wait_stream(cur)
         with torch.cuda.stream(self._stream):
-            super()._copy_into(dst, src)
+            out = fn()
         cur.wait_stream(self._stream)
+        return out
+
+    def _copy_into(self, dst: Any, src: Any) -> None:
+        """Copy ``src``'s leaves into the engine's buffers ``dst``, ordered
+        against every dispatch (``_on_stream``)."""
+        self._on_stream(lambda: _copy_leaves(dst, src))
 
     def _load_params(self, cparams) -> None:
         cur = self._cparams

@@ -40,9 +40,13 @@ timeout->requeue, elastic pool resize, supervised loops with chaos
 injection, and monitoring (see core/fault.py, core/supervisor.py,
 core/chaos.py, core/al_checkpoint.py, core/monitor.py).
 
-Not ported yet: the device-resident exploration fleet (``fleet_walkers >
-0``) and the mesh path (``mesh=`` / ``sharding_rules=``) raise
-``NotImplementedError`` naming their ROADMAP items.
+``fleet_walkers > 0`` replaces the host generators with ONE
+device-resident ``exploration.WalkerFleet`` on the engine's device: each
+exchange round is one ``FusedEngine.score_after`` program (on the card one
+captured CUDA graph replay) that advances, scores and selects every walker.
+
+Not ported yet: the mesh path (``mesh=`` / ``sharding_rules=``) raises
+``NotImplementedError`` naming its ROADMAP item (multi-device).
 """
 from __future__ import annotations
 
@@ -98,13 +102,9 @@ class PAL:
         sharding_rules=None,
         resume: bool = False,
         chaos: Optional[Union[FaultPlan, ChaosInjector]] = None,
+        fleet_init: Optional[np.ndarray] = None,
         device: DeviceLike = None,
     ):
-        if getattr(run_cfg, "fleet_walkers", 0) > 0:
-            raise NotImplementedError(
-                "fleet_walkers > 0: the device-resident exploration fleet "
-                "(WalkerFleet, FusedEngine.score_after) is not ported yet "
-                "(ROADMAP §A: the exploration fleet)")
         if mesh is not None or sharding_rules is not None:
             raise NotImplementedError(
                 "mesh= / sharding_rules=: the mesh-parallel engine and "
@@ -133,8 +133,13 @@ class PAL:
         fused_training = loss_fn is not None
 
         # --- kernel instances (paper: one object per MPI process) ----------
-        self.generators = [make_generator(i, rd)
-                           for i in range(run_cfg.gene_process)]
+        # fleet_walkers > 0: the gene_process host generators are replaced
+        # by ONE device-resident WalkerFleet (built below, after the
+        # engine) — host generator instances are only touched to derive
+        # the fleet's trusted initial states when no fleet_init= is given
+        use_fleet = getattr(run_cfg, "fleet_walkers", 0) > 0
+        self.generators = [] if use_fleet else \
+            [make_generator(i, rd) for i in range(run_cfg.gene_process)]
         # per-member prediction models exist only for the legacy backend
         # without a predict_all_override; fused engines score the stacked
         # committee directly (and an override supplies raw predictions
@@ -208,6 +213,42 @@ class PAL:
                 monitor=self.monitor,
                 memory_policy=policy,
                 device=self.device)
+        # --- device-resident exploration fleet (exploration/fleet.py) ------
+        # one stacked walker state on the engine's device, advanced +
+        # scored + selected in a single fused program per exchange
+        # iteration; trusted initial states come from fleet_init= or the
+        # first proposal of each make_generator(rank)
+        self.fleet = None
+        if use_fleet:
+            from repro_torch.exploration.fleet import FleetConfig, WalkerFleet
+
+            if not hasattr(self.engine, "score_after"):
+                raise ValueError(
+                    "fleet_walkers > 0 needs a fused acquisition engine — "
+                    "pass committee=CommitteeSpec(apply_fn, cparams) (the "
+                    "legacy per-member backend cannot fuse the walker "
+                    "advance with scoring)")
+            if fleet_init is not None:
+                x0 = np.asarray(fleet_init, np.float32)
+            else:
+                x0 = np.stack([
+                    np.asarray(make_generator(i, rd).generate_new_data(
+                        None)[1], np.float32).reshape(-1)
+                    for i in range(run_cfg.fleet_walkers)])
+            self.fleet = WalkerFleet(
+                self.engine, x0,
+                FleetConfig(
+                    dt=run_cfg.fleet_dt,
+                    clip=run_cfg.fleet_clip,
+                    noise=run_cfg.fleet_noise,
+                    friction=run_cfg.fleet_friction,
+                    sampler=run_cfg.fleet_sampler,
+                    patience=(run_cfg.fleet_patience
+                              or run_cfg.patience),
+                    max_steps=run_cfg.fleet_max_steps,
+                    seed=run_cfg.seed,
+                ),
+                monitor=self.monitor, chaos=self.chaos)
         self.exchange = Exchange(
             self.generators, self.prediction_pool, self.oracle_buffer,
             ExchangeConfig(
@@ -218,6 +259,7 @@ class PAL:
                 min_interval=run_cfg.exchange_min_interval,
             ),
             self.monitor,
+            fleet=self.fleet,
         )
 
         def fresh_score(items):
@@ -677,6 +719,11 @@ class PAL:
             # step counter + replay ring, as host numpy: a resumed run
             # continues mid-schedule instead of resetting its optimizer
             state["train_state"] = self.committee_trainer.state_dict()
+        if self.fleet is not None:
+            # full walker carry incl. the per-walker noise counters and the
+            # step counter: a restored fleet replays the exact trajectory
+            # (bit-identical resume, tested)
+            state["fleet"] = self.fleet.state_dict()
         self._last_ckpt_iter = self.exchange.iteration
         return self.checkpointer.save(self.exchange.iteration, state)
 
@@ -693,6 +740,8 @@ class PAL:
             self.exchange.patience.load_state_dict(state["patience"])
         if state.get("engine_state"):
             self.engine.load_state_dict(state["engine_state"])
+        if state.get("fleet") is not None and self.fleet is not None:
+            self.fleet.load_state_dict(state["fleet"])
         if (state.get("train_state") is not None
                 and self.committee_trainer is not None):
             self.committee_trainer.load_state_dict(
@@ -717,6 +766,9 @@ class PAL:
         if self.committee_trainer is not None:
             r["train_fused_steps"] = self.committee_trainer.steps_done
             r["train_replay_rows"] = len(self.committee_trainer.replay)
+        if self.fleet is not None:
+            # fleet health: one device->host snapshot, off the hot path
+            r["fleet"] = self.fleet.stats()
         # realized oracle rate: queued / scored over the whole run, the
         # quantity the budget controller steers toward oracle_budget.
         # Serving traffic counts too — with serve_uq the server shares the

@@ -22,9 +22,11 @@ validation.
   PYTHONPATH=src python -m repro_torch.examples.potential_md \\
       --oracle-budget 0.2 --device cpu
 
-The generators are the quickstart's host ``MDGenerator``s (the
-reference's default, a device-resident exploration fleet, is not ported
-yet).  ``--device`` defaults to the CUDA card.
+Exploration runs on a device-resident fleet of ``--fleet-walkers`` (16)
+MD walkers (``exploration.WalkerFleet``): each exchange round advances,
+scores and selects every walker in one fused program, on the card one
+captured CUDA graph replay.  ``--fleet-walkers 0`` runs the quickstart's
+host ``MDGenerator``s instead.  ``--device`` defaults to the CUDA card.
 """
 from __future__ import annotations
 
@@ -97,13 +99,21 @@ WARM_STEPS = 600        # pre-training budget on the foundational set
 FINAL_STEPS = 1600      # consolidation budget after the run freezes
 
 
-def run_al(budget: int, device, seed: int = 0, oracle_budget: float = 0.0):
+def run_al(budget: int, device, seed: int = 0, oracle_budget: float = 0.0,
+           fleet_walkers: int = 16):
     cfg = PALRunConfig(
         result_dir=tempfile.mkdtemp(prefix="pal_md_"),
         gene_process=8, orcl_process=4, pred_process=4, ml_process=4,
         retrain_size=16, std_threshold=0.3, patience=5,
         weight_sync_every=1,
         train_steps=400, train_batch=64, train_lr=1e-3,
+        # device-resident exploration fleet (exploration/fleet.py): N
+        # stacked MD walkers advanced + scored + selected in ONE fused
+        # program per exchange iteration, with the Euler sampler matching
+        # the MDGenerator update (dt=0.002, clip=20, noise=0.01) — trusted
+        # restart states come from the MDGenerator lattice initializations.
+        # fleet_walkers=0 falls back to the gene_process host generators.
+        fleet_walkers=fleet_walkers,
         # >0: cross-round PI control of the effective threshold toward
         # oracle_budget selected-per-round (fixed labeling cost; the
         # static threshold above only seeds the controller)
@@ -171,6 +181,9 @@ def main(argv=None):
                     help=">0: per-round selected fraction held by the "
                          "cross-round budget controller (fixed-rate "
                          "exploration instead of a static threshold)")
+    ap.add_argument("--fleet-walkers", type=int, default=16,
+                    help="device-resident exploration-fleet size; 0 runs "
+                         "the host-generator path")
     ap.add_argument("--device", default=None,
                     help="'cpu' for the plain PyTorch path; default: the "
                          "CUDA card")
@@ -183,10 +196,16 @@ def main(argv=None):
              if args.oracle_budget > 0 else ""))
 
     cparams_al, labeled, rep = run_al(args.budget, dev,
-                                      oracle_budget=args.oracle_budget)
+                                      oracle_budget=args.oracle_budget,
+                                      fleet_walkers=args.fleet_walkers)
     mae_al = force_mae(cparams_al, coords_test, forces_test)
     print(f"[PAL active learning] labeled={labeled} "
           f"force MAE={mae_al:.4f}")
+    if "fleet" in rep:
+        fl = rep["fleet"]
+        print(f"[exploration fleet ] {fl['walkers']} walkers, "
+              f"{fl['steps']} fused steps, {fl['restarts']} restarts, "
+              f"{fl['nan_resets']} nan resets")
     if args.oracle_budget > 0:
         ctrl = rep.get("budget_controller", {})
         print(f"[budget controller ] realized rate="

@@ -296,8 +296,26 @@ def test_refresh_from_device_and_deferred_features():
     with pytest.raises(ValueError, match="committee size"):
         eng.refresh_from_device(tcmte.params_from_numpy({"w": ws[:2]},
                                                         "cpu"))
-    with pytest.raises(NotImplementedError, match="exploration fleet"):
-        eng.score_after(None, None, 1, 8)
+    # score_after (the exploration fleet's entry): the step's proposals
+    # are scored as score() scores them, the react step is written into
+    # the caller's carry in place, and score()'s program table is untouched
+    carry = eng.place_carry({"x": torch.zeros(8, IN_DIM)}, 8)
+    buf = carry["x"]
+    traces = dict(eng.trace_counts)
+
+    def step_fn(c):
+        x = c["x"] + 1.0
+        return x, dict(c, x=x)
+
+    _, out = eng.score_after(step_fn, carry, 3, 8, cache_key="t")
+    assert carry["x"] is buf and torch.equal(buf, torch.ones(8, IN_DIM))
+    want = eng.score([np.ones(IN_DIM, np.float32)] * 3)
+    np.testing.assert_allclose(out.mean.numpy()[:3], want.mean, rtol=1e-6)
+    assert out.n_selected == int(want.mask.sum())
+    assert eng.step_trace_counts == {("t", 8): 1} and eng.step_dispatches == 1
+    assert eng.trace_counts == traces
+    with pytest.raises(ValueError, match="never rebind"):
+        eng.score_after(step_fn, {"x": buf.clone()}, 3, 8, cache_key="t")
     # refresh_from(WeightStore): K members from the store's trainers, into
     # the same buffers, version-gated
     store = WeightStore(K)

@@ -47,6 +47,8 @@ def test_every_module_imports_with_jax_blocked():
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.startswith("ok")
     assert len(MODULES) >= 40
+    assert {"repro_torch.exploration",
+            "repro_torch.exploration.fleet"} <= set(MODULES)
 
 
 def test_no_source_imports_jax_or_the_reference():

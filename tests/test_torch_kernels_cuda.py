@@ -760,6 +760,252 @@ def test_pal_resume_on_the_card_is_bit_for_bit(cuda_device):
     assert a.committee_trainer.captures == b.committee_trainer.captures == 1
 
 
+# the exploration fleet on the card: FusedEngine.score_after, one captured
+# graph per (fleet, bucket), on the small potential's forces
+FLEET_POS_ATOL = 5e-5
+
+
+def _fleet_x0(n, seed=4):
+    return _configs(n, seed)
+
+
+def _fleet_threshold(engine, x0):
+    """A threshold inside the committee's std range over ``x0``, so that
+    walkers are both selected and restarted."""
+    return float(np.quantile(engine.score(x0, advance=False).scalar_std,
+                             0.4))
+
+
+def _fleets(noise, n=5, patience=3, seed=0):
+    """A fleet on a captured engine, one on an eager engine on the card and
+    one on the CPU, all with the same weights, walkers and threshold."""
+    from repro_torch.core import acquisition as acq
+    from repro_torch.exploration import FleetConfig, WalkerFleet
+
+    cparams = _force_cparams()
+    x0 = _fleet_x0(n)
+    thr = _fleet_threshold(acq.FusedEngine(_forces, cparams, 0.0,
+                                           device="cpu"), x0)
+    cfg = FleetConfig(noise=noise, patience=patience, seed=seed)
+    out = []
+    for dev, capture in (("cuda", True), ("cuda", False), ("cpu", True)):
+        eng = acq.FusedEngine(_forces, cparams, thr, device=dev,
+                              capture=capture)
+        out.append(WalkerFleet(eng, x0, cfg))
+    return out, thr
+
+
+def _fleet_states_equal(a, b, where):
+    sa, sb = a.state_dict(), b.state_dict()
+    assert sorted(sa) == sorted(sb)
+    for k in sa:
+        assert sa[k].dtype == sb[k].dtype and np.array_equal(sa[k], sb[k]), \
+            f"{where} {k}"
+
+
+@pytest.mark.cuda
+def test_captured_fleet_matches_eager_and_cpu(cuda_device):
+    """A captured fleet == an eager fleet on the card, bit for bit, at
+    noise 0.01 (the draws are a hash of the carry's counters); one capture
+    per (fleet, bucket) and score()'s table untouched; one committee_uq
+    launch per step after the capture's two warm-up launches; 0 bytes
+    uploaded per step and 4 + the selected rows' bytes downloaded."""
+    from repro_torch.kernels import committee_uq as kernel
+
+    (graph, eager, _), _ = _fleets(noise=0.01)
+    eng = graph.engine
+    for i in range(20):
+        before, up, down = kernel.launches, eng.bytes_to_device, \
+            eng.bytes_to_host
+        a = graph.step()
+        # the first step: the capture's 2 warm-up launches, then a replay
+        assert kernel.launches - before == (3 if i == 0 else 1)
+        b = eager.step()
+        assert eng.bytes_to_device == up
+        assert eng.bytes_to_host - down == 4 + a.selected.nbytes
+        assert a.n_selected == b.n_selected
+        np.testing.assert_array_equal(a.selected, b.selected)
+        for key in ("mask", "mean", "scalar_std", "component_std",
+                    "finite_members"):
+            assert torch.equal(getattr(a, key), getattr(b, key)), (i, key)
+        _fleet_states_equal(graph, eager, f"step {i}")
+    assert eng.step_trace_counts == {(graph._cache_key, 8): 1}
+    assert eng.trace_counts == {} and eng.step_dispatches == 20
+    assert all(sb.launches == 1 for sb in eng._step_buckets.values())
+
+
+@pytest.mark.cuda
+def test_captured_fleet_matches_the_cpu_at_noise_0(cuda_device):
+    """The card's fleet follows the CPU's over 40 steps at noise 0:
+    positions atol 5e-5, masks equal on rows further than 1e-4 relative
+    from the threshold, restarts and counts exact; and the noise draws of
+    the two devices are the same numbers."""
+    from repro_torch.exploration import fleet as tfleet
+
+    (graph, _, cpu), thr = _fleets(noise=0.0)
+    n, selected = graph.n_walkers, 0
+    for i in range(40):
+        a, c = graph.step(), cpu.step()
+        np.testing.assert_allclose(graph.positions(), cpu.positions(),
+                                   atol=FLEET_POS_ATOL, rtol=0,
+                                   err_msg=f"step {i}")
+        std = c.scalar_std.numpy()[:n]
+        away = np.abs(std - np.float32(thr)) > 1e-4 * thr
+        assert np.array_equal(a.mask.cpu().numpy()[:n][away],
+                              c.mask.numpy()[:n][away])
+        sa, sc = graph.state_dict(), cpu.state_dict()
+        for k in ("counts", "restarts", "flag", "step", "nan_resets"):
+            assert np.array_equal(sa[k], sc[k]), (i, k)
+        selected += a.n_selected
+    assert selected > 0 and graph.stats()["restarts"] > 0
+    key = tfleet.stream_keys(3, 64)
+    assert torch.equal(tfleet.normal_draws(key.cuda(), 24).cpu(),
+                       tfleet.normal_draws(key, 24))
+
+
+@pytest.mark.cuda
+def test_fleet_and_score_from_two_threads_on_the_card(cuda_device):
+    """One thread steps a fleet while another scores batches on the same
+    engine (both capturing at first use): the fleet follows a CPU fleet and
+    the scores equal the CPU engine's."""
+    import threading
+
+    (graph, _, cpu), _ = _fleets(noise=0.0)
+    batches = [_configs(n, seed=80 + i) for i, n in enumerate((9, 16, 30)
+                                                               * 4)]
+    got, errors, start = [], [], threading.Barrier(2)
+
+    def step():
+        try:
+            start.wait()
+            for _ in range(30):
+                graph.step()
+        except Exception as e:               # surfaced below
+            errors.append(e)
+
+    def score():
+        try:
+            start.wait()
+            got.extend(graph.engine.score(b, advance=False) for b in batches)
+        except Exception as e:               # surfaced below
+            errors.append(e)
+
+    threads = [threading.Thread(target=f) for f in (step, score)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    for _ in range(30):
+        cpu.step()
+    np.testing.assert_allclose(graph.positions(), cpu.positions(),
+                               atol=FLEET_POS_ATOL, rtol=0)
+    for b, g in zip(batches, got):
+        _assert_uq_equal(g, cpu.engine.score(b, advance=False), "score")
+    assert graph.engine.trace_counts == {16: 1, 32: 1}
+    assert list(graph.engine.step_trace_counts.values()) == [1]
+
+
+@pytest.mark.cuda
+def test_fleet_sees_refresh_between_steps(cuda_device):
+    """refresh_from_device between two steps copies into the buffers the
+    fleet's graph reads: the next replay scores with the new weights, as
+    the CPU fleet does, and nothing is captured again."""
+    (graph, _, cpu), _ = _fleets(noise=0.0)
+    for _ in range(3):
+        graph.step()
+        cpu.step()
+    new = {k: v * 1.5 for k, v in _force_cparams().items()}
+    ptrs = [t.data_ptr() for t in graph.engine.cparams.values()]
+    graph.engine.refresh_from_device(
+        {k: v.to(cuda_device) for k, v in new.items()})
+    cpu.engine.refresh_from_device(new)
+    for _ in range(3):
+        a, c = graph.step(), cpu.step()
+        np.testing.assert_allclose(a.mean.cpu().numpy(), c.mean.numpy(),
+                                   **ENGINE_TOL)
+    np.testing.assert_allclose(graph.positions(), cpu.positions(),
+                               atol=FLEET_POS_ATOL, rtol=0)
+    assert [t.data_ptr() for t in graph.engine.cparams.values()] == ptrs
+    assert list(graph.engine.step_trace_counts.values()) == [1]
+
+
+@pytest.mark.cuda
+def test_fleet_nan_walker_and_state_roundtrip_on_the_card(cuda_device):
+    """A poisoned walker resets to its trusted state once, on the card;
+    a state_dict snapshot loaded into the captured fleet (and into a new
+    fleet on the same engine) replays the same 6 steps bit for bit."""
+    from repro_torch.core.chaos import ChaosInjector, FaultEvent, FaultPlan
+    from repro_torch.exploration import FleetConfig, WalkerFleet
+
+    (graph, _, _), _ = _fleets(noise=0.02, seed=9)
+    chaos = ChaosInjector(FaultPlan(events=(
+        FaultEvent("fleet.step", 3, "nan_walker", arg=1.0),)))
+    graph.chaos = chaos
+    for _ in range(3):
+        graph.step()
+    assert len(chaos.fired) == 1 and graph.stats()["nan_resets"] == 1
+    np.testing.assert_array_equal(graph.positions()[1], _fleet_x0(5)[1])
+    for _ in range(4):
+        graph.step()
+    assert np.isfinite(graph.positions()).all()
+    assert graph.stats()["nan_resets"] == 1
+    snap = graph.state_dict()
+    for _ in range(6):
+        graph.step()
+    want = graph.state_dict()
+    ptrs = [t.data_ptr() for t in graph._carry.values()]
+    graph.load_state_dict(snap)
+    assert [t.data_ptr() for t in graph._carry.values()] == ptrs
+    other = WalkerFleet(graph.engine, np.zeros((5, 12), np.float32),
+                        FleetConfig(noise=0.02, patience=3, seed=9))
+    other.load_state_dict(snap)
+    for _ in range(6):
+        graph.step()
+        other.step()
+    for f in (graph, other):
+        got = f.state_dict()
+        for k in want:
+            assert np.array_equal(got[k], want[k]), k
+    assert list(graph.engine.step_trace_counts.values()) == [1, 1]
+
+
+@pytest.mark.cuda
+def test_pal_fleet_run_on_the_card(cuda_device):
+    """PAL(fleet_walkers=16) on the card until the fleet's step limit: no
+    crash, every thread joined, one capture per engine bucket, per fleet
+    bucket and for the trainer, committee_uq launches == the engine's
+    dispatches + fleet steps + two warm-up launches per capture, the
+    engine holding the trainer's weights bit for bit."""
+    import tempfile
+
+    from repro_torch.kernels import committee_uq as kernel
+
+    pal = _card_pal(tempfile.mkdtemp(), fleet_walkers=16,
+                    fleet_max_steps=300)
+    assert pal.generators == [] and pal.fleet.n_walkers == 16
+    launches0 = kernel.launches
+    tok = pal.run(timeout=120)
+    rep = pal.report()
+    assert tok is not None and tok.origin == "fleet", tok
+    c = rep["counters"]
+    assert c.get("runtime.thread_crashes", 0) == 0
+    assert c.get("runtime.unjoined_threads", 0) == 0
+    assert rep["fleet"]["steps"] == 300 == c["exchange.iterations"]
+    assert rep["labeled_total"] > 0
+    eng, tr = pal.engine, pal.committee_trainer
+    assert all(v == 1 for v in eng.trace_counts.values())
+    assert list(eng.step_trace_counts.values()) == [1]
+    assert tr.captures == min(tr.steps_done, 1)
+    assert tr.graph_replays == tr.steps_done
+    assert kernel.launches - launches0 == (
+        eng.dispatches + eng.step_dispatches
+        + 2 * (len(eng.trace_counts) + len(eng.step_trace_counts)))
+    if tr.steps_done:
+        for k, v in tr.snapshot_cparams().items():
+            assert torch.equal(eng.cparams[k], v), k
+
+
 FA_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 
 

@@ -25,7 +25,8 @@ twins of the reference test's jnp ones):
 Added here: a reference ``PAL``'s checkpoint resumed by the port's ``PAL``
 (trainer state, engine rule state, buffers and iteration equal); the
 legacy-engine publish path of the fused trainer; ``PAL()`` without
-``device=`` raising without CUDA; ``fleet_walkers > 0`` raising; the
+``device=`` raising without CUDA; ``fleet_walkers > 0`` needing the fused
+engine and replacing the host generators; ``mesh=`` raising; the
 quickstart twin.
 """
 import functools
@@ -277,11 +278,11 @@ def test_pal_wires_tier_knobs_and_reports_consistently():
 # entry points
 # ---------------------------------------------------------------------------
 
-def _toy_pal(**kw):
+def _toy_pal(device=None, **kw):
     return PAL(PALRunConfig(result_dir=tempfile.mkdtemp(), **kw),
                make_generator=test_pal_runtime.ToyGene,
                make_model=test_pal_runtime.ToyModel,
-               make_oracle=test_pal_runtime.ToyOracle)
+               make_oracle=test_pal_runtime.ToyOracle, device=device)
 
 
 def test_pal_defaults_to_cuda_and_raises_without_it(monkeypatch):
@@ -291,8 +292,20 @@ def test_pal_defaults_to_cuda_and_raises_without_it(monkeypatch):
 
 
 def test_fleet_and_mesh_raise_naming_their_items():
-    with pytest.raises(NotImplementedError, match="exploration fleet"):
-        _toy_pal(fleet_walkers=4)
+    # the fleet is ported: it needs the fused engine (a legacy toy PAL
+    # raises), and with one it replaces the host generators
+    with pytest.raises(ValueError, match="fused acquisition engine"):
+        _toy_pal(fleet_walkers=4, device="cpu")
+    _, cparams, apply_fn = _linear_committee(in_dim=4, out_dim=4)
+    pal = PAL(PALRunConfig(result_dir=tempfile.mkdtemp(), fleet_walkers=4),
+              make_generator=test_pal_runtime.ToyGene,
+              make_model=test_pal_runtime.ToyModel,
+              make_oracle=test_pal_runtime.ToyOracle,
+              committee=CommitteeSpec(apply_fn, cparams), device="cpu")
+    assert pal.generators == [] and pal.fleet.n_walkers == 4
+    assert pal.exchange.fleet is pal.fleet
+    assert pal.exchange.step() is None
+    assert pal.report()["fleet"]["steps"] == 1
     with pytest.raises(NotImplementedError, match="multi-device"):
         PAL(PALRunConfig(result_dir=tempfile.mkdtemp()),
             make_generator=test_pal_runtime.ToyGene,

@@ -3,9 +3,10 @@ and without the card.
 
 * Drift guard: each host module the port copies (transport, fault,
   supervisor, chaos, al_checkpoint, speedup, selection, api, controller,
-  weight_sync, buffers, monitor) is the reference's source with its
-  ``repro.`` imports rewritten to ``repro_torch.``, apart from the
-  differences listed in ``INTENDED``.
+  weight_sync, buffers, monitor; serving's queue and cache) is the
+  reference's source with its ``repro.`` imports rewritten to
+  ``repro_torch.``, apart from the differences listed in ``INTENDED`` and
+  ``INTENDED_SERVING``.
 * The reference's transport, buffer, selection, speedup, weight-store,
   fault-primitive, injector and supervisor tests, run against the port's
   modules (``_port_rebind.rebind``: the reference test's own code and
@@ -90,16 +91,45 @@ INTENDED = {
 }
 
 
+# the serving tier's host modules: docstring wording only
+COPIED_SERVING = ("queue", "cache")
+INTENDED_SERVING = {
+    "queue": [
+        (1, 2, ['"""Multi-tenant queue-batched committee serving (a '
+                'host-side copy of the',
+                "reference's ``repro/serving/queue.py``)."]),
+        (7, 7, ["tiny requests into ONE fused dispatch, and on top of the "
+                "plain FIFO"]),
+        (52, 54, ["torn read."]),
+        (548, 548, ["        PI update per ``latency_window`` samples (the "
+                    "controller's host math runs"]),
+        (589, 590, ["        observe a dispatch count without its request "
+                    'counts."""']),
+    ],
+    "cache": [(1, 1, ['"""LSH near-duplicate answer cache for the serving '
+                      "tier (a host-side copy",
+                      "of the reference's ``repro/serving/cache.py``)."])],
+}
+
+
+def _check_copy(path: str, intended):
+    ref = (ROOT / "src" / "repro" / path).read_text()
+    port = (ROOT / "src" / "repro_torch" / path).read_text()
+    want = re.sub(r"\brepro\.", "repro_torch.", ref).splitlines()
+    for first, last, lines in sorted(intended, reverse=True):
+        want[first - 1:last] = lines
+    assert port.splitlines() == want, f"{path} drifted from the reference"
+    assert port.endswith("\n")
+
+
 @pytest.mark.parametrize("name", COPIED)
 def test_copied_module_matches_the_reference(name):
-    ref = (ROOT / "src" / "repro" / "core" / f"{name}.py").read_text()
-    port = (ROOT / "src" / "repro_torch" / "core" / f"{name}.py").read_text()
-    want = re.sub(r"\brepro\.", "repro_torch.", ref).splitlines()
-    for first, last, lines in sorted(INTENDED.get(name, ()), reverse=True):
-        want[first - 1:last] = lines
-    assert port.splitlines() == want, \
-        f"core/{name}.py drifted from the reference"
-    assert port.endswith("\n")
+    _check_copy(f"core/{name}.py", INTENDED.get(name, ()))
+
+
+@pytest.mark.parametrize("name", COPIED_SERVING)
+def test_copied_serving_module_matches_the_reference(name):
+    _check_copy(f"serving/{name}.py", INTENDED_SERVING[name])
 
 
 # ---------------------------------------------------------------------------
