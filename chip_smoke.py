@@ -135,9 +135,37 @@ Phases (each raises on a failed check; the script exits non-zero):
    activations;
 12. card against CPU: one Jamba group in fp32 at d_model 1024 and d_ff
    3072 with the published head shapes and 4 experts in groups of 256 (so
-   that the decode steps drop tokens), as phase 6.
+   that the decode steps drop tokens), as phase 6;
+13. MoE serving phase: ``ServeEngine.generate`` on the one-card cut of
+   qwen2-moe-a2.7b (16 layers, every width published: 60 routed experts
+   top-4 + 4 shared; random weights from a seed), 8 prompts of 512 tokens,
+   64 new tokens; ``flash_attention`` must launch exactly 16 tiled + 63 x 16
+   split times and match its plain version on every attention call of a
+   teacher-forced run; then its fp32 2-layer cut on the card against the
+   CPU, held where the routing agrees (the flipped expert choices counted
+   and printed);
+14. Whisper serving phase: whisper-small uncut, frame embeddings (8, 1500,
+   768) from numpy and the seed, 64 prompt tokens, 64 new ones, max_seq 448
+   (the published text context): 12 encoder + 24 decoder prefill calls
+   tiled and 63 x 24 split, each held against the plain version; the
+   encoder's time alone; then 2 fp32 layers (encoder and decoder) against
+   the CPU;
+15. InternVL serving phase: internvl2-2b uncut, patch embeddings (8, 256,
+   2048) + 512 prompt tokens, 64 new ones, max_seq 832: 24 tiled + 63 x 24
+   split, each held against the plain version; then 2 fp32 layers against
+   the CPU;
+16. PAL at LM scale: the ``repro_torch.examples.lm_active_distill`` twin,
+   as the reference configures it, stopped at 120 labelled sequences or
+   after 60 s (it prints which): committee_uq launches == student-engine
+   dispatches + 2 per in-run capture, flash_attention launches == teacher
+   forwards x 4 layers, no crash or unjoined thread, the engine holding the
+   trainer's weights bit for bit; exchange it/s, labels/s, retrains, fused
+   steps, weight refreshes, selection fraction and the busy share by CUDA
+   events.
 
-Each phase prints its wall time.
+The flash phase (4) also sweeps and times the new families' shapes (the
+Whisper encoder and cross-attention, InternVL's and qwen2-moe's prefill and
+decode).  Each phase prints its wall time.
 
 The last lines are one ``{"kernels": [...]}`` object, the card's name and
 power limit from ``nvidia-smi``, and ``{"ok": true, "device": {...}}``.
@@ -170,6 +198,7 @@ from repro_torch.kernels import flash_attention as fa_kernel  # noqa: E402
 from repro_torch.kernels import ssd as ssd_kernel  # noqa: E402
 from repro_torch.kernels import wkv6 as wkv_kernel  # noqa: E402
 from repro_torch.launch import platform  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch import train_profile  # noqa: E402
 from repro_torch.models import model_zoo  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
@@ -1855,6 +1884,20 @@ def phase_flash(smi):
         for D in (16, 120, 128):
             check(4, 1, 576, 16, 2, D, dtype, causal=False, q_offset=575,
                   kv_len=[0, 64, 300, 576], path="split")
+        # the rest of the LM zoo's shapes: the Whisper encoder (S = 1500,
+        # H = KV = 12, non-causal), its cross-attention in the prefill
+        # (T != S) and in a decode step (no kv_len), InternVL's prefill
+        # (256 patches + 512 tokens, G = 2 at D = 128) and decode over its
+        # 832-slot cache, qwen2-moe's prefill and decode (G = 1, D = 128)
+        check(8, 1500, 1500, 12, 12, 64, dtype, causal=False, path="tiled")
+        check(8, 64, 1500, 12, 12, 64, dtype, causal=False, path="tiled")
+        check(8, 1, 1500, 12, 12, 64, dtype, causal=False, path="split")
+        check(8, 768, 768, 16, 8, 128, dtype, path="tiled")
+        check(8, 1, 832, 16, 8, 128, dtype, causal=False, q_offset=831,
+              kv_len=list(range(769, 833, 8)), path="split")
+        check(8, 512, 512, 16, 16, 128, dtype, path="tiled")
+        check(8, 1, 576, 16, 16, 128, dtype, causal=False, q_offset=575,
+              kv_len=list(range(513, 577, 8)), path="split")
         # sharp attention over large values that cancel, as a random-weight
         # LM's activations give (P must keep more than bf16's 8 bits)
         for D in (64, 128):
@@ -1914,6 +1957,15 @@ def phase_flash(smi):
         "jamba_decode": _time_fa("Jamba decode", 8, 1, 576, 64, 8, 128,
                                  bf16, gen, False, 511,
                                  list(range(512, 576, 9)), smi),
+        "whisper_encoder": _time_fa("Whisper encoder", 8, 1500, 1500, 12,
+                                    12, 64, bf16, gen, False, 0, None, smi),
+        "whisper_cross_decode": _time_fa(
+            "Whisper cross-attention decode", 8, 1, 1500, 12, 12, 64, bf16,
+            gen, False, 0, None, smi),
+        "internvl_prefill": _time_fa("InternVL prefill", 8, 768, 768, 16,
+                                     8, 128, bf16, gen, True, 0, None, smi),
+        "moe_prefill": _time_fa("qwen2-moe prefill", 8, 512, 512, 16, 16,
+                                128, bf16, gen, True, 0, None, smi),
     }
     timings["sass_mma"] = {kind: sorted(cs) for kind, cs in short.items()}
     return worst, timings
@@ -1924,17 +1976,21 @@ def phase_flash(smi):
 # ---------------------------------------------------------------------------
 
 
-def teacher_forced(model, params, prompt, gen_tokens, max_seq):
-    """Last-position logits (fp32) of a prefill of ``prompt`` and of one
-    decode step per token of ``gen_tokens`` but the last, fed those
-    tokens: the logits that chose each generated token."""
+def teacher_forced(model, params, prompt, gen_tokens, max_seq, n_prefix=0,
+                   **extras):
+    """Last-position logits (fp32) of a prefill of ``prompt`` (with the
+    prefill's ``extras``: frame or patch embeddings) and of one decode step
+    per token of ``gen_tokens`` but the last, fed those tokens at positions
+    after the ``n_prefix`` prefix and the prompt: the logits that chose each
+    generated token."""
     B = prompt.shape[0]
     cache = model.init_cache(B, max_seq, device=prompt.device)
-    logits, cache = model.prefill(params, prompt, cache)
+    logits, cache = model.prefill(params, prompt, cache, **extras)
     out = [logits.float()]
     for i in range(gen_tokens.shape[1] - 1):
         logits, cache = model.decode_step(params, gen_tokens[:, i:i + 1],
-                                          cache, prompt.shape[1] + i)
+                                          cache, n_prefix + prompt.shape[1]
+                                          + i)
         out.append(logits.float())
     return torch.stack(out, dim=1)                  # (B, gen, V)
 
@@ -2095,11 +2151,13 @@ def phase_lm(smi):
 # ---------------------------------------------------------------------------
 
 
-def _greedy_logits(model, params, prompt, steps, max_seq):
-    """Greedy prefill + ``steps`` decode steps; (tokens (B, steps+1),
-    logits (B, steps+1, V) fp32) — the logits that chose each token."""
+def _greedy_logits(model, params, prompt, steps, max_seq, n_prefix=0,
+                   **extras):
+    """Greedy prefill (with the prefill's ``extras``) + ``steps`` decode
+    steps after the ``n_prefix`` prefix; (tokens (B, steps+1), logits (B,
+    steps+1, V) fp32) — the logits that chose each token."""
     cache = model.init_cache(prompt.shape[0], max_seq, device=prompt.device)
-    logits, cache = model.prefill(params, prompt, cache)
+    logits, cache = model.prefill(params, prompt, cache, **extras)
     toks, outs = [], []
     for i in range(steps + 1):
         outs.append(logits.float())
@@ -2107,7 +2165,7 @@ def _greedy_logits(model, params, prompt, steps, max_seq):
         if i == steps:
             break
         logits, cache = model.decode_step(params, toks[-1][:, None], cache,
-                                          prompt.shape[1] + i)
+                                          n_prefix + prompt.shape[1] + i)
     return torch.stack(toks, dim=1), torch.stack(outs, dim=1)
 
 
@@ -2116,19 +2174,23 @@ def two_layers(arch):
     return get_arch(arch).model.replace(num_layers=2, dtype="float32")
 
 
-class _DropCounter:
-    """Counts the MoE choices dropped past their expert's capacity, by
-    wrapping ``moe.route`` (each count syncs the host)."""
+class _RouteRecorder:
+    """Records every MoE routing (``moe.route``) of a run on the host, per
+    call (one call per layer per step): which experts each token chose
+    (``sel``), whether it fit their capacity (``in_cap``) and the router
+    probabilities, each (B, T, E)."""
 
     def __init__(self):
-        self.dropped, self.chosen = 0, 0
+        self.calls = []
         self._route = moe_mod.route
 
     def __enter__(self):
-        def route(*args, **kw):
-            r = self._route(*args, **kw)
-            self.dropped += r.dropped
-            self.chosen += int(r.sel.sum())
+        def route(p, x, cfg):
+            r = self._route(p, x, cfg)
+            B, T = x.shape[:2]
+            self.calls.append(tuple(
+                t.reshape(B, T, -1).cpu() for t in (r.sel, r.in_cap,
+                                                    r.probs)))
             return r
 
         moe_mod.route = route
@@ -2137,55 +2199,179 @@ class _DropCounter:
     def __exit__(self, *exc):
         moe_mod.route = self._route
 
+    @property
+    def chosen(self) -> int:
+        return int(sum(c[0].sum() for c in self.calls))
+
+    @property
+    def dropped(self) -> int:
+        return int(sum(((c[0] > 0) & ~c[1]).sum() for c in self.calls))
+
+
+def routing_agreement(card, cpu, steps, top_k):
+    """Where two runs routed alike: (agree (B, steps) bool — row b's
+    tokens chose the same experts and kept the same capacity slots in every
+    layer of steps 0..s — the choices that flipped, the slots that flipped,
+    and the CPU's gap between the k-th and (k+1)-th router probability at
+    each token whose choice flipped)."""
+    if len(card.calls) != len(cpu.calls) or len(cpu.calls) % steps:
+        raise AssertionError(f"routing calls: card {len(card.calls)}, CPU "
+                             f"{len(cpu.calls)}, for {steps} steps")
+    layers = len(cpu.calls) // steps
+    B = cpu.calls[0][0].shape[0]
+    row_ok = torch.ones((B, steps), dtype=torch.bool)
+    sel_flips, cap_flips, gaps = 0, 0, []
+    for i, ((sg, cg, _), (sc, cc, pc)) in enumerate(zip(card.calls,
+                                                        cpu.calls)):
+        ds, dc = sg != sc, cg != cc
+        sel_flips += int(ds.sum())
+        cap_flips += int((dc & ~ds).sum())
+        row_ok[:, i // layers] &= ~(ds | dc).flatten(1).any(dim=1)
+        flipped = ds.any(dim=-1)
+        if bool(flipped.any()):
+            top = pc[flipped].sort(dim=-1, descending=True).values
+            gaps += (top[:, top_k - 1] - top[:, top_k]).tolist()
+    return torch.cumprod(row_ok.int(), dim=1).bool(), sel_flips, \
+        cap_flips, gaps
+
+
+def prefill_extras(cfg, B, seed):
+    """The prefill's inputs beside the tokens, numpy from ``seed``, as the
+    serving CLI makes them (``launch/serve.prefill_inputs``)."""
+    return serve.prefill_inputs(cfg, B, np.random.RandomState(seed))
+
 
 def phase_card_vs_cpu(name, cfg, kernels):
     """``cfg`` (an fp32 cut of ``name``): greedy prefill + 8 decode steps
     on the card against the CPU plain path, teacher-forced with the card's
-    tokens.  ``kernels``: the wrapper modules whose launch counters the CPU
-    path must leave alone.  A model with MoE layers must drop the same
-    choices on both."""
+    tokens (with ``prefill_extras``: frame or patch embeddings).
+    ``kernels``: the wrapper modules whose launch counters the CPU path
+    must leave alone.  A model with MoE layers in every layer (the moe
+    family) is held where its routing agrees: each row's logits at each
+    step whose routing, and every earlier step's, chose and kept the same
+    experts on both (a near-tie in the router may flip a choice; the flips
+    are counted and printed); any other model with MoE layers must drop
+    the same choices on both.
+
+    The encoder-decoder family is held against a control: the CPU path
+    runs a second time with its attention in float64 (``_attention_f64``,
+    rounded once), and the card's logits must lie within the tolerance
+    plus twice that control's largest move of the CPU's: whisper-small's random-weight attention is nearly one-hot over
+    1500 frames (scores of std ~66), so a change of rounding alone moves
+    its fp32 logits by ~1e-3 of their max-abs, past the elementwise
+    tolerance, and the card rounds its matmuls and its attention otherwise
+    than the CPU does."""
     B, P, steps = 2, 128, 8
-    max_seq = P + steps + 1
+    n_prefix = cfg.vision_tokens if cfg.family == "vlm" else 0
+    max_seq = n_prefix + P + steps + 1
+    routed = cfg.family == "moe"
+    f64_control = cfg.family == "encdec"
     model = model_zoo.build_model(cfg, max_seq=max_seq)
     params = model.init(torch.Generator(device="cuda").manual_seed(SEED + 1),
                         device="cuda")
     prompt = torch.from_numpy(np.random.RandomState(SEED + 1).randint(
         0, cfg.vocab_size, (B, P)).astype(np.int32))
-    with _DropCounter() as drops_g:
-        toks_g, logits_g = _greedy_logits(model, params, prompt.to("cuda"),
-                                          steps, max_seq)
+    extras = {k: torch.from_numpy(v)
+              for k, v in prefill_extras(cfg, B, SEED + 1).items()}
+    with _RouteRecorder() as drops_g:
+        toks_g, logits_g = _greedy_logits(
+            model, params, prompt.to("cuda"), steps, max_seq, n_prefix,
+            **{k: v.to("cuda") for k, v in extras.items()})
     before = [k.launches for k in kernels]
     params_c = cmte.tree_map(lambda t: t.cpu(), params)
     del params
     torch.cuda.empty_cache()
     # the CPU plain path, teacher-forced with the card's tokens
-    with _DropCounter() as drops_c:
+    with _RouteRecorder() as drops_c:
         cache = model.init_cache(B, max_seq, device="cpu")
-        logits, cache = model.prefill(params_c, prompt, cache)
+        logits, cache = model.prefill(params_c, prompt, cache, **extras)
         outs = [logits]
         for i in range(steps):
             logits, cache = model.decode_step(
-                params_c, toks_g[:, i:i + 1].cpu(), cache, P + i)
+                params_c, toks_g[:, i:i + 1].cpu(), cache, n_prefix + P + i)
             outs.append(logits)
     logits_c = torch.stack(outs, dim=1)
     if [k.launches for k in kernels] != before:
         raise AssertionError("the CPU plain path launched a kernel")
-    if (drops_g.dropped, drops_g.chosen) != (drops_c.dropped, drops_c.chosen):
+    logits_g, toks_g = logits_g.cpu(), toks_g.cpu()
+    ctrl_note, margin_extra = "", 0.0
+    if f64_control:
+        plain_attention = ops.plain_attention
+        ops.plain_attention = _attention_f64
+        try:
+            cache = model.init_cache(B, max_seq, device="cpu")
+            logits, cache = model.prefill(params_c, prompt, cache, **extras)
+            outs = [logits]
+            for i in range(steps):
+                logits, cache = model.decode_step(
+                    params_c, toks_g[:, i:i + 1], cache, n_prefix + P + i)
+                outs.append(logits)
+        finally:
+            ops.plain_attention = plain_attention
+        lf = torch.stack(outs, dim=1)
+        ctrl = float((logits_c - lf).abs().max())
+        d = (logits_g - logits_c).abs()
+        bound = CPU_ATOL + CPU_RTOL * logits_c.abs() + 2 * ctrl
+        if bool((d > bound).any()):
+            raise AssertionError(
+                f"{name}: {int((d > bound).sum())} logits outside the "
+                f"tolerance + twice the control's move {ctrl:.3e} (card - "
+                f"CPU max {float(d.max()):.3e})")
+        over = int((d > CPU_ATOL + CPU_RTOL * logits_c.abs()).sum())
+        margin_extra = 2 * ctrl
+        ctrl_note = (f"; the CPU's fp32 path moves by up to {ctrl:.3e} "
+                     f"(max |logit| {float(logits_c.abs().max()):.3e}) with "
+                     f"its attention in float64, and the card lies within "
+                     f"the tolerance + twice that of the CPU ({over} of "
+                     f"{d.numel()} logits past the tolerance alone)")
+    if routed:
+        agree, sel_flips, cap_flips, gaps = routing_agreement(
+            drops_g, drops_c, steps + 1, cfg.moe_top_k)
+        if not bool(agree.any()):
+            raise AssertionError(f"{name}: the routing differs in the "
+                                 f"prefill of every row")
+        logits_g, logits_c, toks_g = (t[agree] for t in (logits_g, logits_c,
+                                                         toks_g))
+        gap_note = (f", the CPU's k-th to (k+1)-th router probability gap "
+                    f"at the flipped tokens max {max(gaps):.3e}"
+                    if gaps else "")
+        moe_note = (f"; MoE routing: {sel_flips} expert choices and "
+                    f"{cap_flips} capacity slots of "
+                    f"{drops_c.chosen} choices flipped between the card "
+                    f"and the CPU{gap_note}; {drops_g.dropped} (card) and "
+                    f"{drops_c.dropped} (CPU) choices dropped past "
+                    f"capacity; logits held at {int(agree.sum())} of "
+                    f"{agree.numel()} (row, step) positions whose routing "
+                    f"agreed at every layer so far")
+    elif (drops_g.dropped, drops_g.chosen) != (drops_c.dropped,
+                                               drops_c.chosen):
         raise AssertionError(f"MoE drops differ: card {drops_g.dropped} of "
                              f"{drops_g.chosen}, CPU {drops_c.dropped} of "
                              f"{drops_c.chosen}")
-    err = _max_err(logits_g.cpu(), logits_c, CPU_RTOL, CPU_ATOL,
-                   "card vs CPU logits")
+    else:
+        moe_note = (f"; MoE choices dropped past capacity: "
+                    f"{drops_c.dropped} of {drops_c.chosen} on both"
+                    if drops_c.chosen else "")
+    if f64_control:
+        err = float((logits_g - logits_c).abs().max())
+    else:
+        err = _max_err(logits_g, logits_c, CPU_RTOL, CPU_ATOL,
+                       "card vs CPU logits")
     checked, total = _margin_tokens_agree(
-        toks_g.cpu(), logits_c, CPU_ATOL + CPU_RTOL * float(
-            logits_c.abs().max()), "card vs CPU tokens")
-    moe_note = (f"; MoE choices dropped past capacity: {drops_c.dropped} of "
-                f"{drops_c.chosen} on both" if drops_c.chosen else "")
+        toks_g, logits_c, CPU_ATOL + CPU_RTOL * float(
+            logits_c.abs().max()) + margin_extra, "card vs CPU tokens")
+    extra_note = "".join(f", {k} {tuple(v.shape)}" for k, v in
+                         extras.items())
     print(f"card vs CPU: {name} cut to {cfg.num_layers} layers, d "
-          f"{cfg.d_model}, fp32, B={B} prompt {P} + {steps} decode steps: "
-          f"logits match (worst |err| {err:.3e} at rtol {CPU_RTOL} atol "
-          f"{CPU_ATOL}); greedy tokens identical at {checked} of {total} "
-          f"positions whose margin allows{moe_note}")
+          f"{cfg.d_model}, fp32, B={B} prompt {P} + {steps} decode "
+          f"steps{extra_note}: logits match (worst |err| {err:.3e}; rtol "
+          f"{CPU_RTOL} atol {CPU_ATOL}"
+          f"{', against the control below' if f64_control else ''}); "
+          f"greedy tokens identical at "
+          f"{checked} of {total} positions whose margin allows{moe_note}"
+          f"{ctrl_note}")
+    return {"sel_flips": sel_flips, "cap_flips": cap_flips} if routed \
+        else None
 
 
 # ---------------------------------------------------------------------------
@@ -2824,6 +3010,310 @@ def phase_jamba(smi):
     return launches, fa_launches, fa_paths
 
 
+# ---------------------------------------------------------------------------
+# 13-15. the rest of the LM zoo through ServeEngine.generate
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "qwen2-moe-a2.7b"
+# whisper-small: 64 prompt tokens, the published 448-token text context
+WHISPER_ARCH, WHISPER_PROMPT, WHISPER_MAX_SEQ = "whisper-small", 64, 448
+# internvl2-2b: 256 patch embeddings + 512 prompt tokens + 64 new ones
+INTERNVL_ARCH = "internvl2-2b"
+
+
+def serve_family(label, cfg, prompt_len, max_seq, want_paths, smi):
+    """``ServeEngine.generate`` on ``cfg`` (random weights from the seed;
+    the prefill's frame or patch embeddings from ``prefill_extras``), 8
+    prompts of ``prompt_len`` tokens, 64 new ones, greedy: the flash
+    launches of the generate must be exactly ``want_paths`` (tiled,
+    split), and every attention call of a teacher-forced plain run over
+    the generated tokens must match the kernel on the model's own
+    activations.  Returns the phase's numbers."""
+    n_prefix = cfg.vision_tokens if cfg.family == "vlm" else 0
+    model = model_zoo.build_model(cfg, max_seq=max_seq)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED),
+                        device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in cmte.tree_leaves(params))
+    eng = ServeEngine(model, params, max_seq=max_seq, batch=LM_BATCH,
+                      device="cuda")
+    prompt = np.random.RandomState(SEED).randint(
+        0, cfg.vocab_size, (LM_BATCH, prompt_len)).astype(np.int32)
+    extras = prefill_extras(cfg, LM_BATCH, SEED)
+    batch = dict(tokens=prompt, **extras)
+    eng.generate(batch, max_new_tokens=2)        # warm-up, not counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    fa_kernel.launches = 0                       # main path starts here
+    fa_kernel.launches_tiled = fa_kernel.launches_split = 0
+    res = eng.generate(batch, max_new_tokens=LM_GEN)
+    launches = fa_kernel.launches
+    paths = (fa_kernel.launches_tiled, fa_kernel.launches_split)
+    peak = torch.cuda.max_memory_allocated()
+    if paths != tuple(want_paths) or launches != sum(want_paths):
+        raise AssertionError(f"{label}: flash_attention (tiled, split) "
+                             f"launches {paths} (total {launches}), "
+                             f"expected {tuple(want_paths)}")
+    toks = res.tokens
+    if toks.shape != (LM_BATCH, prompt_len + LM_GEN) or \
+            not np.array_equal(toks[:, :prompt_len], prompt) or \
+            toks.min() < 0 or toks.max() >= cfg.padded_vocab:
+        raise AssertionError(f"{label}: generated tokens misshapen or out "
+                             f"of range: {toks.shape}")
+    step_ms = res.decode_seconds / (LM_GEN - 1) * 1e3
+    extra_note = "".join(f", {k} {v.shape}" for k, v in extras.items())
+    print(f"{label} ({cfg.num_layers} layers, d {cfg.d_model}, "
+          f"{cfg.num_heads} heads over {cfg.num_kv_heads} kv of "
+          f"{cfg.resolved_head_dim}, vocab {cfg.vocab_size}; {n_params} "
+          f"params fp32, {cfg.dtype} activations), init {t_init:.2f} s: "
+          f"B={LM_BATCH} prompt {prompt_len}{extra_note} + {LM_GEN} new "
+          f"tokens, max_seq {max_seq}: prefill {res.prefill_seconds:.4f} s, "
+          f"decode {res.decode_seconds:.4f} s = {step_ms:.4f} ms per step, "
+          f"{res.decode_tokens_per_s:.1f} tokens/s, peak memory "
+          f"{peak / 2**30:.3f} GiB; flash_attention launches {launches}: "
+          f"{paths[0]} tiled, {paths[1]} split [{smi}]")
+    out = {"launches": launches, "paths": paths,
+           "prefill_s": res.prefill_seconds, "step_ms": step_ms,
+           "tokens_per_s": res.decode_tokens_per_s,
+           "peak_gib": peak / 2**30}
+
+    # teacher-forced runs over the generated tokens, on the card
+    prompt_t = torch.from_numpy(prompt).to("cuda")
+    gen_t = torch.from_numpy(toks[:, prompt_len:].astype(np.int32)).to(
+        "cuda")
+    ex_t = {k: torch.from_numpy(v).to("cuda") for k, v in extras.items()}
+    lk = teacher_forced(model, eng.params, prompt_t, gen_t, max_seq,
+                        n_prefix, **ex_t)
+    if not torch.isfinite(lk).all():
+        raise AssertionError(f"{label}: kernel path: non-finite logits")
+    scale = float(lk.abs().max())
+    checked, total = _margin_tokens_agree(gen_t, lk, 1e-3 * scale,
+                                          f"{label}: generate vs its own "
+                                          f"replay")
+
+    # every attention call of the plain path, on the model's own
+    # activations, also through the kernel, held against the kernel's plain
+    # version ``ref.attention_ref`` (the model's plain path takes the
+    # reference's query-chunked form past 1024 queries, the Whisper
+    # encoder's 1500, which rounds P to the activation dtype before P.V)
+    plain = model_zoo.build_model(cfg, impl="plain", max_seq=max_seq)
+    calls, chunked, worst = 0, 0, 0.0
+    plain_attention = ops.plain_attention
+
+    def shadowed(q, k, v, **kw):
+        nonlocal calls, chunked, worst
+        out = plain_attention(q, k, v, **kw)
+        kw.pop("q_chunk", None)
+        got = fa_kernel.flash_attention(q, k, v, device=q.device, **kw)
+        want = out
+        if q.shape[1] > 1024 and kw.get("kv_len") is None:
+            want = ref.attention_ref(q, k, v, **kw)
+            chunked += 1
+        tol = FA_TOL[q.dtype]
+        try:
+            err = _max_err(got.float(), want.float(), tol, tol,
+                           f"{label}: attention call {calls}")
+        except AssertionError as e:      # say how far each is from exact
+            f64 = _attention_f64(q, k, v, **kw).double()
+            raise AssertionError(
+                f"{e}; max |kernel - float64| "
+                f"{float((got.double() - f64).abs().max()):.3e}, max |plain "
+                f"- float64| {float((want.double() - f64).abs().max()):.3e}"
+            ) from e
+        worst = max(worst, err)
+        calls += 1
+        return out
+
+    ops.plain_attention = shadowed
+    try:
+        lp = teacher_forced(plain, eng.params, prompt_t, gen_t, max_seq,
+                            n_prefix, **ex_t)
+    finally:
+        ops.plain_attention = plain_attention
+    if calls != launches:
+        raise AssertionError(f"{label}: {calls} attention calls shadowed, "
+                             f"not {launches}")
+    p_scale = float(lp.abs().max())
+    drift = float((lk - lp).abs().max()) / p_scale
+    print(f"{label}: the kernel == plain attention (ref.attention_ref; "
+          f"{chunked} of the calls the plain path chunked) on all {calls} "
+          f"attention calls of a teacher-forced plain run over the generated "
+          f"tokens (the model's own bf16 activations; worst |err| "
+          f"{worst:.4e} at rtol = atol = {FA_TOL[torch.bfloat16]}); "
+          f"generate's tokens == "
+          f"the argmax of its own teacher-forced replay at {checked} of "
+          f"{total} positions whose top-2 margin exceeds 1e-3 x "
+          f"max|logit|; end-to-end logit drift of the kernel path from the "
+          f"plain path (not gated; max |err| / max|logit| {p_scale:.4e}): "
+          f"{drift:.4e}")
+    if cfg.family == "encdec":                   # the encoder alone
+        enc = ex_t["enc_embeds"]
+        model.encode(eng.params, enc)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(5):
+            model.encode(eng.params, enc)
+        end.record()
+        end.synchronize()
+        out["encoder_ms"] = start.elapsed_time(end) / 5
+        print(f"{label}: encoder ({cfg.encoder_layers} layers over "
+              f"{tuple(enc.shape)} frames) {out['encoder_ms']:.4f} ms per "
+              f"call (CUDA events, mean of 5) [{smi}]")
+    del lk, lp, eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_moe(smi):
+    """qwen2-moe-a2.7b at its one-card cut: 16 tiled + 63 x 16 split."""
+    from repro_torch.configs import qwen2_moe_a2p7b
+
+    cfg = get_arch(MOE_ARCH).model.replace(**qwen2_moe_a2p7b.ONE_CARD_CUT)
+    L = cfg.num_layers
+    return serve_family(
+        f"MoE serving {MOE_ARCH} one-card cut ({cfg.moe_num_experts} "
+        f"experts top-{cfg.moe_top_k} + {cfg.moe_num_shared_experts} "
+        f"shared)", cfg, LM_PROMPT, LM_PROMPT + LM_GEN,
+        (L, (LM_GEN - 1) * L), smi)
+
+
+def phase_whisper(smi):
+    """whisper-small uncut: the encoder's 12 and the decoder prefill's 12
+    self + 12 cross calls tiled, then 63 x 24 split."""
+    cfg = get_arch(WHISPER_ARCH).model
+    L, E = cfg.num_layers, cfg.encoder_layers
+    return serve_family(f"Whisper serving {WHISPER_ARCH} uncut", cfg,
+                        WHISPER_PROMPT, WHISPER_MAX_SEQ,
+                        (E + 2 * L, (LM_GEN - 1) * 2 * L), smi)
+
+
+def phase_internvl(smi):
+    """internvl2-2b uncut: 256 patches + 512 prompt tokens in one tiled
+    call per layer, then 63 x 24 split."""
+    cfg = get_arch(INTERNVL_ARCH).model
+    L = cfg.num_layers
+    return serve_family(f"InternVL serving {INTERNVL_ARCH} uncut", cfg,
+                        LM_PROMPT, cfg.vision_tokens + LM_PROMPT + LM_GEN,
+                        (L, (LM_GEN - 1) * L), smi)
+
+
+# ---------------------------------------------------------------------------
+# 16. PAL at LM scale: the lm_active_distill twin on the card
+# ---------------------------------------------------------------------------
+
+DISTILL_TIMEOUT = 60.0            # the reference's is 120 s; its stop: 120
+
+
+def phase_distill(smi):
+    """``repro_torch.examples.lm_active_distill`` as the reference
+    configures it, stopped at 120 labelled sequences or after 60 s: each
+    student-engine dispatch one replay of a captured bucket graph through
+    ``committee_uq``, the teacher's attention through the flash kernel, the
+    students retrained by the captured trainer and handed back device to
+    device."""
+    import tempfile
+
+    from repro_torch.examples import lm_active_distill as distill
+
+    with tempfile.TemporaryDirectory() as tmp:
+        pal = distill.make_pal(tmp, "cuda")
+        cuq_kernel.launches = 0                  # this path starts here
+        fa_kernel.launches = 0
+        fa_kernel.launches_tiled = fa_kernel.launches_split = 0
+        with _ReplaySpans() as spans:
+            stopped_by, wall = distill.run_until(pal, DISTILL_TIMEOUT)
+        cuq_launches, fa_launches = cuq_kernel.launches, fa_kernel.launches
+        busy = spans.busy_share()
+        rep = pal.report()
+        c = rep["counters"]
+        eng, tr = pal.engine, pal.committee_trainer
+        teacher = pal.monitor.timer("oracle.run_calc")
+        bad = {k: c.get(k, 0) for k in ("runtime.thread_crashes",
+                                        "runtime.unjoined_threads")}
+        if any(bad.values()):
+            raise AssertionError(f"distill: {bad}")
+        if rep["labeled_total"] <= 0 or rep["device_weight_refreshes"] < 1:
+            raise AssertionError(f"distill: {rep['labeled_total']} labels, "
+                                 f"{rep['device_weight_refreshes']} "
+                                 f"refreshes")
+        warm = 2 * len(eng.trace_counts)
+        if cuq_launches != eng.dispatches + warm or eng.dispatches == 0:
+            raise AssertionError(f"distill: committee_uq launches "
+                                 f"{cuq_launches} != engine dispatches "
+                                 f"{eng.dispatches} + {warm} warm-up "
+                                 f"launches")
+        layers = distill.TEACHER.num_layers
+        if fa_launches != teacher.count * layers or teacher.count == 0:
+            raise AssertionError(f"distill: flash_attention launches "
+                                 f"{fa_launches} != {teacher.count} teacher "
+                                 f"forwards x {layers} layers")
+        if any(v != 1 for v in eng.trace_counts.values()) or \
+                tr.captures != 1 or tr.graph_replays != tr.steps_done:
+            raise AssertionError(f"distill: captures {eng.trace_counts}, "
+                                 f"trainer {tr.captures} captures, "
+                                 f"{tr.graph_replays} replays for "
+                                 f"{tr.steps_done} steps")
+        snap = tr.snapshot_cparams()
+        for a, b in zip(cmte.tree_leaves(eng.cparams),
+                        cmte.tree_leaves(snap)):
+            if not torch.equal(a, b):
+                raise AssertionError("distill: engine weights != the "
+                                     "trainer's")
+        it = c.get("exchange.iterations", 0)
+        sel_frac = rep["labeled_total"] / max(it * pal.cfg.gene_process, 1)
+        share, n_replays, window_ms = busy
+        # the teacher alone, after the run: ms per label on an idle card
+        oracle = distill.TeacherOracle(0, tmp, device="cuda")
+        prompts = [distill.PromptGene(r, tmp).generate_new_data(None)[1]
+                   for r in range(20)]
+        oracle.run_calc(prompts[0])
+        t0 = time.perf_counter()
+        for x in prompts:
+            oracle.run_calc(x)
+        teacher_alone_ms = (time.perf_counter() - t0) * 1e3 / len(prompts)
+        print(f"distill (PAL at LM scale, examples/lm_active_distill's "
+              f"configuration: 8 prompt generators, 3 students of 2 layers, "
+              f"2 teacher oracles of 4 layers): stopped by {stopped_by} "
+              f"after {wall:.4f} s (stop at {distill.TARGET_LABELS} labels "
+              f"or {DISTILL_TIMEOUT:.0f} s); {it} exchange rounds = "
+              f"{it / wall:.2f} it/s, {rep['labeled_total']} labels = "
+              f"{rep['labeled_total'] / wall:.2f} labels/s, selection "
+              f"fraction {sel_frac:.3f}; {c.get('train.retrains', 0)} "
+              f"retrains, {rep['train_fused_steps']} fused train steps, "
+              f"{rep['device_weight_refreshes']} device weight refreshes; "
+              f"teacher {1e3 * teacher.mean:.4f} ms per label over "
+              f"{teacher.count} in the run, {teacher_alone_ms:.4f} ms alone "
+              f"after it (mean of 20) [{smi}]")
+        print(f"distill device busy share (the union of the engine's and the "
+              f"trainer's graph replays by CUDA events; the teachers' "
+              f"kernels and the copies not counted) over "
+              f"{window_ms:.1f} ms from the first replay to the last: "
+              + (f"{100 * share:.2f} % ({n_replays} replays)"
+                 if share is not None else "not measured (no replay)")
+              + f" [{smi}]")
+        print(f"distill checks: 0 crashes, 0 unjoined threads; committee_uq "
+              f"launches {cuq_launches} == engine dispatches "
+              f"{eng.dispatches} + {warm} warm-up launches; flash_attention "
+              f"launches {fa_launches} == {teacher.count} teacher forwards x "
+              f"{layers} layers; one capture per bucket {eng.trace_counts} "
+              f"and one for the trainer; engine weights == the trainer's "
+              f"bit for bit")
+    return {"cuq_launches": cuq_launches, "fa_launches": fa_launches,
+            "stopped_by": stopped_by, "iterations_per_s": it / wall,
+            "labels_per_s": rep["labeled_total"] / wall,
+            "retrains": c.get("train.retrains", 0),
+            "train_steps": rep["train_fused_steps"],
+            "refreshes": rep["device_weight_refreshes"],
+            "selection_fraction": sel_frac, "busy_share": share,
+            "teacher_ms": 1e3 * teacher.mean,
+            "teacher_alone_ms": teacher_alone_ms}
+
+
 def _timed(name, fn, *args):
     """Run one phase; print its wall time."""
     t0 = time.perf_counter()
@@ -2868,6 +3358,20 @@ def main() -> int:
     _timed("jamba card vs CPU", phase_card_vs_cpu, JAMBA_ARCH,
            get_arch(JAMBA_ARCH).model.replace(**JAMBA_NARROW),
            (ssd_kernel, fa_kernel))
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"before the MoE phases: {torch.cuda.memory_allocated() / 2**30:.3f}"
+          f" GiB allocated on the card")
+    moe = _timed("moe serving", phase_moe, smi)
+    _timed("moe card vs CPU", phase_card_vs_cpu, MOE_ARCH,
+           two_layers(MOE_ARCH), (fa_kernel,))
+    whisper = _timed("whisper serving", phase_whisper, smi)
+    _timed("whisper card vs CPU", phase_card_vs_cpu, WHISPER_ARCH,
+           two_layers(WHISPER_ARCH).replace(encoder_layers=2), (fa_kernel,))
+    internvl = _timed("internvl serving", phase_internvl, smi)
+    _timed("internvl card vs CPU", phase_card_vs_cpu, INTERNVL_ARCH,
+           two_layers(INTERNVL_ARCH), (fa_kernel,))
+    distill = _timed("lm distill", phase_distill, smi)
     print(f"all phases: {time.perf_counter() - t_start:.2f} s wall")
     fd, fp = fa_t["decode"], fa_t["prefill"]
     jd, jp = fa_t["jamba_decode"], fa_t["jamba_prefill"]
@@ -2908,7 +3412,11 @@ def main() -> int:
         "host64_proposals_per_s": fleet["host64"]["proposals_per_s"],
         "fleet_runtime_iterations_per_s": fleet["iterations_per_s"],
         "fleet_runtime_labels_per_s": fleet["labels_per_s"],
-        "fleet_runtime_busy_share": fleet["busy_share"]}, {
+        "fleet_runtime_busy_share": fleet["busy_share"],
+        "distill_launches": distill["cuq_launches"],
+        "distill_iterations_per_s": distill["iterations_per_s"],
+        "distill_labels_per_s": distill["labels_per_s"],
+        "distill_busy_share": distill["busy_share"]}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:108",
@@ -2940,6 +3448,15 @@ def main() -> int:
         "jamba_prefill_bound_by": jp["bound_by"],
         "jamba_prefill_library_ms": jp["library_ms"],
         "jamba_prefill_library_gqa_ms": jp["library_gqa_ms"],
+        "moe_launches": moe["launches"],
+        "whisper_launches": whisper["launches"],
+        "internvl_launches": internvl["launches"],
+        "distill_launches": distill["fa_launches"],
+        **{f"{key}_{field}": fa_t[key][field]
+           for key in ("whisper_encoder", "whisper_cross_decode",
+                       "internvl_prefill", "moe_prefill")
+           for field in ("ms", "plain_ms", "bound_ms", "bound_by",
+                         "library_ms", "library_gqa_ms")},
         "sass_mma": fa_t["sass_mma"]}, {
         "name": "wkv6", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/wkv6.cu",

@@ -30,3 +30,15 @@ SPEC = ArchSpec(
     # rules resolver falls back automatically, pinned here for clarity.
     rules={"experts": (), "expert_mlp": ("model",)},
 )
+
+ONE_CARD_CUT = {"num_layers": 16}
+"""The one-card cut of this model (``MODEL.replace(**ONE_CARD_CUT)``), for
+one H100 80GB.  Counted with ``model_zoo.count_params``: 14,315,636,736
+parameters whole (24 layers), 9,751,201,792 at 16 layers.
+``ServeEngine`` keeps the fp32 parameters and their bf16 compute copy, 6
+bytes per parameter: 85.9 GB whole, which does not fit the card, and
+58.5 GB (54.5 GiB) at 16 layers, which leaves about 20 GB for the bf16
+activations, the MoE dispatch tensors and the KV cache.  Only the depth is
+cut; every width stays published (d_model 2048, 16 heads of 128, 60
+routed experts top-4 at d_ff 1408, 4 shared experts at d_ff 5632, vocab
+151936, groups of 256 tokens, capacity factor 1.25)."""

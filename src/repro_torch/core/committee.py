@@ -11,13 +11,19 @@ packages.
 ``params_from_numpy`` carries the reference's parameters across: any tree of
 array-likes (``np.asarray``-able, e.g. the reference's stacked ``cparams``)
 becomes the same tree of tensors on the requested device.
+
+The committee statistics (``mean_std`` with ddof 1, ``disagreement``) and
+the LM committee's uncertainty (``lm_token_nll``, the sequence-level
+``lm_committee_uncertainty``) follow the reference's functions; the
+``examples/lm_active_distill`` twin scores its student committee with them.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List, Optional
+from typing import Any, Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
 from torch.func import vmap
 
 from repro_torch.launch.platform import DeviceLike, resolve_device
@@ -154,6 +160,82 @@ def committee_size(cparams: Any) -> int:
 def make_committee_apply(apply_fn: Callable) -> Callable:
     """apply_fn(params, x) -> y  ==>  capply(cparams, x) -> (K, ...) y."""
     return vmap(apply_fn, in_dims=(0, None))
+
+
+def mean_std(preds: torch.Tensor, dim: int = 0
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Committee mean and std (ddof=1, matching the paper's utils); the
+    std is zeros for a committee of one."""
+    mean = torch.mean(preds, dim=dim)
+    k = preds.shape[dim]
+    std = (torch.std(preds, dim=dim, correction=1) if k > 1
+           else torch.zeros_like(mean))
+    return mean, std
+
+
+def disagreement(preds: torch.Tensor) -> torch.Tensor:
+    """Scalar per-sample uncertainty: max std over output components.
+
+    preds: (K, B, ...) -> (B,).  This is the quantity prediction_check
+    thresholds (paper utils: (std > threshold).any(axis=1))."""
+    _, std = mean_std(preds, dim=0)
+    return torch.amax(std.reshape(std.shape[0], -1), dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# LM committee uncertainty
+# ---------------------------------------------------------------------------
+
+
+def lm_token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """(B, T, V) x (B, T) -> (B, T) token NLL in fp32 (labels below 0 read
+    token 0, as the reference's ``clip(0)``)."""
+    lf = logits.to(torch.float32)
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = torch.gather(lf, -1, labels.clamp_min(0).to(torch.int64)[..., None]
+                      )[..., 0]
+    return lse - ll
+
+
+def lm_committee_uncertainty(clogits: torch.Tensor, labels: torch.Tensor):
+    """clogits: (K, B, T, V).  Returns (mean_nll (B,), std_nll (B,)).
+
+    Sequence-level committee disagreement = std over members of the mean
+    token NLL — the LM analog of energy-prediction std."""
+    nll = vmap(lm_token_nll, in_dims=(0, None))(clogits, labels)  # (K,B,T)
+    return mean_std(torch.mean(nll, dim=-1), dim=0)
+
+
+class Committee:
+    """Convenience wrapper pairing stacked params with a vmapped apply (not
+    a hot path: the exchange loop scores through ``FusedEngine``).
+
+    ``jit`` is taken for the reference's signature; the port compiles
+    nothing here, and both values run the ``torch.func.vmap``-ed apply
+    eagerly."""
+
+    def __init__(self, apply_fn: Callable, cparams: Any, jit: bool = True):
+        self.apply = make_committee_apply(apply_fn)
+        self.params = cparams
+
+    @property
+    def size(self) -> int:
+        return committee_size(self.params)
+
+    def predict(self, x) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Returns (preds (K, ...), mean, std)."""
+        preds = self.apply(self.params, x)
+        mean, std = mean_std(preds, dim=0)
+        return preds, mean, std
+
+    def replace_member(self, i: int, params: Any):
+        """Member ``i`` <- ``params`` (same tree), in new tensors."""
+        def put(c, p):
+            c = c.clone()
+            c[i] = p
+            return c
+
+        self.params = pytree.tree_map(put, self.params, params)
 
 
 # ---------------------------------------------------------------------------

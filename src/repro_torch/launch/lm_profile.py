@@ -4,12 +4,15 @@
     PYTHONPATH=src python -m repro_torch.launch.lm_profile --arch rwkv6-7b
     PYTHONPATH=src python -m repro_torch.launch.lm_profile \\
         --arch jamba-1.5-large-398b
+    PYTHONPATH=src python -m repro_torch.launch.lm_profile \\
+        --arch whisper-small --prompt-len 64
 
-Builds ``--arch`` (default llama3.2-1b; any family ``build_model`` ports)
-at full width, with random weights from ``--seed``, behind ``ServeEngine``
-(jamba-1.5-large-398b as its one-card cut, ``ONE_CARD_CUT``: 8 layers and
-2 experts, every width published), and reports, each line with the card's
-name and power limit:
+Builds ``--arch`` (default llama3.2-1b; any of the ten) at full width,
+with random weights from ``--seed``, behind ``ServeEngine``
+(jamba-1.5-large-398b and qwen2-moe-a2.7b as their one-card cuts,
+``ONE_CARD_CUT``, every width published; whisper-small and internvl2-2b
+with ``launch/serve.py``'s random frame / patch embeddings), and reports,
+each line with the card's name and power limit:
 
 * one ``generate`` of ``--batch`` prompts of ``--prompt-len`` tokens and
   ``--gen`` new tokens: prefill seconds, decode seconds per step, decode
@@ -38,8 +41,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_arch
-from repro_torch.configs.jamba1p5_large_398b import ONE_CARD_CUT
-from repro_torch.launch import platform
+from repro_torch.configs import jamba1p5_large_398b, qwen2_moe_a2p7b
+from repro_torch.launch import platform, serve
 from repro_torch.models import model_zoo
 from repro_torch.serving import ServeEngine
 
@@ -54,7 +57,8 @@ KERNEL_GROUPS = (("flash_attention", ("flash_tiled_kernel",
                  ("wkv6", ("wkv6_mma_kernel", "wkv6_fp32_kernel")),
                  ("ssd", ("ssd_mma_kernel", "ssd_fp32_kernel")))
 # archs too large for one card, cut as their config files state
-ONE_CARD_CUTS = {"jamba-1.5-large-398b": ONE_CARD_CUT}
+ONE_CARD_CUTS = {"jamba-1.5-large-398b": jamba1p5_large_398b.ONE_CARD_CUT,
+                 "qwen2-moe-a2.7b": qwen2_moe_a2p7b.ONE_CARD_CUT}
 GROUPS = KERNEL_GROUPS + (
     ("matmul", ("nvjet", "gemm", "cutlass", "xmma", "sm90_")),)
 
@@ -125,17 +129,21 @@ def profile(arch: str, batch: int, prompt_len: int, gen: int,
     card = info["nvidia_smi"]
     platform.set_reference_precision()
     cfg = get_arch(arch).model.replace(**ONE_CARD_CUTS.get(arch, {}))
-    max_seq = prompt_len + gen
+    n_prefix = cfg.vision_tokens if cfg.family == "vlm" else 0
+    max_seq = n_prefix + prompt_len + gen
     model = model_zoo.build_model(cfg, max_seq=max_seq)
     params = model.init(torch.Generator(device="cuda").manual_seed(seed),
                         device="cuda")
     eng = ServeEngine(model, params, max_seq=max_seq, batch=batch,
                       device="cuda")
-    prompt = np.random.RandomState(seed).randint(
-        0, cfg.vocab_size, (batch, prompt_len)).astype(np.int32)
-    eng.generate({"tokens": prompt}, max_new_tokens=4)          # warm-up
+    rng = np.random.RandomState(seed)
+    prompt = rng.randint(0, cfg.vocab_size, (batch, prompt_len)).astype(
+        np.int32)
+    extras = serve.prefill_inputs(cfg, batch, rng)
+    inputs = dict(tokens=prompt, **extras)
+    eng.generate(inputs, max_new_tokens=4)                      # warm-up
     torch.cuda.reset_peak_memory_stats()
-    res = eng.generate({"tokens": prompt}, max_new_tokens=gen)
+    res = eng.generate(inputs, max_new_tokens=gen)
     out = {"device": info, "arch": arch, "cut": ONE_CARD_CUTS.get(arch),
            "batch": batch,
            "prompt_len": prompt_len, "gen": gen,
@@ -150,18 +158,19 @@ def profile(arch: str, batch: int, prompt_len: int, gen: int,
           f"{out['peak_bytes'] / 2**30:.3f} GiB [{card}]")
 
     tokens = torch.from_numpy(prompt).to("cuda")
+    ex_t = {k: torch.from_numpy(v).to("cuda") for k, v in extras.items()}
     state = {}
 
     def prefill():
         cache = model.init_cache(batch, max_seq, device="cuda")
         state["logits"], state["cache"] = model.prefill(eng.params, tokens,
-                                                        cache)
+                                                        cache, **ex_t)
 
     def decode():
         cur = torch.argmax(state["logits"], -1).to(torch.int32)[:, None]
         for i in range(profile_steps):
             logits, _ = model.decode_step(eng.params, cur, state["cache"],
-                                          prompt_len + i)
+                                          n_prefix + prompt_len + i)
             cur = torch.argmax(logits, -1).to(torch.int32)[:, None]
 
     from torch.profiler import profile as tprofile

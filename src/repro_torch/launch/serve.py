@@ -11,10 +11,15 @@ with ``--device``; the CUDA device by default, and an error without it).
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --arch jamba-1.5-large-398b --preset smoke
 
-``--preset full`` of jamba-1.5-large-398b raises at once: its 397.6 B
-parameters do not fit one card.  Its one-card cut (``ONE_CARD_CUT`` in
-``configs/jamba1p5_large_398b.py``) runs through ``launch/lm_profile.py``
-and ``chip_smoke.py``.
+``--preset full`` of the hybrid and MoE families raises at once: their
+parameters do not fit one card (jamba-1.5-large-398b 397.6 B,
+qwen2-moe-a2.7b 14.3 B, qwen3-moe-235b-a22b 235.1 B, at 6 bytes each).  The
+one-card cuts (``ONE_CARD_CUT`` in ``configs/jamba1p5_large_398b.py`` and
+``configs/qwen2_moe_a2p7b.py``) run through ``chip_smoke.py`` and
+``launch/lm_profile.py``.  whisper-small gets random frame
+embeddings (B, encoder_seq, d_model) and internvl2-2b random patch
+embeddings (B, vision_tokens, d_model), as the reference's CLI gives
+them.
 """
 from __future__ import annotations
 
@@ -29,6 +34,20 @@ from repro_torch.launch import platform
 from repro_torch.launch.train import reduced_config
 from repro_torch.models import model_zoo
 from repro_torch.serving import ServeEngine
+
+
+def prefill_inputs(cfg, batch: int, rng: np.random.RandomState):
+    """The prefill's inputs beside the tokens, random at scale 0.02 as the
+    reference's CLI makes them: whisper's frame embeddings (batch,
+    encoder_seq, d_model), InternVL's patch embeddings (batch,
+    vision_tokens, d_model); none for the other families."""
+    if cfg.family == "encdec":
+        return {"enc_embeds": rng.randn(
+            batch, cfg.encoder_seq, cfg.d_model).astype(np.float32) * .02}
+    if cfg.family == "vlm":
+        return {"patch_embeds": rng.randn(
+            batch, cfg.vision_tokens, cfg.d_model).astype(np.float32) * .02}
+    return {}
 
 
 def main(argv=None):
@@ -46,13 +65,13 @@ def main(argv=None):
 
     spec = get_arch(args.arch)
     cfg = reduced_config(spec.model, args.preset)
-    if cfg.family == "hybrid" and args.preset == "full":
+    if cfg.family in ("hybrid", "moe") and args.preset == "full":
         n = model_zoo.count_params(cfg)
         raise ValueError(
             f"{args.arch} --preset full: {n / 1e9:.1f} B parameters do not "
             f"fit one card (the engine keeps fp32 weights and a bf16 copy, "
-            f"{6 * n / 1e9:.1f} GB); its one-card cut ONE_CARD_CUT runs "
-            f"through launch/lm_profile.py and chip_smoke.py")
+            f"{6 * n / 1e9:.1f} GB); a one-card cut (ONE_CARD_CUT in the "
+            f"arch's config, where it has one) runs through chip_smoke.py")
     dev = platform.resolve_device(args.device)
     max_seq = args.prompt_len + args.gen + (
         cfg.vision_tokens if cfg.family == "vlm" else 0)
@@ -63,6 +82,7 @@ def main(argv=None):
     rng = np.random.RandomState(args.seed)
     batch = {"tokens": rng.randint(
         0, cfg.vocab_size, (args.batch, args.prompt_len)).astype(np.int32)}
+    batch.update(prefill_inputs(cfg, args.batch, rng))
 
     eng = ServeEngine(model, params, max_seq=max_seq, batch=args.batch,
                       temperature=args.temperature, seed=args.seed,

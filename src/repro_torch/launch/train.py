@@ -2,9 +2,10 @@
 
 Only ``PRESETS`` and ``reduced_config`` live here for now: the serving
 driver (``launch/serve.py``) shrinks an arch with them, as the reference's
-does.  The LM training driver itself comes with the rest of the LM zoo
-(ROADMAP §A: the rest of the LM zoo); the committee trainer is
-``training/``.
+does.  The LM training entry point (the reference's ``main``) is
+queued (ROADMAP §A: launch/train.main); its pieces are ported
+(``model_zoo.make_loss_fn``, ``training.make_train_step``,
+``data.synthetic``).  The committee trainer is ``training/``.
 """
 from __future__ import annotations
 

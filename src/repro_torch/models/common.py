@@ -14,6 +14,7 @@ import dataclasses
 import math
 from typing import Any, Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -166,6 +167,18 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     """Rotary embedding, split-halves convention. x: (..., T, H, D) with
     positions (..., T) or (T,).  Frequencies and angles in fp32."""
     return apply_rope(x, *rope_tables(positions, x.shape[-1], theta))
+
+
+def sinusoidal_positions(n: int, d: int) -> torch.Tensor:
+    """Whisper-style sinusoidal table (n, d) on the CPU: built in float64
+    numpy and cast to fp32, as the reference builds it (the caller moves it
+    to its device)."""
+    half = d // 2
+    log_timescale = math.log(10000.0) / max(half - 1, 1)
+    inv = np.exp(-log_timescale * np.arange(half))
+    pos = np.arange(n)[:, None] * inv[None, :]
+    return torch.from_numpy(
+        np.concatenate([np.sin(pos), np.cos(pos)], axis=1).astype(np.float32))
 
 
 def activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:

@@ -1,47 +1,72 @@
-"""Model zoo: the uniform build / serve API of ``repro/models/model_zoo.py``.
+"""Model zoo: the uniform build / loss / serve API of
+``repro/models/model_zoo.py``.
 
-``build_model(cfg)`` dispatches on ``cfg.family``.  The port builds the
-dense, rwkv6 and hybrid (Jamba) families so far; every other family raises
-``NotImplementedError`` naming the ROADMAP item (§A) it waits for.  The
-reference's dry-run stand-ins (``input_specs`` / ``decode_input_specs``)
-wait for the planners item, and its ``make_loss_fn`` for the training slice.
+``build_model(cfg)`` dispatches on ``cfg.family`` over all six families
+(dense, moe, rwkv6, hybrid, encdec, vlm); ``make_loss_fn`` builds the
+training loss with the MoE load-balance term; ``make_prefill_fn`` passes
+the encoder-decoder's frame embeddings and the vision LM's patch
+embeddings through to the prefill.  The reference's dry-run stand-ins
+(``input_specs`` / ``decode_input_specs``) wait for the planners item
+(ROADMAP §A).
 """
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common as cm
+from repro_torch.models import internvl
 from repro_torch.models import jamba
+from repro_torch.models import moe
 from repro_torch.models import rwkv6
 from repro_torch.models import transformer as tfm
-
-_WAITING = {
-    "moe": "the rest of the LM zoo (ROADMAP §A: MoELM of "
-           "models/moe.py, whose moe_ffn is ported; its attention runs the "
-           "ported flash_attention kernel)",
-    "encdec": "the rest of the LM zoo (ROADMAP §A: "
-              "models/whisper.py; its attention runs the ported "
-              "flash_attention kernel)",
-    "vlm": "the rest of the LM zoo (ROADMAP §A: models/internvl.py; "
-           "its attention runs the ported flash_attention kernel)",
-}
+from repro_torch.models import whisper
 
 
 def build_model(cfg: ModelConfig, *, impl: str = "auto",
                 max_seq: int = 4096):
     """The LM object of ``cfg.family``; ``impl`` as ``DenseLM.impl``.
-    ``max_seq`` is accepted for the reference's signature (only the
-    encoder-decoder family uses it there)."""
+    ``max_seq`` sizes the encoder-decoder's learned decoder positions (the
+    other families ignore it, as in the reference)."""
     if cfg.family == "dense":
         return tfm.DenseLM(cfg, impl=impl)
+    if cfg.family == "moe":
+        return moe.MoELM(cfg, impl=impl)
     if cfg.family == "rwkv6":
         return rwkv6.RWKV6LM(cfg, impl=impl)
     if cfg.family == "hybrid":
         return jamba.JambaLM(cfg, impl=impl)
-    if cfg.family in _WAITING:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet; it waits "
-            f"for {_WAITING[cfg.family]}")
+    if cfg.family == "encdec":
+        return whisper.WhisperLM(cfg, impl=impl, max_seq=max_seq)
+    if cfg.family == "vlm":
+        return internvl.InternVLM(cfg, impl=impl)
     raise ValueError(f"unknown family {cfg.family!r}")
+
+
+# ---------------------------------------------------------------------------
+# Loss builders
+# ---------------------------------------------------------------------------
+
+
+def make_loss_fn(model, z_loss_coef: float = 0.0):
+    """``loss_fn(params, batch) -> (loss, metrics)``: ``tfm.lm_loss`` on
+    ``batch["labels"]``, plus the MoE load-balance term for the moe family
+    and the hybrid family with experts (``metrics["moe_aux"]``)."""
+    cfg = model.cfg
+    has_aux = cfg.family in ("moe", "hybrid") and cfg.moe_num_experts > 0
+
+    def loss_fn(params, batch):
+        if has_aux:
+            logits, aux = model.forward(params, batch, return_aux=True)
+        else:
+            logits, aux = model.forward(params, batch), 0.0
+        loss, metrics = tfm.lm_loss(logits, batch["labels"],
+                                    z_loss_coef=z_loss_coef)
+        loss = loss + aux
+        if has_aux:
+            metrics["moe_aux"] = aux
+        metrics["loss"] = loss
+        return loss, metrics
+
+    return loss_fn
 
 
 # ---------------------------------------------------------------------------
@@ -50,7 +75,15 @@ def build_model(cfg: ModelConfig, *, impl: str = "auto",
 
 
 def make_prefill_fn(model):
+    cfg = model.cfg
+
     def prefill_fn(params, batch, cache):
+        if cfg.family == "encdec":
+            return model.prefill(params, batch["tokens"], cache,
+                                 enc_embeds=batch["enc_embeds"])
+        if cfg.family == "vlm":
+            return model.prefill(params, batch["tokens"], cache,
+                                 patch_embeds=batch["patch_embeds"])
         return model.prefill(params, batch["tokens"], cache)
 
     return prefill_fn
@@ -65,6 +98,8 @@ def make_decode_fn(model, kv_seq_shard: bool = False):
 
 
 def count_params(cfg: ModelConfig, max_seq: int = 4096) -> int:
+    """Parameters of ``cfg`` from its specs (no allocation); the
+    encoder-decoder's ``dec_pos`` counted at ``max_seq`` rows."""
     model = build_model(cfg, max_seq=max_seq)
     return cm.count_params(model.param_specs())
 

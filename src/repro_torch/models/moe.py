@@ -1,6 +1,6 @@
-"""Capacity-factor Mixture-of-Experts FFN, ported from
-``repro/models/moe.py`` (its ``moe_ffn_specs``, ``_top_k_one_hot`` and
-``moe_ffn``; Jamba's MoE layers run it).
+"""Mixture-of-Experts LM (qwen2-moe-a2.7b, qwen3-moe-235b-a22b) and its
+capacity-factor FFN, ported from ``repro/models/moe.py`` (Jamba's MoE
+layers run the same ``moe_ffn``).
 
 GShard/Switch-style routing as dense one-hot products over fixed shapes:
 tokens are grouped (``moe_group_size``), each group builds a (S, E, C)
@@ -15,11 +15,16 @@ here; ``torch.topk`` promises no order), and ``jax.nn.one_hot`` gives an
 all-zero row for a position past the capacity (``F.one_hot`` raises; a
 comparison against ``arange(C)`` here).
 
+``MoELM`` is ``DenseLM`` with every FFN an MoE FFN: the attention blocks
+run the ported flash kernel, the KV cache is written in place, and the
+rotary tables are computed once per step for every layer.
+
 The reference's sharding hints (``shard_constraint``) have no counterpart
-on one card.  ``MoELM`` (the qwen MoE family) is not ported yet.
+on one card.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, NamedTuple
 
 import torch
@@ -32,6 +37,10 @@ from repro_torch.models.common import ParamSpec
 
 Params = Dict[str, Any]
 _proj = tfm._proj
+# leaves cast to the activation dtype before use: the attention and expert
+# weights, and the shared experts' gate; the router and the norm weights
+# are read in fp32
+CAST_KEYS = tfm.MATMUL_KEYS + ("gate",)
 
 
 def moe_ffn_specs(cfg: ModelConfig) -> Params:
@@ -52,6 +61,17 @@ def moe_ffn_specs(cfg: ModelConfig) -> Params:
             "gate": ParamSpec((D, 1), (ax.EMBED, None), scale=0.1),
         }
     return s
+
+
+def layer_specs(cfg: ModelConfig) -> Params:
+    return {"attn": tfm.attn_specs(cfg), "moe": moe_ffn_specs(cfg)}
+
+
+def param_specs(cfg: ModelConfig) -> Params:
+    return {
+        "layers": cm.stack_tree(layer_specs(cfg), cfg.num_layers),
+        **tfm.embed_specs(cfg),
+    }
 
 
 def _top_k_one_hot(gates: torch.Tensor, k: int):
@@ -146,3 +166,80 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig,
     frac = r.top_oh.sum(dim=2).mean(dim=(0, 1))            # (E,)
     mean_p = r.probs.mean(dim=(0, 1))
     return out, E * torch.sum(frac * mean_p)
+
+
+def moe_layer(p: Params, x: torch.Tensor, cfg: ModelConfig, *, positions,
+              cache=None, index=None, impl="auto", kv_seq_shard=False,
+              with_aux=False, rope=None):
+    """Attention block, then the MoE FFN.  Returns (x, cache[, aux])."""
+    a, new_cache = tfm.attention_block(
+        p["attn"], x, cfg, positions=positions, cache=cache, index=index,
+        impl=impl, kv_seq_shard=kv_seq_shard, rope=rope)
+    x = x + a
+    if with_aux:
+        m, aux = moe_ffn(p["moe"], x, cfg, return_aux=True)
+        return x + m, new_cache, aux
+    return x + moe_ffn(p["moe"], x, cfg), new_cache
+
+
+@dataclasses.dataclass
+class MoELM(tfm.DenseLM):
+    """Every layer: attention + MoE FFN (the qwen MoE family), behind the
+    dense model's serving API; ``impl`` as ``DenseLM.impl``."""
+
+    cast_keys = CAST_KEYS
+
+    def param_specs(self) -> Params:
+        return param_specs(self.cfg)
+
+    def forward(self, params: Params, batch: Dict[str, torch.Tensor],
+                return_aux: bool = False):
+        """Logits (B, T, V); with ``return_aux`` also the load-balance
+        loss, ``moe_router_aux_coef`` times its mean over the layers."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        x = tfm.embed(params, tokens, cfg)
+        positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                                 device=tokens.device)
+        rope = self._rope(positions)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for pl in self._layers(params):
+            x, _, a = moe_layer(pl, x, cfg, positions=positions,
+                                impl=self.impl, with_aux=True, rope=rope)
+            aux = aux + a
+        logits = tfm.unembed(params, x, cfg)
+        if return_aux:
+            return logits, cfg.moe_router_aux_coef * aux / cfg.num_layers
+        return logits
+
+    def _serve(self, params: Params, tokens: torch.Tensor, cache: Params,
+               index, kv_seq_shard: bool) -> torch.Tensor:
+        cfg = self.cfg
+        x = tfm.embed(params, tokens, cfg)
+        positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                                 device=tokens.device)
+        if index is not None:
+            positions = positions + index
+        rope = self._rope(positions)
+        for i, pl in enumerate(self._layers(params)):
+            x, _ = moe_layer(pl, x, cfg, positions=positions,
+                             cache=(cache["k"][i], cache["v"][i]),
+                             index=index, impl=self.impl,
+                             kv_seq_shard=kv_seq_shard, rope=rope)
+        return x
+
+    def prefill(self, params: Params, tokens: torch.Tensor, cache: Params):
+        """Fill the cache with T prompt tokens; return (last_logits, cache),
+        the cache updated in place."""
+        x = self._serve(params, tokens, cache, None, False)
+        logits = tfm.unembed(params, x[:, -1:, :], self.cfg)
+        return logits[:, 0, :], cache
+
+    def decode_step(self, params: Params, tokens: torch.Tensor,
+                    cache: Params, index: int, *,
+                    kv_seq_shard: bool = False):
+        """One decode step: tokens (B, T) at position ``index`` (a host
+        int)."""
+        x = self._serve(params, tokens, cache, int(index), kv_seq_shard)
+        logits = tfm.unembed(params, x, self.cfg)
+        return logits[:, -1, :], cache

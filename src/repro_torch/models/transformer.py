@@ -192,10 +192,11 @@ def dense_layer(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     return x, new_cache
 
 
-def layer_params(params: Params, num_layers: int) -> List[Params]:
-    """Per-layer views of the stacked ``params["layers"]`` (or the list as
-    it is, when a caller split the stack once ahead)."""
-    layers = params["layers"]
+def layer_params(params: Params, num_layers: int,
+                 key: str = "layers") -> List[Params]:
+    """Per-layer views of the stacked ``params[key]`` (or the list as it
+    is, when a caller split the stack once ahead)."""
+    layers = params[key]
     if isinstance(layers, (list, tuple)):
         return list(layers)
 
@@ -259,6 +260,11 @@ class DenseLM:
     def _layers(self, params: Params) -> List[Params]:
         return layer_params(params, self.cfg.num_layers)
 
+    def _stacks(self, params: Params) -> Dict[str, List[Params]]:
+        """The stacked layer trees of ``params``, each split into per-layer
+        views (``compute_params`` keeps them split)."""
+        return {"layers": self._layers(params)}
+
     def _rope(self, positions: torch.Tensor):
         """The rotary tables of one step, shared by every layer."""
         cfg = self.cfg
@@ -270,9 +276,9 @@ class DenseLM:
     def compute_params(self, params: Params) -> Params:
         """The tree a server keeps: every leaf the model casts to the
         activation dtype (``cast_keys``) cast once ahead, norm weights
-        left as they are, and the layer stack split into per-layer views.
-        The model's per-product casts then do nothing, and the bits are
-        those of casting at each product."""
+        left as they are, and each layer stack (``_stacks``) split into
+        per-layer views.  The model's per-product casts then do nothing,
+        and the bits are those of casting at each product."""
         dt = cm.torch_dtype(self.cfg.dtype)
         keys = self.cast_keys
 
@@ -281,8 +287,10 @@ class DenseLM:
                         else v.to(dt) if k in keys else v)
                     for k, v in tree.items()}
 
-        out = cast({k: v for k, v in params.items() if k != "layers"})
-        out["layers"] = [cast(pl) for pl in self._layers(params)]
+        stacks = self._stacks(params)
+        out = cast({k: v for k, v in params.items() if k not in stacks})
+        for key, layers in stacks.items():
+            out[key] = [cast(pl) for pl in layers]
         return out
 
     # ------------------------------------------------------------- forward
@@ -349,3 +357,32 @@ class DenseLM:
                                kv_seq_shard=kv_seq_shard, rope=rope)
         logits = unembed(params, x, cfg)
         return logits[:, -1, :], cache
+
+
+# ---------------------------------------------------------------------------
+# Loss (shared by the whole zoo)
+# ---------------------------------------------------------------------------
+
+
+def lm_loss(logits: torch.Tensor, labels: torch.Tensor,
+            mask: Optional[torch.Tensor] = None, z_loss_coef: float = 0.0):
+    """Next-token cross entropy in fp32.  labels: (B, T) int; -1 = ignore.
+    Returns (loss, metrics) with ``nll``, ``tokens`` and, when
+    ``z_loss_coef`` is set, ``z_loss``."""
+    lf = logits.to(torch.float32)
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = torch.gather(lf, -1, labels.clamp_min(0).to(torch.int64)[..., None]
+                      )[..., 0]
+    nll = lse - ll
+    valid = labels >= 0
+    if mask is not None:
+        valid = valid & (mask > 0)
+    w = valid.to(torch.float32)
+    denom = torch.clamp_min(w.sum(), 1.0)
+    loss = (nll * w).sum() / denom
+    metrics = {"nll": loss, "tokens": w.sum()}
+    if z_loss_coef:
+        zl = z_loss_coef * ((lse * w) ** 2).sum() / denom
+        loss = loss + zl
+        metrics["z_loss"] = zl
+    return loss, metrics

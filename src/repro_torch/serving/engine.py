@@ -1,10 +1,12 @@
 """Batched serving engines.
 
 ``ServeEngine`` — LM prefill + decode loop over the model zoo's cache API
-(the dense family's in-place KV cache, the rwkv6 family's in-place
-recurrent state, which ignores the decode index).  ``generate`` runs greedy
-(``argmax``) or temperature sampling (``torch.multinomial`` over
-``softmax(logits / T)`` with the engine's own ``torch.Generator``).  The
+(the in-place KV caches, the rwkv6 family's in-place recurrent state,
+which ignores the decode index; the encoder-decoder's ``enc_embeds`` and
+the vision LM's ``patch_embeds`` ride with the prompt into the prefill).
+``generate`` runs greedy (``argmax``) or temperature sampling
+(``torch.multinomial`` over ``softmax(logits / T)`` with the engine's own
+``torch.Generator``).  The
 decode index is a host int, so the loop adds no host sync of its own; the
 only syncs are the timers' and the final copy of the tokens.
 
@@ -27,7 +29,12 @@ import torch
 from repro_torch.core import acquisition as acq
 from repro_torch.core import committee as cmte
 from repro_torch.launch.platform import DeviceLike, resolve_device
+from repro_torch.models import common as cm
 from repro_torch.models import model_zoo
+
+# prefill inputs beside the tokens: the encoder-decoder's frame embeddings
+# and the vision LM's patch embeddings
+_EXTRA_INPUTS = ("enc_embeds", "patch_embeds")
 
 
 @dataclasses.dataclass
@@ -175,7 +182,12 @@ class ServeEngine:
             raise ValueError(f"prompt {T} + {max_new_tokens} new tokens do "
                              f"not fit max_seq={self.max_seq}")
         cache = self.model.init_cache(B, self.max_seq, device=self.device)
-        batch = dict(batch_inputs, tokens=tokens)
+        # the encoder's frames and the vision prefix go to the device in
+        # the activation dtype once, before the timed prefill
+        dt = cm.torch_dtype(self.model.cfg.dtype)
+        batch = dict(tokens=tokens, **{
+            k: torch.as_tensor(batch_inputs[k]).to(self.device, dt)
+            for k in _EXTRA_INPUTS if k in batch_inputs})
 
         _sync(self.device)
         t0 = time.perf_counter()

@@ -49,6 +49,8 @@ def test_every_module_imports_with_jax_blocked():
     assert len(MODULES) >= 40
     assert {"repro_torch.exploration",
             "repro_torch.exploration.fleet"} <= set(MODULES)
+    assert {"repro_torch.models.whisper", "repro_torch.models.internvl",
+            "repro_torch.examples.lm_active_distill"} <= set(MODULES)
 
 
 def test_no_source_imports_jax_or_the_reference():
@@ -137,6 +139,43 @@ def test_lm_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     b = torch.zeros(1, 16, 2, 8)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ssd_kernel.ssd(x, x[..., 0], b, b)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "whisper-small",
+                                  "internvl2-2b"])
+def test_new_lm_families_default_to_cuda_and_raise_without_it(arch,
+                                                               monkeypatch):
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.launch.train import reduced_config
+    from repro_torch.models import model_zoo
+    from repro_torch.serving import ServeEngine
+
+    model = model_zoo.build_model(reduced_config(get_arch(arch).model,
+                                                 "smoke"), max_seq=16)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        model.init(torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        model.init_cache(1, 8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ServeEngine(model, params, max_seq=8, batch=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--arch", arch, "--preset", "smoke"])
+
+
+def test_lm_distill_entry_points_default_to_cuda_and_raise_without_it(
+        monkeypatch):
+    from repro_torch.examples import lm_active_distill as distill
+
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        distill.make_pal(tempfile.mkdtemp())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        distill.TeacherOracle(0, "")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        distill.main(["--timeout", "1"])
 
 
 def test_kernel_wrapper_rejects_cpu_tensors():

@@ -488,10 +488,12 @@ def test_jamba_compute_params_keep_the_bits():
 
 
 def test_build_model_returns_jamba_for_hybrid_and_still_raises_for_moe():
+    """hybrid builds JambaLM; the moe family, which raised until MoELM was
+    ported, now builds ``moe.MoELM`` on the same ``moe_ffn``."""
     m = model_zoo.build_model(_tcfg(tiny_config("hybrid")), impl="plain")
     assert isinstance(m, tjamba.JambaLM) and m.impl == "plain"
-    with pytest.raises(NotImplementedError, match="MoELM"):
-        model_zoo.build_model(_tcfg(tiny_config("moe")))
+    moe_lm = model_zoo.build_model(_tcfg(tiny_config("moe")), impl="plain")
+    assert type(moe_lm) is tmoe.MoELM and moe_lm.impl == "plain"
 
 
 # ---------------------------------------------------------------------------

@@ -1557,3 +1557,174 @@ def test_ssd_kernel_rejects_what_it_does_not_take(cuda_device):
     kernel.ssd(x, a, Bm, Cm, chunk=64, device=cuda_device)
     torch.cuda.synchronize()
     assert kernel.launches == before + 2
+
+
+# ---------------------------------------------------------------------------
+# the rest of the LM zoo (MoELM, WhisperLM, InternVLM) and PAL at LM scale
+# ---------------------------------------------------------------------------
+
+LM_ZOO_ARCHS = ["qwen2-moe-a2.7b", "whisper-small", "internvl2-2b"]
+
+
+def _zoo_model(arch, layers=2, **kw):
+    """``arch`` at ``launch/serve.py``'s smoke widths with heads of 64 (a
+    head dim of the kernel's), ``layers`` layers (and encoder layers),
+    fp32; the MoE groups with room for every choice."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import reduced_config
+    from repro_torch.models import model_zoo
+
+    cfg = reduced_config(get_arch(arch).model, "smoke").replace(
+        num_layers=layers, head_dim=64, **kw)
+    if cfg.family == "encdec":
+        cfg = cfg.replace(encoder_layers=layers)
+    if cfg.family == "moe":
+        cfg = cfg.replace(moe_capacity_factor=8.0)
+    return cfg, model_zoo.build_model(cfg, max_seq=64)
+
+
+def _zoo_extras(cfg, B, device, seed=3):
+    rng = np.random.RandomState(seed)
+    if cfg.family == "encdec":
+        return {"enc_embeds": torch.from_numpy((rng.randn(
+            B, cfg.encoder_seq, cfg.d_model) * 0.02).astype(np.float32)).to(
+                device)}
+    if cfg.family == "vlm":
+        return {"patch_embeds": torch.from_numpy((rng.randn(
+            B, cfg.vision_tokens, cfg.d_model) * 0.02).astype(
+                np.float32)).to(device)}
+    return {}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", LM_ZOO_ARCHS)
+def test_lm_zoo_card_matches_cpu(cuda_device, arch):
+    """2 fp32 layers: prefill (with frame / patch embeddings) and 4 decode
+    steps teacher-forced with the card's greedy tokens, the card's kernel
+    path against the CPU's plain path on the same weights (rtol = atol =
+    1e-3, as chip_smoke's card-vs-CPU phase)."""
+    from repro_torch.core.committee import tree_map
+
+    cfg, m = _zoo_model(arch)
+    n_prefix = cfg.vision_tokens if cfg.family == "vlm" else 0
+    B, P = 2, 24
+    params = m.init(torch.Generator(device=cuda_device).manual_seed(0),
+                    device=cuda_device)
+    params_c = tree_map(lambda t: t.cpu(), params)
+    tok = torch.from_numpy(np.random.RandomState(1).randint(
+        0, cfg.vocab_size, (B, P)).astype(np.int32))
+    toks, outs = [], {}                   # toks: the card's greedy ones
+    for dev, p in ((cuda_device, params), (torch.device("cpu"), params_c)):
+        cache = m.init_cache(B, n_prefix + P + 8, device=dev)
+        logits, cache = m.prefill(p, tok.to(dev), cache,
+                                  **_zoo_extras(cfg, B, dev))
+        seq = [logits.float().cpu()]
+        for i in range(4):
+            if dev.type == "cuda":
+                toks.append(torch.argmax(seq[-1], -1).to(torch.int32))
+            logits, cache = m.decode_step(p, toks[i][:, None].to(dev), cache,
+                                          n_prefix + P + i)
+            seq.append(logits.float().cpu())
+        outs[dev.type] = torch.stack(seq, 1)
+    np.testing.assert_allclose(outs["cuda"].numpy(), outs["cpu"].numpy(),
+                               rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", LM_ZOO_ARCHS)
+def test_lm_zoo_generate_launches_flash_exactly(cuda_device, arch):
+    """One ``ServeEngine.generate`` of 6 new tokens at 2 bf16 layers: the
+    tiled path once per attention call of the prefill (Whisper: its
+    encoder, decoder self and cross calls), the split path once per call of
+    each of the 5 decode steps."""
+    from repro_torch.kernels import flash_attention as kernel
+    from repro_torch.serving import ServeEngine
+
+    cfg, m = _zoo_model(arch, dtype="bfloat16")
+    L = cfg.num_layers
+    want = {"moe": (L, 5 * L), "encdec": (cfg.encoder_layers + 2 * L,
+                                          5 * 2 * L),
+            "vlm": (L, 5 * L)}[cfg.family]
+    params = m.init(torch.Generator(device=cuda_device).manual_seed(0),
+                    device=cuda_device)
+    eng = ServeEngine(m, params, max_seq=64, batch=8, device=cuda_device)
+    batch = {"tokens": np.random.RandomState(2).randint(
+        0, cfg.vocab_size, (8, 16)).astype(np.int32),
+        **{k: v.cpu().numpy() for k, v in _zoo_extras(cfg, 8, "cpu").items()}}
+    before = (kernel.launches, kernel.launches_tiled, kernel.launches_split)
+    res = eng.generate(batch, max_new_tokens=6)
+    after = (kernel.launches, kernel.launches_tiled, kernel.launches_split)
+    assert (after[1] - before[1], after[2] - before[2]) == want
+    assert after[0] - before[0] == sum(want)
+    assert res.tokens.shape == (8, 22)
+    assert (res.tokens >= 0).all() and (res.tokens < cfg.padded_vocab).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("B,T,S,kv_len", [
+    (2, 1500, 1500, None),            # the encoder: S = 1500, H = KV = 12
+    (2, 64, 1500, None),              # cross-attention in the prefill
+    (4, 1, 1500, None),               # cross-attention in a decode step
+    (4, 1, 448, [65, 100, 300, 448]),  # decoder self-attention, 448 slots
+], ids=["encoder", "cross-prefill", "cross-decode", "self-decode"])
+def test_flash_attention_whisper_shapes_match_plain_version(
+        cuda_device, dtype, B, T, S, kv_len):
+    """Whisper-small's calls (H = KV = 12, D = 64): non-causal over 1500
+    frames with T != S on both paths, and the decoder's own decode."""
+    from repro_torch.kernels import flash_attention as kernel
+
+    rng = np.random.RandomState(13)
+    q, k, v = (torch.from_numpy(rng.randn(*s).astype(np.float32)).to(
+        cuda_device, dtype) for s in ((B, T, 12, 64), (B, S, 12, 64),
+                                      (B, S, 12, 64)))
+    kw = dict(causal=False)
+    if kv_len is not None:
+        kw.update(q_offset=S - 1, kv_len=torch.tensor(
+            kv_len, dtype=torch.int32, device=cuda_device))
+    path = kernel.plan(B, T, S, 12, 12).path
+    assert path == ("split" if T == 1 else "tiled")
+    before = (kernel.launches_tiled, kernel.launches_split)
+    got = ops.attention(q, k, v, **kw)
+    step = (kernel.launches_tiled - before[0],
+            kernel.launches_split - before[1])
+    assert step == ((1, 0) if path == "tiled" else (0, 1))
+    want = ref.attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               rtol=FA_TOL[dtype], atol=FA_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_lm_distill_short_run_on_the_card(cuda_device):
+    """The lm_active_distill twin on the card until 24 labels: every
+    student-engine dispatch one replay (committee_uq launches == dispatches
+    + 2 per in-run capture), the teacher's attention through the flash
+    kernel (launches == teacher forwards x 4 layers), no crash, and the
+    engine holding the trainer's weights bit for bit."""
+    import tempfile
+
+    from repro_torch.examples import lm_active_distill as distill
+    from repro_torch.kernels import committee_uq as cuq
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.core.committee import tree_leaves
+
+    with tempfile.TemporaryDirectory() as tmp:
+        pal = distill.make_pal(tmp, cuda_device)
+        c0, f0 = cuq.launches, fa.launches
+        stopped_by, _ = distill.run_until(pal, timeout=60.0, target=24)
+        rep = pal.report()
+        eng = pal.engine
+        assert stopped_by == "labels" and rep["labeled_total"] >= 24
+        assert rep["counters"].get("runtime.thread_crashes", 0) == 0
+        assert cuq.launches - c0 == eng.dispatches + 2 * len(
+            eng.trace_counts)
+        forwards = pal.monitor.timer("oracle.run_calc").count
+        assert forwards > 0 and fa.launches - f0 == 4 * forwards
+        assert all(v == 1 for v in eng.trace_counts.values())
+        if pal.committee_trainer.steps_done:
+            snap = pal.committee_trainer.snapshot_cparams()
+            for a, b in zip(tree_leaves(eng.cparams), tree_leaves(snap)):
+                assert torch.equal(a, b)
