@@ -161,7 +161,16 @@ Phases (each raises on a failed check; the script exits non-zero):
    forwards x 4 layers, no crash or unjoined thread, the engine holding the
    trainer's weights bit for bit; exchange it/s, labels/s, retrains, fused
    steps, weight refreshes, selection fraction and the busy share by CUDA
-   events.
+   events;
+17. LM training through ``repro_torch.launch.train`` (``phase_lm_train``):
+   every arch at ``--preset smoke`` with its step one captured CUDA graph
+   == the eager step bit for bit == the CPU; llama3.2-1b uncut for 30
+   captured steps through ``main(argv)`` with checkpoints and a resume
+   from step 20 bit for bit (ms a step captured and eager, tokens/s, MFU,
+   kernels a step, busy share, peak memory, the top kernels); 2 fp32
+   layers at full width against the CPU; every kernel wrapper refuses a
+   gradient-tracked input.  Training runs the plain attention and scans
+   and launches no kernel.
 
 The flash phase (4) also sweeps and times the new families' shapes (the
 Whisper encoder and cross-attention, InternVL's and qwen2-moe's prefill and
@@ -173,8 +182,10 @@ Without CUDA it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import gc
+import io
 import json
 import sys
 import threading
@@ -198,6 +209,7 @@ from repro_torch.kernels import flash_attention as fa_kernel  # noqa: E402
 from repro_torch.kernels import ssd as ssd_kernel  # noqa: E402
 from repro_torch.kernels import wkv6 as wkv_kernel  # noqa: E402
 from repro_torch.launch import platform  # noqa: E402
+from repro_torch.launch import roofline  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch import train_profile  # noqa: E402
 from repro_torch.models import model_zoo  # noqa: E402
@@ -208,10 +220,6 @@ from repro_torch.serving import (  # noqa: E402
 )
 
 SEED = 0
-# H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FP32_PER_S = 67e12           # fp32 outside the tensor cores
-PEAK_BF16_PER_S = 989e12          # bf16 tensor cores, dense
 # the reference's own committee_uq tolerances (tests/test_committee_uq.py)
 MEAN_RTOL, MEAN_ATOL = 1e-5, 1e-6
 STD_RTOL, STD_ATOL = 1e-4, 1e-6
@@ -410,7 +418,8 @@ def uq_bound(K, n, d, packed=False):
     peaks."""
     nbytes = K * n * d * 4 + n * d * 4 + 3 * n * 4 + n + (4 if packed else 0)
     flops = 6 * K * n * d + 4 * n * d
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FP32_PER_S
+    t_bytes = nbytes / roofline.HBM_BW
+    t_ops = flops / roofline.PEAK_FP32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -1731,8 +1740,9 @@ def fa_bound(B, T, H, KV, D, dtype, causal, kv_len):
     keys = sum(kv_len)                            # summed over the batch
     nbytes = esize * (2 * B * T * H * D + 2 * keys * KV * D)
     flops = (2 * B * H * T * T * D if causal else 4 * H * T * D * keys)
-    peak = PEAK_BF16_PER_S if dtype == torch.bfloat16 else PEAK_FP32_PER_S
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / peak
+    peak = (roofline.PEAK_FLOPS if dtype == torch.bfloat16
+            else roofline.PEAK_FP32_FLOPS)
+    t_bytes, t_ops = nbytes / roofline.HBM_BW, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -2427,8 +2437,9 @@ def wkv_bound(B, T, H, N, dtype, state_in=True):
     nbytes = (5 * B * T * H * N * esize + H * N * 4
               + (2 if state_in else 1) * B * H * N * N * 4)
     flops = 4 * B * T * H * N * N
-    peak = PEAK_BF16_PER_S if dtype == torch.bfloat16 else PEAK_FP32_PER_S
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / peak
+    peak = (roofline.PEAK_FLOPS if dtype == torch.bfloat16
+            else roofline.PEAK_FP32_FLOPS)
+    t_bytes, t_ops = nbytes / roofline.HBM_BW, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -2758,8 +2769,9 @@ def ssd_bound(x, a, Bm, Cm, state):
               + _stored_bytes(Cm) + (2 if state is not None else 1)
               * B * H * N * P * 4)
     flops = 4 * B * T * H * N * P
-    peak = PEAK_BF16_PER_S if x.dtype == torch.bfloat16 else PEAK_FP32_PER_S
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / peak
+    peak = (roofline.PEAK_FLOPS if x.dtype == torch.bfloat16
+            else roofline.PEAK_FP32_FLOPS)
+    t_bytes, t_ops = nbytes / roofline.HBM_BW, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -3314,6 +3326,408 @@ def phase_distill(smi):
             "teacher_alone_ms": teacher_alone_ms}
 
 
+# ---------------------------------------------------------------------------
+# 17. LM training through launch/train.py
+# ---------------------------------------------------------------------------
+
+LM_TRAIN_SMOKE = (4, 64, 5)       # batch, seq, steps at --preset smoke
+LM_TRAIN_FULL = (8, 512, 30)      # llama3.2-1b uncut: batch, seq, steps
+LM_TRAIN_CUT = (2, 128, 3)        # 2 fp32 layers at full width, vs the CPU
+LM_TRAIN_RESUME_AT = 20
+# card vs CPU, the CPU tests' tolerances (tests/test_torch_lm_train.py):
+# free running (each from one state), lr and losses at every step;
+# teacher-forced (the card's captured step loaded with the CPU's state
+# before each step), losses and moe_aux rtol 1e-5, grad norms rtol 1e-3
+LM_TRAIN_LOSS_RTOL = {"whisper-small": 1e-3}
+LM_TRAIN_LOSS_RTOL_DEFAULT = 1e-4
+LM_TRAIN_LR_RTOL = 1e-6
+LM_TRAIN_TF_RTOL = {"loss": 1e-5, "moe_aux": 1e-5, "grad_norm": 1e-3}
+
+
+def _kernel_launches():
+    return (cuq_kernel.launches, fa_kernel.launches, wkv_kernel.launches,
+            ssd_kernel.launches)
+
+
+def _reset_kernel_launches():
+    cuq_kernel.launches = fa_kernel.launches = 0
+    fa_kernel.launches_tiled = fa_kernel.launches_split = 0
+    wkv_kernel.launches = ssd_kernel.launches = 0
+
+
+def _train_state(arch, cfg, steps, seq):
+    """A fresh ``TrainState`` of ``cfg`` on the CPU from ``SEED``; each run
+    of a comparison starts from a copy of it."""
+    from repro_torch.launch import train as lm_train
+    from repro_torch.training import make_train_state
+
+    model = model_zoo.build_model(cfg, impl="plain", max_seq=seq)
+    params = model.init(torch.Generator().manual_seed(SEED), device="cpu")
+    return make_train_state(params, lm_train.train_config(arch, steps, 3e-4))
+
+
+def _rel(g, w):
+    return abs(g - w) / max(abs(w), 1e-30)
+
+
+def _hold_free_running(what, got, want, loss_rtol):
+    """``got`` (card) against ``want`` (CPU), each run free from one state:
+    lr and losses at every step; returns the worst relative loss
+    difference."""
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        for key, rtol in (("lr", LM_TRAIN_LR_RTOL), ("loss", loss_rtol)):
+            if not np.isfinite(g[key]) or _rel(g[key], w[key]) > rtol:
+                raise AssertionError(f"{what}: step {i + 1} {key} "
+                                     f"{g[key]!r} vs CPU {w[key]!r}")
+        worst = max(worst, _rel(g["loss"], w["loss"]))
+    return worst
+
+
+def _teacher_forced(arch, cfg, batch, seq, steps, state0):
+    """The CPU's step run free from ``state0`` on ``train``'s stream (what
+    ``train(device="cpu", init_state=state0)`` runs), and beside it the
+    card's captured step, loaded before each step with the CPU's state
+    before it: loss, ``moe_aux`` and grad norm held at every step at
+    ``LM_TRAIN_TF_RTOL``.  Returns the CPU's per-step metrics and the
+    worst relative difference of each held metric."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.synthetic import SyntheticTokenStream
+    from repro_torch.launch import train as lm_train
+    from repro_torch.training import CapturedTrainStep
+
+    loss_fn = model_zoo.make_loss_fn(
+        model_zoo.build_model(cfg, impl="plain", max_seq=seq))
+    tcfg = lm_train.train_config(arch, steps, 3e-4)
+    cpu = CapturedTrainStep(loss_fn, tcfg, torch.utils._pytree.tree_map(
+        lambda t: t.clone(), state0))
+    card = CapturedTrainStep(loss_fn, tcfg, torch.utils._pytree.tree_map(
+        lambda t: t.to("cuda", copy=True), state0))
+    stream = SyntheticTokenStream(
+        cfg, ShapeConfig("cli", seq, batch, "train"), seed=SEED)
+    want, worst = [], {}
+    for i in range(steps):
+        host = {k: torch.from_numpy(v) for k, v in next(stream).items()}
+        card.load_state_(cpu.state)
+        g = {k: float(v) for k, v in card(
+            {k: v.pin_memory() for k, v in host.items()}).items()}
+        w = {k: float(v) for k, v in cpu(host).items()}
+        for key, rtol in LM_TRAIN_TF_RTOL.items():
+            if key not in w:
+                continue
+            rel = _rel(g[key], w[key])
+            if not np.isfinite(g[key]) or rel > rtol:
+                raise AssertionError(f"{arch}: teacher-forced step {i + 1} "
+                                     f"{key} {g[key]!r} vs CPU {w[key]!r}")
+            worst[key] = max(worst.get(key, 0.0), rel)
+        want.append(w)
+    if (card.captures, card.replays) != (1, steps):
+        raise AssertionError(f"{arch}: teacher-forced captures "
+                             f"{card.captures}, replays {card.replays}")
+    return want, worst
+
+
+def _tf_text(worst):
+    return ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+
+
+def _same_state(a, b, what):
+    for x, y in zip(torch.utils._pytree.tree_leaves(a),
+                    torch.utils._pytree.tree_leaves(b)):
+        if not torch.equal(x.cpu(), y.cpu()):
+            raise AssertionError(f"{what}: final states differ")
+
+
+def _lm_train_smoke():
+    """(a) every arch at --preset smoke: captured == eager on the card bit
+    for bit (metrics and final state), one capture, the card == the CPU
+    (free running and teacher-forced)."""
+    from repro_torch.configs import list_archs
+    from repro_torch.launch import train as lm_train
+
+    batch, seq, steps = LM_TRAIN_SMOKE
+    rows = []
+    for arch in list_archs():
+        cfg = lm_train.reduced_config(get_arch(arch).model, "smoke")
+        state0 = _train_state(arch, cfg, steps, seq)
+        kw = dict(steps=steps, batch=batch, seq=seq, init_state=state0)
+        with contextlib.redirect_stdout(io.StringIO()):
+            cap = lm_train.train(arch, "smoke", device="cuda", **kw)
+            eager = lm_train.train(arch, "smoke", device="cuda",
+                                   capture=False, **kw)
+        cpu, tf = _teacher_forced(arch, cfg, batch, seq, steps, state0)
+        if (cap["captures"], cap["replays"], eager["captures"]) != (
+                1, steps, 0):
+            raise AssertionError(f"{arch}: captures {cap['captures']}, "
+                                 f"replays {cap['replays']}")
+        if cap["metrics"] != eager["metrics"]:
+            raise AssertionError(f"{arch}: captured metrics != eager: "
+                                 f"{cap['metrics']} vs {eager['metrics']}")
+        _same_state(cap["step"].state, eager["step"].state, arch)
+        wl = _hold_free_running(
+            arch, cap["metrics"], cpu,
+            LM_TRAIN_LOSS_RTOL.get(arch, LM_TRAIN_LOSS_RTOL_DEFAULT))
+        ms = float(np.mean(cap["step_ms"][1:]))
+        rows.append(arch)
+        print(f"  {arch}: {steps} steps, captured == eager bit for bit, "
+              f"1 capture; card vs CPU free running: worst loss rel "
+              f"{wl:.3e}; teacher-forced, worst rel: {_tf_text(tf)}; "
+              f"{ms:.3f} ms a captured step, "
+              f"{float(np.mean(eager['step_ms'][1:])):.3f} eager")
+    return rows
+
+
+def _top_kernels(fn, calls, n=8):
+    """The ``n`` device operations of ``calls`` calls of ``fn`` that take
+    the most device time, by ``torch.profiler`` (one thread, nothing else
+    on the card): (name, device ms per call, count per call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        rows.append((ev.key, us / 1e3 / calls, ev.count / calls))
+    return sorted(rows, key=lambda r: -r[1])[:n]
+
+
+def _lm_train_full(smi):
+    """(b) llama3.2-1b uncut through ``main(argv)``: 30 captured steps with
+    a checkpoint every 10; 3 eager steps before them; a resume from step 20
+    reproducing steps 21-30."""
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.synthetic import SyntheticTokenStream
+    from repro_torch.launch import train as lm_train
+
+    batch, seq, steps = LM_TRAIN_FULL
+    cfg = get_arch(LM_ARCH).model
+    flops = roofline.analytic_model_flops(
+        cfg, ShapeConfig("train", seq, batch, "train"))
+    # eager first: its activations leave the card before a graph's pool
+    # takes its own
+    with contextlib.redirect_stdout(io.StringIO()):
+        eager = lm_train.train(LM_ARCH, "full", steps=3, batch=batch,
+                               seq=seq, capture=False)
+    eager_ms, eager_peak = eager["step_ms"], eager["peak_bytes"]
+    ckpt_bytes = sum(t.nbytes for t in
+                     torch.utils._pytree.tree_leaves(eager["step"].state))
+    del eager
+    gc.collect()
+    torch.cuda.empty_cache()
+    argv = ["--arch", LM_ARCH, "--preset", "full", "--batch", str(batch),
+            "--seq", str(seq), "--steps", str(steps), "--ckpt-every", "10",
+            "--log-every", "10"]
+    with tempfile.TemporaryDirectory() as tmp:
+        # the run keeps its last 3 checkpoints (AsyncCheckpointer's keep)
+        free, need = shutil.disk_usage(tmp).free, 3 * ckpt_bytes + 2**30
+        print(f"  checkpoints in {tmp}: {free / 2**30:.1f} GiB free, "
+              f"{ckpt_bytes / 1e9:.2f} GB a checkpoint")
+        if free < need:
+            raise AssertionError(
+                f"checkpoints: {free / 2**30:.1f} GiB free in {tmp}, the run "
+                f"needs {need / 2**30:.1f} GiB (3 checkpoints of "
+                f"{ckpt_bytes / 2**30:.1f} GiB); point TMPDIR at a larger "
+                f"disk")
+        run, again = os.path.join(tmp, "run"), os.path.join(tmp, "resume")
+        out = lm_train.main(argv + ["--ckpt-dir", run])
+        losses = [m["loss"] for m in out["metrics"]]
+        if len(losses) != steps or not all(np.isfinite(losses)) \
+                or not losses[-1] < losses[0]:
+            raise AssertionError(f"full-width losses: {losses}")
+        if (out["captures"], out["replays"]) != (1, steps):
+            raise AssertionError(f"full width: captures {out['captures']}, "
+                                 f"replays {out['replays']}")
+        step_ms = float(np.mean(out["step_ms"][1:]))
+        stream = SyntheticTokenStream(
+            cfg, ShapeConfig("cli", seq, batch, "train"), seed=SEED,
+            step=steps)
+        host = {k: torch.from_numpy(v).pin_memory()
+                for k, v in next(stream).items()}
+        kernels, copies, device_us = _device_profile(
+            lambda: out["step"](host), 2)
+        top = _top_kernels(lambda: out["step"](host), 2)
+        # steps 2-10: after the capture, before the first checkpoint
+        starts, ms = out["step_start_ms"], out["step_ms"]
+        window = sum(ms[1:10]) / (starts[9] + ms[9] - starts[1])
+        result = {
+            "step_ms": step_ms, "eager_step_ms": eager_ms,
+            "first_step_ms": out["step_ms"][0],
+            "tokens_per_second": batch * seq / (step_ms / 1e3),
+            "run_tokens_per_second": out["tokens_per_second"],
+            "mfu": flops / (step_ms / 1e3 * roofline.PEAK_FLOPS),
+            "model_tflop": flops / 1e12, "kernels": kernels,
+            "copies": copies, "device_ms": device_us / 1e3,
+            "busy_share": out["busy_share"], "busy_share_2_10": window,
+            "top": top,
+            "peak_gib": out["peak_bytes"] / 2**30,
+            "eager_peak_gib": eager_peak / 2**30,
+            "run_seconds": out["seconds"], "losses": losses}
+        first = out["metrics"]
+        del out, host
+        gc.collect()
+        torch.cuda.empty_cache()
+        os.makedirs(again)
+        name = f"ckpt_{LM_TRAIN_RESUME_AT:08d}.pkl"
+        os.replace(os.path.join(run, name), os.path.join(again, name))
+        shutil.rmtree(run)
+        res = lm_train.main(argv + ["--ckpt-dir", again, "--resume"])
+        if res["start_step"] != LM_TRAIN_RESUME_AT or len(res["metrics"]) != \
+                steps - LM_TRAIN_RESUME_AT:
+            raise AssertionError(f"resume: start {res['start_step']}, "
+                                 f"{len(res['metrics'])} steps")
+        want = first[LM_TRAIN_RESUME_AT:]
+        result["resume_bitwise"] = res["metrics"] == want
+        result["resume_worst_rel"] = max(
+            abs(g[k] - w[k]) / max(abs(w[k]), 1e-30)
+            for g, w in zip(res["metrics"], want) for k in w)
+        if not result["resume_bitwise"]:
+            raise AssertionError(
+                f"resume from step {LM_TRAIN_RESUME_AT}: steps "
+                f"{LM_TRAIN_RESUME_AT + 1}-{steps} differ from the straight "
+                f"run (worst relative {result['resume_worst_rel']:.3e})")
+        del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
+def _lm_train_cut():
+    """(c) llama3.2-1b at full width cut to 2 fp32 layers: the card
+    against the CPU from one state, free running and teacher-forced."""
+    from repro_torch.launch import train as lm_train
+
+    batch, seq, steps = LM_TRAIN_CUT
+    cfg = two_layers(LM_ARCH)
+    state0 = _train_state(LM_ARCH, cfg, steps, seq)
+    with contextlib.redirect_stdout(io.StringIO()):
+        card = lm_train.train(LM_ARCH, "full", device="cuda", model_cfg=cfg,
+                              steps=steps, batch=batch, seq=seq,
+                              init_state=state0)
+    del card["step"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    cpu, tf = _teacher_forced(LM_ARCH, cfg, batch, seq, steps, state0)
+    return _hold_free_running("2-layer fp32 cut", card["metrics"], cpu,
+                              LM_TRAIN_LOSS_RTOL_DEFAULT), tf
+
+
+def _lm_train_refusal():
+    """(d) each kernel wrapper refuses an input that requires grad on the
+    card, before it launches."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def rand(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    n_valid = torch.tensor([64], dtype=torch.int32, device="cuda")
+    calls = {
+        "flash_attention": (lambda q, k, v: fa_kernel.flash_attention(
+            q, k, v), [rand(1, 64, 4, 64), rand(1, 64, 2, 64),
+                       rand(1, 64, 2, 64)]),
+        "wkv6": (lambda r, k, v, w, u: wkv_kernel.wkv6(r, k, v, w, u)[0],
+                 [rand(1, 64, 2, 64), rand(1, 64, 2, 64), rand(1, 64, 2, 64),
+                  torch.sigmoid(rand(1, 64, 2, 64)), rand(2, 64)]),
+        "ssd": (lambda x, a, b, c: ssd_kernel.ssd(x, a, b, c)[0],
+                [rand(1, 64, 2, 32), torch.sigmoid(rand(1, 64, 2)),
+                 rand(1, 64, 2, 16), rand(1, 64, 2, 16)]),
+        "committee_uq": (lambda p: cuq_kernel.committee_uq(p, 0.1)[0],
+                         [rand(4, 64, 24)]),
+        "committee_uq_packed": (lambda p: cuq_kernel.committee_uq_packed(
+            p, 0.1, n_valid), [rand(4, 64, 24)])}
+    before = _kernel_launches()
+    for name, (fn, xs) in calls.items():
+        for i in range(len(xs)):
+            args = [x.clone().requires_grad_(j == i)
+                    for j, x in enumerate(xs)]
+            try:
+                fn(*args).float().sum().backward()
+            except RuntimeError as e:
+                if "has no backward" not in str(e):
+                    raise
+            else:
+                raise AssertionError(f"{name}: input {i} requires grad and "
+                                     f"the wrapper did not refuse it")
+        with torch.no_grad():
+            fn(*[x.clone().requires_grad_() for x in xs])
+    torch.cuda.synchronize()
+    launched = [a - b for a, b in zip(_kernel_launches(), before)]
+    if launched != [2, 1, 1, 1]:
+        raise AssertionError(f"refusal: launches {launched}, want one "
+                             f"no-grad call each (2 for committee_uq)")
+    return len(calls)
+
+
+def phase_lm_train(smi):
+    """LM training through ``repro_torch.launch.train`` on the card, the
+    loop of the reference's ``launch/train.py`` with its step one captured
+    CUDA graph per batch shape (the plain attention and scans: the step
+    launches no kernel of its own): (a) every arch at ``--preset smoke``
+    (batch 4, seq 64, 5 steps, fp32, TF32 off), captured == eager bit for
+    bit, one capture, the card == the CPU free running and teacher-forced;
+    (b) llama3.2-1b uncut (1.236 B params,
+    fp32 params, bf16 compute), batch 8, seq 512, 30 steps through
+    ``main(argv)`` with a checkpoint every 10 steps: finite losses, the
+    last below the first, captured and eager ms a step, tokens/s, MFU by
+    ``roofline.analytic_model_flops``, kernels a step, the busy share by
+    CUDA events around the steps, peak memory, and a resume from step 20
+    reproducing steps 21-30 bit for bit; (c) 2 fp32 layers at full width,
+    the card against the CPU for 3 steps, free running and teacher-forced;
+    (d) every kernel wrapper refuses
+    a gradient-tracked input on the card."""
+    _reset_kernel_launches()
+    archs = _lm_train_smoke()
+    full = _lm_train_full(smi)
+    launched = _kernel_launches()
+    if any(launched):
+        raise AssertionError(f"LM training launched kernels {launched}: it "
+                             f"runs the plain path")
+    print(f"  llama3.2-1b full width, batch {LM_TRAIN_FULL[0]}, seq "
+          f"{LM_TRAIN_FULL[1]}: {full['step_ms']:.4f} ms a captured step "
+          f"(first, with the capture: {full['first_step_ms']:.1f} ms), "
+          f"eager {', '.join(f'{x:.4f}' for x in full['eager_step_ms'])} "
+          f"ms; {full['tokens_per_second']:.1f} tokens/s in the steps "
+          f"({full['run_tokens_per_second']:.1f} over the run's "
+          f"{full['run_seconds']:.2f} s with its checkpoints); MFU "
+          f"{full['mfu']:.4f} ({full['model_tflop']:.3f} TFLOP a step over "
+          f"989 TFLOP/s); {full['kernels']:.0f} kernels and "
+          f"{full['copies']:.0f} copies a step, {full['device_ms']:.4f} ms "
+          f"device a step by the profiler; busy share "
+          f"{100 * full['busy_share']:.2f} % over the run, "
+          f"{100 * full['busy_share_2_10']:.2f} % over steps 2-10 (CUDA "
+          f"events around the steps); "
+          f"peak {full['peak_gib']:.3f} GiB captured, "
+          f"{full['eager_peak_gib']:.3f} GiB eager; losses "
+          f"{full['losses'][0]:.4f} -> {full['losses'][-1]:.4f}; resume "
+          f"from step {LM_TRAIN_RESUME_AT}: steps {LM_TRAIN_RESUME_AT + 1}-"
+          f"{LM_TRAIN_FULL[2]} bit for bit; {smi}")
+    for name, ms, count in full["top"]:
+        print(f"    {ms:9.4f} ms a step, {count:5.0f} calls: {name[:110]}")
+    wl, tf = _lm_train_cut()
+    print(f"  2 fp32 layers at full width, card vs CPU over "
+          f"{LM_TRAIN_CUT[2]} steps: free running, worst loss rel {wl:.3e} "
+          f"(rtol {LM_TRAIN_LOSS_RTOL_DEFAULT}); teacher-forced, worst rel "
+          f"{_tf_text(tf)} (rtol {LM_TRAIN_TF_RTOL})")
+    n = _lm_train_refusal()
+    print(f"  {n} kernel entries refuse a gradient-tracked input on the "
+          f"card; {len(archs)} archs trained at the smoke preset; no kernel "
+          f"launched by training")
+    return full
+
+
 def _timed(name, fn, *args):
     """Run one phase; print its wall time."""
     t0 = time.perf_counter()
@@ -3372,6 +3786,9 @@ def main() -> int:
     _timed("internvl card vs CPU", phase_card_vs_cpu, INTERNVL_ARCH,
            two_layers(INTERNVL_ARCH), (fa_kernel,))
     distill = _timed("lm distill", phase_distill, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _timed("lm training", phase_lm_train, smi)
     print(f"all phases: {time.perf_counter() - t_start:.2f} s wall")
     fd, fp = fa_t["decode"], fa_t["prefill"]
     jd, jp = fa_t["jamba_decode"], fa_t["jamba_prefill"]

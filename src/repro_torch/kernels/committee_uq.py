@@ -21,6 +21,7 @@ import threading
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._guard import refuse_grad
 from repro_torch.kernels.ref import packed_uq_nbytes
 from repro_torch.launch.platform import DeviceLike, resolve_device
 
@@ -102,6 +103,7 @@ def committee_uq(preds: torch.Tensor, threshold: float, *,
     semantics of ``ref.committee_uq_ref``.  ``block_n`` is accepted for
     parity with the reference's signature; the kernel masks the ragged tail
     of rows itself and needs no row blocking."""
+    refuse_grad("committee_uq", preds)
     dev = resolve_device(device)
     K, n, d = _check_preds(preds, dev)
     mean = torch.empty((n, d), dtype=torch.float32, device=dev)
@@ -136,6 +138,7 @@ def committee_uq_packed(preds: torch.Tensor, threshold: float,
     graph may replay the launch with a new count).  ``out``: the buffer to
     write, 1-D uint8 contiguous on the device, of exactly that size; the
     call then allocates nothing.  Raises on anything else."""
+    refuse_grad("committee_uq_packed", preds)
     dev = resolve_device(device)
     K, n, d = _check_preds(preds, dev)
     if (n_valid.device != dev or n_valid.dtype != torch.int32

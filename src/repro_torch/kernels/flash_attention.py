@@ -39,6 +39,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._guard import refuse_grad
 from repro_torch.launch.platform import DeviceLike, resolve_device
 
 HEAD_DIMS = (16, 64, 120, 128)          # the kernels' template instances
@@ -157,6 +158,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     CUDA device); D in ``HEAD_DIMS``.  Returns (B, T, H, D) in that
     dtype."""
     global launches, launches_tiled, launches_split
+    refuse_grad("flash_attention", q, k, v)
     dev = resolve_device(device)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != dev or dev.type != "cuda":

@@ -27,6 +27,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._guard import refuse_grad
 from repro_torch.kernels.bf16_terms import mm_terms
 from repro_torch.launch.platform import DeviceLike, resolve_device
 
@@ -140,6 +141,7 @@ def ssd(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
     x's dtype, the new state (B, H, N, P) fp32, written into ``state_out``
     when given)."""
     global launches
+    refuse_grad("ssd", x, a, Bm, Cm, state)
     dev = resolve_device(device)
     for name, t in (("x", x), ("a", a), ("Bm", Bm), ("Cm", Cm)):
         if t.device != dev or dev.type != "cuda":

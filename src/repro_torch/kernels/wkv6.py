@@ -23,6 +23,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._guard import refuse_grad
 from repro_torch.kernels.bf16_terms import mm_terms
 from repro_torch.launch.platform import DeviceLike, resolve_device
 
@@ -127,6 +128,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     dtype, the new state (B, H, N, N) fp32, written into ``state_out`` when
     given)."""
     global launches
+    refuse_grad("wkv6", r, k, v, w, u, state)
     dev = resolve_device(device)
     for name, t in (("r", r), ("k", k), ("v", v), ("w", w), ("u", u)):
         if t.device != dev or dev.type != "cuda":

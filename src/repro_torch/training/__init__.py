@@ -6,5 +6,6 @@ from repro_torch.training.committee_trainer import (  # noqa: F401
     CommitteeTrainer, default_train_config, state_dict_from_reference,
 )
 from repro_torch.training.train_step import (  # noqa: F401
-    TrainState, make_eval_step, make_train_state, make_train_step,
+    CapturedTrainStep, TrainState, make_eval_step, make_train_state,
+    make_train_step, train_state_from_reference, train_state_to_reference,
 )

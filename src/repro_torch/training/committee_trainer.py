@@ -70,7 +70,7 @@ from repro_torch.models.common import torch_dtype
 from repro_torch.optim.adamw import AdamWState, QTensor, resolve_moments
 from repro_torch.optim.memory_policy import MemoryPolicy, resolve_policy
 from repro_torch.training.train_step import (
-    TrainState, make_train_state, make_train_step,
+    TrainState, _is_qtensor, make_train_state, make_train_step,
 )
 
 log = logging.getLogger(__name__)
@@ -126,10 +126,6 @@ def draw_indices(seed: int, step_seq: torch.Tensor, size: torch.Tensor,
 
 class _Mismatch(Exception):
     pass
-
-
-def _is_qtensor(t) -> bool:
-    return all(hasattr(t, a) for a in ("q", "scale", "block", "axis"))
 
 
 def _is_bf16(a) -> bool:

@@ -212,3 +212,33 @@ def test_kernel_build_paths_stay_inside_the_checkout():
         assert (_build.CSRC / f"{name}.cu").is_file()
         lib = _build.library_path(name)
         assert lib.parent == _build.BUILD_DIR and lib.suffix == ".so"
+
+
+def test_train_entry_point_and_roofline_stand_alone(monkeypatch):
+    """``launch/train.py`` and ``launch/roofline.py`` are among the modules
+    imported with JAX blocked; importing them requests no emulated host
+    devices (the reference's roofline does, at import); training defaults
+    to CUDA and raises without it."""
+    from repro_torch.launch import roofline, train
+
+    assert {"repro_torch.launch.train",
+            "repro_torch.launch.roofline"} <= set(MODULES)
+    code = ("import os, sys\n"
+            "sys.modules['jax'] = None\n"
+            f"sys.path[:0] = [{str(ROOT / 'src')!r}]\n"
+            "import repro_torch.launch.roofline, repro_torch.launch.train\n"
+            "assert 'XLA_FLAGS' not in os.environ, os.environ['XLA_FLAGS']\n"
+            "print('ok')\n")
+    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    env["PYTHONPATH"] = ""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, env=env, cwd=str(ROOT))
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+    assert roofline.PEAK_FLOPS == 989e12
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.main(["--steps", "1", "--batch", "1", "--seq", "8"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.train(steps=1, batch=1, seq=8)
+    out = train.train(steps=1, batch=1, seq=8, device="cpu")
+    assert out["captures"] == 0 and len(out["metrics"]) == 1

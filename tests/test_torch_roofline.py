@@ -1,0 +1,88 @@
+"""Port parity for the analytic half of ``launch/roofline.py``.
+
+Mirrors the four analytic tests of tests/test_launch_analysis.py
+(test_analytic_flops_scales_linearly_with_tokens,
+test_analytic_flops_train_is_3x_prefill,
+test_analytic_decode_flops_much_smaller_than_prefill, test_moe_active_ratio)
+on the port, and holds the port's ``analytic_model_flops`` equal to the
+reference's (rtol 1e-12) for every arch x train/prefill/decode.
+
+The reference module requests 512 emulated devices when it is imported,
+which raises once the JAX backend is up (inside a test body it is), so it
+is imported here at module top, as tests/test_launch_analysis.py imports
+the dry-run."""
+import repro.launch.roofline as jroofline  # noqa: I001  (before any backend use)
+
+import pytest
+
+from repro.configs import get_arch as jget_arch
+from repro.configs import list_archs as jlist_archs
+from repro.configs.base import ShapeConfig as JShapeConfig
+from repro_torch.configs import get_arch, list_archs
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch import roofline
+
+
+def test_analytic_flops_scales_linearly_with_tokens():
+    cfg = get_arch("llama3.2-1b").model
+    f1 = roofline.analytic_model_flops(cfg, ShapeConfig("a", 1024, 8, "train"))
+    f2 = roofline.analytic_model_flops(cfg,
+                                       ShapeConfig("b", 1024, 16, "train"))
+    assert f2 == pytest.approx(2 * f1, rel=1e-6)
+
+
+def test_analytic_flops_train_is_3x_prefill():
+    cfg = get_arch("mistral-nemo-12b").model
+    tr = roofline.analytic_model_flops(cfg, ShapeConfig("a", 2048, 8, "train"))
+    pf = roofline.analytic_model_flops(cfg,
+                                       ShapeConfig("b", 2048, 8, "prefill"))
+    assert tr == pytest.approx(3 * pf, rel=1e-6)
+
+
+def test_analytic_decode_flops_much_smaller_than_prefill():
+    for arch in ("rwkv6-7b", "whisper-small", "jamba-1.5-large-398b"):
+        cfg = get_arch(arch).model
+        pf = roofline.analytic_model_flops(
+            cfg, ShapeConfig("b", 4096, 8, "prefill"))
+        de = roofline.analytic_model_flops(
+            cfg, ShapeConfig("c", 4096, 8, "decode"))
+        assert de < pf / 100, arch     # one token vs 4096
+
+
+def test_moe_active_ratio():
+    n_act = roofline._active_params(get_arch("qwen3-moe-235b-a22b").model)
+    # qwen3: ~22B active of 235B total
+    assert 1.5e10 < n_act < 3.5e10
+    assert roofline._active_params(get_arch("llama3.2-1b").model) > 1.0e9
+
+
+@pytest.mark.parametrize("arch", list_archs())
+def test_analytic_model_flops_match_reference(arch):
+    assert list_archs() == jlist_archs()
+    cfg, jcfg = get_arch(arch).model, jget_arch(arch).model
+    assert roofline._active_params(cfg) == pytest.approx(
+        jroofline._active_params(jcfg), rel=1e-12)
+    for kind, seq, batch in (("train", 4096, 8), ("prefill", 32768, 1),
+                             ("decode", 32768, 8), ("train", 512, 8)):
+        got = roofline.analytic_model_flops(cfg,
+                                            ShapeConfig("s", seq, batch, kind))
+        want = jroofline.analytic_model_flops(
+            jcfg, JShapeConfig("s", seq, batch, kind))
+        assert got == pytest.approx(want, rel=1e-12), (kind, seq, batch)
+
+
+def test_h100_constants_and_the_planner_stubs():
+    assert roofline.PEAK_FLOPS == 989e12
+    assert roofline.PEAK_FP32_FLOPS == 67e12
+    assert roofline.HBM_BW == 3.35e12
+    assert roofline.hbm_bytes() > 0
+    # the TPU v5e figures of the reference stay there
+    assert roofline.PEAK_FLOPS != jroofline.PEAK_FLOPS
+    cfg = get_arch("llama3.2-1b").model
+    shape = ShapeConfig("s", 512, 8, "train")
+    flops = roofline.analytic_model_flops(cfg, shape)
+    assert 30.0e12 < flops < 31.5e12        # 6 x 1.236e9 x 4096 + attention
+    with pytest.raises(NotImplementedError, match=r"\(ROADMAP §A: planners\)"):
+        roofline.roofline_cell("llama3.2-1b", "train_4k")
+    with pytest.raises(NotImplementedError, match=r"\(ROADMAP §A: planners\)"):
+        roofline.main([])
