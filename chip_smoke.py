@@ -170,7 +170,15 @@ Phases (each raises on a failed check; the script exits non-zero):
    kernels a step, busy share, peak memory, the top kernels); 2 fp32
    layers at full width against the CPU; every kernel wrapper refuses a
    gradient-tracked input.  Training runs the plain attention and scans
-   and launches no kernel.
+   and launches no kernel;
+18. multi-device (``phase_mesh``, last): (a) NCCL at world size 1, the
+   1x1 mesh engine and trainer against the unsharded ones bit for bit and
+   ``PAL(uq_mesh='host')`` to its stop; (b) two gloo ranks sharing the
+   card (``launch/distributed.launch_local``) on 2x1 and 1x2 meshes: the
+   engine, the trainer, the fleet (2x1) and ``attention(kv_seq_shard=
+   True)`` (the ``flash_attention`` partials and combine entries) against
+   the unsharded paths, launch counts per rank; the CLI's ``DIST_OK 2 2
+   28.0``; dispatch and kernel timings.
 
 The flash phase (4) also sweeps and times the new families' shapes (the
 Whisper encoder and cross-attention, InternVL's and qwen2-moe's prefill and
@@ -920,14 +928,19 @@ def _runtime_cfg(tmp):
         checkpoint_every_iters=300)
 
 
-def _runtime_pal(tmp, chaos=None, resume=False):
+def _runtime_pal(tmp, chaos=None, resume=False, steps=RUNTIME_STEPS,
+                 **cfg):
+    """``_runtime_cfg``'s PAL (``cfg`` overrides its fields) with
+    generators that stop after ``steps`` proposals."""
+    import dataclasses
+
     from repro_torch.core import PAL
     from repro_torch.examples import quickstart
 
     return PAL(
-        _runtime_cfg(tmp),
+        dataclasses.replace(_runtime_cfg(tmp), **cfg),
         make_generator=lambda r, d: quickstart.MDGenerator(
-            r, d, n_atoms=PCFG.n_atoms, max_steps=RUNTIME_STEPS),
+            r, d, n_atoms=PCFG.n_atoms, max_steps=steps),
         make_oracle=lambda r, d: quickstart.LJOracle(r, d, device="cuda"),
         committee=acq.CommitteeSpec(member_forces, train_profile.committee()),
         loss_fn=train_profile.member_force_loss, chaos=chaos,
@@ -1682,6 +1695,490 @@ def phase_fleet(smi):
         "labels_per_s": rep["labeled_total"] / wall,
         "retrains": c["train.retrains"], "handoff_ms": handoff_ms,
         "oracle_ms": 1e3 * oracle.mean, "busy_share": share}
+
+
+# ---------------------------------------------------------------------------
+# 3e. multi-device: meshes over torch.distributed
+# ---------------------------------------------------------------------------
+
+MESH_THRESHOLD = 1.0              # phase_serving's budget pipeline
+MESH_ROWS = 64                    # rows of one dispatch (bucket 64)
+MESH_ROUNDS = 4                   # advancing rounds held against unsharded
+MESH_TRAIN_STEPS = 20             # captured steps held against unsharded
+MESH_PAL_STEPS = 300              # proposals per MD generator (cut: 1000)
+MESH_DISPATCHES = 200             # dispatches timed per engine
+MESH_FLEET = (16, 4)              # walkers, steps at noise 0 on 2x1
+MESH_ATTN = (8, 1, 576, 32, 8, 64)    # llama3.2-1b decode (B,T,S,H,KV,D)
+MESH_KV_LEN = [512, 521, 530, 539, 548, 557, 566, 575]
+MESH_MEAN_TOL = (1e-5, 1e-6)      # rtol, atol: committee_uq's mean
+MESH_STD_TOL = (1e-4, 1e-6)       # ... and both stds
+MESH_TRAIN_TOL = (1e-5, 1e-6)     # the committee axis (test_mesh_parity)
+
+
+def _mesh_kv_rules():
+    """The cache's sequence axis over every mesh axis, the batch whole."""
+    from repro_torch.configs import base as ax
+
+    return {ax.BATCH: (), ax.CACHE_SEQ: ("data", "model")}
+
+
+def _mesh_engine(mesh, cparams, capture=True):
+    from repro_torch.core import budget
+
+    rules = budget.rules_from_config(PALRunConfig(
+        std_threshold=MESH_THRESHOLD, oracle_budget=0.2,
+        reweight_buckets=64))
+    return acq.FusedEngine(member_forces, cparams, MESH_THRESHOLD,
+                           rules=rules, mesh=mesh, device="cuda",
+                           capture=capture)
+
+
+def _uq_fields(r):
+    return [torch.from_numpy(np.asarray(getattr(r, f))) for f in
+            ("mean", "scalar_std", "component_std", "mask")]
+
+
+def _hold_uq(got, want, what, exact):
+    """The mesh engine's round against the unsharded one's: bit for bit
+    (``exact``), else mean and stds within the kernel's tolerances and the
+    masks equal on every row whose statistics are equal (with the
+    re-weighting rule a row's threshold is its own, so a mask may differ
+    only where the statistics do).  Returns the worst error."""
+    g, w = _uq_fields(got), _uq_fields(want)
+    if exact:
+        for name, a, b in zip(("mean", "sstd", "cstd", "mask"), g, w):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{what}: {name} differs")
+        return 0.0
+    worst = max(_max_err(g[0], w[0], *MESH_MEAN_TOL, f"{what} mean"),
+                _max_err(g[1], w[1], *MESH_STD_TOL, f"{what} sstd"),
+                _max_err(g[2], w[2], *MESH_STD_TOL, f"{what} cstd"))
+    same = (g[0] == w[0]).all(dim=1) & (g[1] == w[1]) & (g[2] == w[2])
+    if not torch.equal(g[3][same], w[3][same]):
+        raise AssertionError(f"{what}: masks differ on rows with equal "
+                             f"statistics")
+    return worst
+
+
+def _same_rule_state(a, b, what):
+    for x, y in zip(cmte.tree_leaves(a), cmte.tree_leaves(b)):
+        if not np.array_equal(np.asarray(x), np.asarray(y)):
+            raise AssertionError(f"{what}: rule state differs")
+
+
+def _dispatch_ms(eng, rows, calls=MESH_DISPATCHES):
+    """Host ms per non-advancing dispatch of ``rows`` (warm)."""
+    for _ in range(5):
+        eng.score(rows, advance=False)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        eng.score(rows, advance=False)
+    return (time.perf_counter() - t0) * 1e3 / calls
+
+
+def _mesh_engine_check(mesh, exact, what):
+    """4 advancing rounds, the mesh engine against the unsharded one on
+    this card with the same weights; one capture per bucket, launches ==
+    dispatches + 2 warm-up launches; then a 64-row dispatch's host ms on
+    both (the mesh's collectives timed apart)."""
+    cparams = train_profile.committee()
+    em, e0 = _mesh_engine(mesh, cparams), _mesh_engine(None, cparams)
+    rounds = [_requests(MESH_ROWS, SEED + 40 + r) for r in range(MESH_ROUNDS)]
+    before = cuq_kernel.launches
+    got = [em.score(r) for r in rounds]
+    launches = cuq_kernel.launches - before
+    want = [e0.score(r) for r in rounds]
+    worst = max(_hold_uq(g, w, f"{what} round {i}", exact)
+                for i, (g, w) in enumerate(zip(got, want)))
+    _same_rule_state(em.state_dict(), e0.state_dict(), what)
+    dispatches = em.dispatches
+    if em.trace_counts != {MESH_ROWS: 1} or launches != dispatches + 2:
+        raise AssertionError(f"{what}: captures {em.trace_counts}, "
+                             f"{launches} launches for {dispatches} "
+                             f"dispatches")
+    if (em.bytes_to_device, em.bytes_to_host) != \
+            (e0.bytes_to_device, e0.bytes_to_host):
+        raise AssertionError(f"{what}: host bytes differ")
+    spent = [0.0]
+    gather = mesh.all_gather
+
+    def timed_gather(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return gather(*a, **kw)
+        finally:
+            spent[0] += time.perf_counter() - t0
+
+    rows = rounds[0]
+    mesh.all_gather = timed_gather
+    try:
+        mesh_ms = _dispatch_ms(em, rows)
+    finally:
+        del mesh.all_gather
+    return {"worst": worst, "launches": launches,
+            "dispatches": dispatches, "mesh_ms": mesh_ms,
+            "unsharded_ms": _dispatch_ms(e0, rows),
+            "collective_ms": spent[0] * 1e3 / (MESH_DISPATCHES + 5),
+            "collective_host_bytes": em.collective_host_bytes,
+            "members": int(next(iter(em.cparams.values())).shape[0]),
+            "rows": em.rows_of(MESH_ROWS), "engine": em}
+
+
+def _mesh_trainers(mesh, what, exact):
+    """``MESH_TRAIN_STEPS`` captured steps on the mesh trainer and the
+    unsharded one from the same committee and ring."""
+    from repro_torch.training.committee_trainer import CommitteeTrainer
+
+    blocks = train_profile.dataset(512, seed=1)
+    trs = []
+    for m in (mesh, None):
+        tr = CommitteeTrainer(train_profile.member_force_loss,
+                              train_profile.committee(), batch=64, lr=1e-3,
+                              replay_capacity=512, mesh=m, seed=0,
+                              device="cuda")
+        tr.add_blocks(blocks)
+        trs.append((tr, tr.train(steps=MESH_TRAIN_STEPS)))
+    (tm, mm), (t0, m0) = trs
+    whole = tm.snapshot_cparams(whole=True)
+    worst = 0.0
+    for k, v in t0.cparams.items():
+        if exact:
+            if not torch.equal(whole[k], v):
+                raise AssertionError(f"{what}: trainer param {k} differs")
+        else:
+            worst = max(worst, _max_err(whole[k], v, *MESH_TRAIN_TOL,
+                                        f"{what}: trainer param {k}"))
+    if exact and not np.array_equal(mm["loss"], m0["loss"]):
+        raise AssertionError(f"{what}: trainer losses differ")
+    if not exact:
+        worst = max(worst, _max_err(torch.from_numpy(mm["loss"]),
+                                    torch.from_numpy(m0["loss"]),
+                                    *MESH_TRAIN_TOL, f"{what}: losses"))
+    if tm.captures != 1 or tm.graph_replays != MESH_TRAIN_STEPS:
+        raise AssertionError(f"{what}: trainer captures {tm.captures}, "
+                             f"replays {tm.graph_replays}")
+    return tm, worst
+
+
+def _mesh_attention(mesh):
+    """``attention(kv_seq_shard=True)`` at the llama3.2-1b decode shape,
+    the cache split over the mesh: held against the one-rank flash kernel
+    on the whole cache and the plain version.  Returns the worst errors
+    and the partials/combine launches."""
+    from repro_torch.sharding.rules import MeshRules
+
+    B, T, S, H, KV, D = MESH_ATTN
+    rules = MeshRules(mesh, _mesh_kv_rules())
+    s0, s1 = ops.kv_seq_range(rules, B, S)
+    worst = {}
+    before = (fa_kernel.launches_partials, fa_kernel.launches_combine)
+    calls = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        q, k, v, kvl = _fa_inputs(B, T, S, H, KV, D, dtype, gen,
+                                  MESH_KV_LEN)
+        kw = dict(causal=True, q_offset=max(MESH_KV_LEN) - 1, kv_len=kvl)
+        got = ops.attention(q, k[:, s0:s1].contiguous(),
+                            v[:, s0:s1].contiguous(), kv_seq_shard=True,
+                            rules=rules, **kw)
+        calls += 1
+        one = ops.attention(q, k, v, **kw)
+        plain = ref.attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        tol = FA_TOL[dtype]
+        name = str(dtype).split(".")[-1]
+        worst[name] = max(
+            _max_err(got.float(), plain.float(), tol, tol,
+                     f"kv_seq_shard {name} vs plain"),
+            _max_err(got.float(), one.float(), tol, tol,
+                     f"kv_seq_shard {name} vs the one-rank kernel"))
+    launches = (fa_kernel.launches_partials - before[0],
+                fa_kernel.launches_combine - before[1])
+    if launches != (calls, calls):
+        raise AssertionError(f"kv_seq_shard: (partials, combine) launches "
+                             f"{launches} for {calls} calls")
+    return worst, launches, (s0, s1)
+
+
+def _mesh_fleet(mesh):
+    """The fleet on the mesh against the unsharded fleet, at noise 0."""
+    from repro_torch.exploration import FleetConfig, WalkerFleet
+
+    n, steps = MESH_FLEET
+    x0 = _walkers(n)
+    cparams = train_profile.committee()
+    fleets = [WalkerFleet(_mesh_engine(m, cparams), x0,
+                          FleetConfig(noise=0.0, patience=FLEET_PATIENCE))
+              for m in (mesh, None)]
+    worst = 0.0
+    for i in range(steps):
+        a, b = (fl.step() for fl in fleets)
+        if a.n_selected != b.n_selected:
+            raise AssertionError(f"fleet step {i}: {a.n_selected} vs "
+                                 f"{b.n_selected} selected")
+        worst = max(worst,
+                    _max_err(torch.from_numpy(a.selected),
+                             torch.from_numpy(b.selected), *MESH_MEAN_TOL,
+                             f"fleet step {i} selected"),
+                    _max_err(a.mean.cpu(), b.mean.cpu(), *MESH_MEAN_TOL,
+                             f"fleet step {i} mean"))
+    sa, sb = (fl.state_dict() for fl in fleets)
+    for k in sb:
+        worst = max(worst, _max_err(torch.from_numpy(np.asarray(
+            sa[k], np.float64)), torch.from_numpy(np.asarray(
+                sb[k], np.float64)), *MESH_MEAN_TOL, f"fleet state {k}"))
+    e = fleets[0].engine
+    return worst, e.step_dispatches, dict(e.step_trace_counts)
+
+
+def _mesh_rank(shape):
+    """One gloo rank of phase_mesh (b): every check on the (data, model)
+    mesh ``shape``, all ranks sharing this card.  Returns numbers only."""
+    from repro_torch.launch.mesh import make_scaleout_mesh
+
+    platform.set_reference_precision()
+    mesh = make_scaleout_mesh(*shape)
+    out = {"rank": int(torch.distributed.get_rank()),
+           "shape": dict(mesh.shape)}
+    eng = _mesh_engine_check(mesh, exact=False, what=f"{shape} engine")
+    del eng["engine"]
+    out["engine"] = eng
+    tm, out["train_worst"] = _mesh_trainers(mesh, f"{shape}",
+                                            exact=shape[1] == 1)
+    out["train_local"] = int(next(iter(tm.cparams.values())).shape[0])
+    if shape == (2, 1):
+        out["fleet"] = _mesh_fleet(mesh)
+    out["attn_worst"], out["attn_launches"], out["kv_range"] = \
+        _mesh_attention(mesh)
+    return out
+
+
+def _mesh_flash_times(smi):
+    """The partials and combine entries alone at the llama decode shape
+    (each rank's 288-key half; the merge of 2 ranks), held against their
+    plain versions and timed beside them, their bounds and the one-rank
+    split path on the whole cache."""
+    B, T, S, H, KV, D = MESH_ATTN
+    dtype = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    q, k, v, kvl = _fa_inputs(B, T, S, H, KV, D, dtype, gen, MESH_KV_LEN)
+    qo, n = max(MESH_KV_LEN) - 1, 2
+    halves = []
+    for r in range(n):
+        lo = r * S // n
+        halves.append((k[:, lo:lo + S // n].contiguous(),
+                       v[:, lo:lo + S // n].contiguous(),
+                       (kvl - lo).clamp(min=0), qo - lo))
+    kl, vl, kvl0, qo0 = halves[0]
+    p = fa_kernel.plan(B, T, S // n, H, KV)
+
+    def partials():
+        return fa_kernel.flash_partials(q, kl, vl, q_offset=qo0,
+                                        kv_len=kvl0)[0]
+
+    def plain_partials():
+        return fa_kernel.pack_partials(*fa_kernel.split_kv_partials(
+            q, kl, vl, splits=p.splits, keys_per_split=p.keys_per_split,
+            q_offset=qo0, kv_len=kvl0))
+
+    parts = torch.cat([fa_kernel.flash_partials(
+        q, a, b, q_offset=o, kv_len=c)[0] for a, b, c, o in halves])
+
+    def combine():
+        return fa_kernel.flash_combine(parts, ranks=n, splits=p.splits,
+                                       B=B, T=T, H=H, KV=KV, D=D,
+                                       dtype=dtype)
+
+    def plain_combine():
+        m, l, acc = (torch.cat(x) for x in zip(*(
+            fa_kernel.unpack_partials(c, B, T, H, KV, D, p.splits)
+            for c in parts.reshape(n, -1))))
+        return fa_kernel.combine_partials(m, l, acc, dtype)
+
+    tol = FA_TOL[dtype]
+    want_o = ref.attention_ref(q, k, v, causal=True, q_offset=qo,
+                               kv_len=kvl)
+    err = {"partials": _max_err(partials(), plain_partials(), tol, tol,
+                                "flash_partials vs plain"),
+           "combine": max(_max_err(combine().float(), plain_combine().float(),
+                                   tol, tol, "flash_combine vs plain"),
+                          _max_err(combine().float(), want_o.float(), tol,
+                                   tol, "flash_combine vs attention"))}
+    torch.cuda.synchronize()
+    es = torch.tensor([], dtype=dtype).element_size()
+    keys = sum(min(x, S // n) for x in MESH_KV_LEN)   # the first half's
+    pbytes = B * T * H * p.splits * (D + 2) * 4
+    t_bytes = (es * (B * T * H * D + 2 * keys * KV * D) + pbytes) / \
+        roofline.HBM_BW
+    t_ops = 4 * H * T * D * keys / roofline.PEAK_FLOPS
+    c_bytes = (n * pbytes + es * B * T * H * D) / roofline.HBM_BW
+    t = {"partials": {
+        "ms": graph_ms(partials, calls=10, replays=10),
+        "plain_ms": graph_ms(plain_partials, calls=10, replays=10),
+        "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None, "max_abs_err": err["partials"],
+        "splits": p.splits}, "combine": {
+        "ms": graph_ms(combine, calls=10, replays=10),
+        "plain_ms": graph_ms(plain_combine, calls=10, replays=10),
+        "bound_ms": c_bytes * 1e3, "bound_by": "bytes",
+        "library_ms": None, "max_abs_err": err["combine"]}}
+    t["split_ms"] = graph_ms(lambda: ops.attention(
+        q, k, v, causal=True, q_offset=qo, kv_len=kvl), calls=10,
+        replays=10)
+    print(f"flash partials (the rank's {S // n} keys, {p.splits} splits) "
+          f"{t['partials']['ms']:.6f} ms (plain "
+          f"{t['partials']['plain_ms']:.6f}, bound "
+          f"{t['partials']['bound_ms']:.6f} {t['partials']['bound_by']}); "
+          f"combine of {n} ranks {t['combine']['ms']:.6f} ms (plain "
+          f"{t['combine']['plain_ms']:.6f}, bound "
+          f"{t['combine']['bound_ms']:.6f} bytes); the one-rank split path "
+          f"on {S} keys {t['split_ms']:.6f} ms [{smi}]")
+    return t
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _dist_cli_smoke():
+    """The CLI's two-process check on this card: 2 gloo ranks, one TCP
+    coordinator, ``DIST_OK 2 2 28.0`` from both."""
+    import os
+    import subprocess
+
+    port = _free_port()
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo",
+               PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.distributed",
+         "--coordinator", f"127.0.0.1:{port}", "--processes", "2",
+         "--process-id", str(i), "--backend", "gloo", "--demo"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+        for i in range(2)]
+    try:
+        outs = [p.communicate(timeout=180) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, (out, err) in zip(procs, outs):
+        if p.returncode != 0 or "DIST_OK 2 2 28.0" not in out:
+            raise AssertionError(f"distributed CLI: rc {p.returncode}\n"
+                                 f"{out}\n{err[-2000:]}")
+    return [o.strip() for o, _ in outs]
+
+
+def phase_mesh(smi):
+    """Multi-device on one card.  (a) World size 1 over NCCL: the 1x1 mesh
+    engine == the unsharded engine bit for bit over 4 advancing rounds
+    with the budget and re-weighting rules (state included; one capture,
+    launches == dispatches + 2), the 1x1 mesh trainer == the unsharded
+    one bit for bit over 20 captured steps with a 0-host-byte handoff, and
+    ``PAL(uq_mesh='host')`` through the quickstart loop to its stop (cut:
+    300 proposals per generator, not 1000).  (b) Two gloo ranks sharing
+    this card (``launch_local``; the kernels were built before the spawn)
+    on meshes 2x1 and 1x2: the engine against an unsharded engine on the
+    same card (mean rtol 1e-5 atol 1e-6, stds rtol 1e-4 atol 1e-6, masks
+    equal where the statistics are, rule state equal), the trainer (2x1
+    bit for bit, 1x2 rtol 1e-5 atol 1e-6), the fleet on 2x1 at noise 0,
+    ``attention(kv_seq_shard=True)`` at the llama decode shape in bf16
+    and fp32 against the one-rank kernel and the plain version, and each
+    rank's launch counts; then the CLI's ``DIST_OK 2 2 28.0``.  Prints a
+    64-row dispatch's host ms on 1x1 and 2x1 beside the unsharded
+    engine's, and the partials/combine entries' device ms beside the
+    split path's."""
+    import tempfile
+
+    from repro_torch.launch import distributed
+    from repro_torch.launch.mesh import make_host_mesh
+
+    # --- (a) one rank over NCCL -------------------------------------------
+    distributed.initialize(f"127.0.0.1:{_free_port()}", 1, 0)
+    try:
+        if torch.distributed.get_backend() != "nccl":
+            raise AssertionError("world size 1 did not come up on NCCL")
+        one = torch.ones(1, device="cuda")
+        torch.distributed.all_reduce(one)
+        if float(one) != 1.0:
+            raise AssertionError("NCCL all_reduce over one rank")
+        host = make_host_mesh()
+        a_eng = _mesh_engine_check(host, exact=True, what="1x1 engine")
+        tm, _ = _mesh_trainers(host, "1x1", exact=True)
+        eng = a_eng.pop("engine")
+        eng.refresh_from_device(tm.snapshot_cparams())
+        if eng.refresh_host_bytes != 0 or eng.device_refreshes != 1:
+            raise AssertionError("1x1 handoff moved host bytes")
+        with tempfile.TemporaryDirectory() as tmp:
+            pal = _runtime_pal(tmp, uq_mesh="host", steps=MESH_PAL_STEPS)
+            if dict(pal.engine.mesh.shape) != {"data": 1, "model": 1} or \
+                    pal.committee_trainer.mesh is not pal.engine.mesh:
+                raise AssertionError("PAL(uq_mesh='host'): no host mesh")
+            before = cuq_kernel.launches
+            rep, c, bad, t0, t1 = _run_until_stop(pal, "PAL on the mesh")
+            launches = cuq_kernel.launches - before
+            pe = pal.engine
+            tok = pal.stop_token
+            if tok is None or not tok.origin.startswith("generator") or \
+                    any(bad.values()):
+                raise AssertionError(f"PAL on the mesh: stop {tok}, {bad}")
+            if any(v != 1 for v in pe.trace_counts.values()) or \
+                    launches != pe.dispatches + 2 * len(pe.trace_counts) \
+                    or pe.refresh_host_bytes != 0:
+                raise AssertionError(
+                    f"PAL on the mesh: captures {pe.trace_counts}, "
+                    f"{launches} launches for {pe.dispatches} dispatches, "
+                    f"{pe.refresh_host_bytes} handoff host bytes")
+            pal_stats = {"labels": rep["labeled_total"],
+                         "retrains": c.get("train.retrains", 0),
+                         "wall_s": t1 - t0, "launches": launches,
+                         "dispatches": pe.dispatches}
+            del pal
+    finally:
+        distributed.shutdown()
+    print(f"mesh (a) 1x1 over NCCL: engine and trainer bit for bit; a "
+          f"{MESH_ROWS}-row dispatch {a_eng['mesh_ms']:.4f} ms on the mesh, "
+          f"{a_eng['unsharded_ms']:.4f} ms unsharded (host ms, "
+          f"{MESH_DISPATCHES} calls); PAL(uq_mesh='host') {pal_stats} "
+          f"[{smi}]")
+
+    # --- (b) two gloo ranks sharing the card ------------------------------
+    b = {}
+    for shape in ((2, 1), (1, 2)):
+        b[shape] = distributed.launch_local(2, _mesh_rank, shape,
+                                            device="cuda:0", timeout=600)
+    cli = _dist_cli_smoke()
+    for shape, outs in b.items():
+        for o in outs:
+            e = o["engine"]
+            print(f"mesh (b) {shape} rank {o['rank']}: engine worst "
+                  f"{e['worst']:.3e}, {e['launches']} committee_uq "
+                  f"launches for {e['dispatches']} dispatches, members "
+                  f"{e['members']}, rows {e['rows']}; a {MESH_ROWS}-row "
+                  f"dispatch {e['mesh_ms']:.4f} ms on the mesh "
+                  f"(collectives {e['collective_ms']:.4f} ms, "
+                  f"{e['collective_host_bytes']} bytes staged), "
+                  f"{e['unsharded_ms']:.4f} ms unsharded; trainer worst "
+                  f"{o['train_worst']:.3e} ({o['train_local']} members); "
+                  f"kv_seq_shard {o['kv_range']} worst {o['attn_worst']}, "
+                  f"(partials, combine) launches {o['attn_launches']}"
+                  + (f"; fleet worst {o['fleet'][0]:.3e}, "
+                     f"{o['fleet'][1]} steps" if "fleet" in o else "")
+                  + f" [{smi}]")
+    print(f"distributed CLI: {cli}")
+    times = _mesh_flash_times(smi)
+    attn = [o for outs in b.values() for o in outs]
+    return {"a": a_eng, "pal": pal_stats, "b": b, "times": times,
+            "partials_launches": sum(o["attn_launches"][0] for o in attn),
+            "combine_launches": sum(o["attn_launches"][1] for o in attn),
+            "cuq_launches": a_eng["launches"] + sum(
+                o["engine"]["launches"] for o in attn),
+            "attn_worst": max(max(o["attn_worst"].values()) for o in attn)}
 
 
 # ---------------------------------------------------------------------------
@@ -3729,10 +4226,14 @@ def phase_lm_train(smi):
 
 
 def _timed(name, fn, *args):
-    """Run one phase; print its wall time."""
+    """Run one phase; print its wall time and what it left allocated on
+    the card (after a collection)."""
     t0 = time.perf_counter()
     out = fn(*args)
-    print(f"phase {name}: {time.perf_counter() - t0:.2f} s wall")
+    gc.collect()
+    print(f"phase {name}: {time.perf_counter() - t0:.2f} s wall, "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated "
+          f"after it")
     return out
 
 
@@ -3789,6 +4290,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     _timed("lm training", phase_lm_train, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = _timed("multi-device", phase_mesh, smi)
     print(f"all phases: {time.perf_counter() - t_start:.2f} s wall")
     fd, fp = fa_t["decode"], fa_t["prefill"]
     jd, jp = fa_t["jamba_decode"], fa_t["jamba_prefill"]
@@ -3833,7 +4337,16 @@ def main() -> int:
         "distill_launches": distill["cuq_launches"],
         "distill_iterations_per_s": distill["iterations_per_s"],
         "distill_labels_per_s": distill["labels_per_s"],
-        "distill_busy_share": distill["busy_share"]}, {
+        "distill_busy_share": distill["busy_share"],
+        "mesh_launches": mesh["cuq_launches"],
+        "mesh_dispatch_ms_1x1": mesh["a"]["mesh_ms"],
+        "mesh_dispatch_ms_1x1_unsharded": mesh["a"]["unsharded_ms"],
+        "mesh_dispatch_ms_2x1": [o["engine"]["mesh_ms"]
+                                 for o in mesh["b"][(2, 1)]],
+        "mesh_dispatch_ms_2x1_unsharded": [
+            o["engine"]["unsharded_ms"] for o in mesh["b"][(2, 1)]],
+        "mesh_collective_ms_2x1": [o["engine"]["collective_ms"]
+                                   for o in mesh["b"][(2, 1)]]}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:108",
@@ -3874,7 +4387,18 @@ def main() -> int:
                        "internvl_prefill", "moe_prefill")
            for field in ("ms", "plain_ms", "bound_ms", "bound_by",
                          "library_ms", "library_gqa_ms")},
-        "sass_mma": fa_t["sass_mma"]}, {
+        "sass_mma": fa_t["sass_mma"]}, *({
+        "name": f"flash_attention.{part}", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:108",
+        "entry": f"flash_attention_{part}",
+        "launches": mesh[f"{part}_launches"],
+        "max_abs_err": max(mesh["times"][part]["max_abs_err"],
+                           mesh["attn_worst"]),
+        **{k: mesh["times"][part][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "split_path_ms": mesh["times"]["split_ms"]}
+        for part in ("partials", "combine")), {
         "name": "wkv6", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/wkv6.cu",
         "replaces": "src/repro/kernels/wkv6.py:72",

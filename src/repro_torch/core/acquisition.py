@@ -29,10 +29,16 @@ and the serving path to the oracle buffer.
     into the caller's device-resident carry, one program per (cache key,
     bucket) — on the card one captured CUDA graph, replayed.  The host gets
     the selected rows and one int32 count (``FusedStepOut``).
-  * ``make_engine`` — config-driven factory (``PALRunConfig`` knobs).
+  * ``make_engine`` — config-driven factory (``PALRunConfig`` knobs);
+    ``resolve_mesh`` turns ``uq_mesh`` into a ``launch/mesh.Mesh``.
 
-Not ported yet: the mesh path raises ``NotImplementedError`` naming its
-ROADMAP item (multi-device).
+On a mesh (``FusedEngine(mesh=)``, ``launch/mesh.py``: one process per
+device over ``torch.distributed``) every rank holds its committee members
+(``COMMITTEE -> ('model',)``) and scores its rows of each bucket (the BATCH
+axes); the members are gathered before ``committee_uq``, the statistics'
+rows after it, and every rank runs the rule pipeline over the whole batch,
+so the carried rule state is replicated.  A bucket whose mesh axes are all
+of size 1 is exactly the unsharded program.
 """
 from __future__ import annotations
 
@@ -40,8 +46,9 @@ import contextlib
 import dataclasses
 import functools
 import logging
+import re
 import threading
-from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -398,6 +405,7 @@ class _Bucket:
         self.new_state: Tuple[Any, ...] = ()
         self.launches = 0
         self.event = torch.cuda.Event() if cuda else None
+        self.staged: Optional[_Staged] = None      # a sharded bucket's
 
     def set_output(self, packed: torch.Tensor) -> None:
         """Keep the program's packed output buffer (and its host twin)."""
@@ -439,10 +447,107 @@ class _StepBucket:
         self.new_state: Tuple[Any, ...] = ()
         self.launches = 0
         self.event = torch.cuda.Event() if cuda else None
+        self.staged: Optional[_Staged] = None      # a sharded bucket's
 
 
-_MESH = ("the mesh-parallel engine comes with the multi-device slice "
-         "(ROADMAP §A: multi-device)")
+class _Staged:
+    """A sharded bucket's program: stages of tensor work between the
+    collectives that exchange members and rows.  ``steps`` is a list of
+    ``("stage", fn)`` and ``("coll", fn)``; a collective's ``fn`` returns
+    the bytes it staged through host memory.  Adjacent stages run as one.
+    On the CPU (and with capture off) every step runs eagerly; on the card
+    each stage is captured as its own CUDA graph and replayed, the
+    collectives run eagerly between the replays on the engine's stream
+    (gloo cannot be captured; NCCL under capture is not verified)."""
+
+    def __init__(self, steps):
+        self.steps: List[Tuple[str, Callable]] = []
+        for kind, fn in steps:
+            if kind == "stage" and self.steps and \
+                    self.steps[-1][0] == "stage":
+                first = self.steps[-1][1]
+                self.steps[-1] = ("stage", _chain(first, fn))
+            else:
+                self.steps.append((kind, fn))
+        self.graphs: Optional[List[Any]] = None
+
+    def run(self) -> int:
+        """Every step eagerly; returns the bytes staged through the host."""
+        staged = 0
+        for kind, fn in self.steps:
+            out = fn()
+            if kind == "coll":
+                staged += out
+        return staged
+
+    def capture(self, stream) -> None:
+        """Capture every stage as a CUDA graph on ``stream`` (the caller
+        warmed the steps up and holds the capture lock); the collectives
+        are not run."""
+        graphs = []
+        for kind, fn in self.steps:
+            g = None
+            if kind == "stage":
+                g = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(g, stream=stream,
+                                      capture_error_mode="thread_local"):
+                    fn()
+            graphs.append(g)
+        self.graphs = graphs
+
+    def replay(self) -> int:
+        staged = 0
+        for (kind, fn), g in zip(self.steps, self.graphs):
+            if g is not None:
+                g.replay()
+            else:
+                staged += fn()
+        return staged
+
+
+def _chain(f: Callable, g: Callable) -> Callable:
+    def both():
+        f()
+        g()
+    return both
+
+
+def _write_carry(carry: Any, new_carry: Any) -> None:
+    """Copy ``new_carry``'s leaves into ``carry``'s buffers (a leaf that is
+    the buffer itself is skipped)."""
+    if tree_paths(new_carry) != tree_paths(carry):
+        raise ValueError(
+            f"score_after: the new carry's keys {tree_paths(new_carry)} "
+            f"are not the carry's {tree_paths(carry)}")
+    pairs = [(a, b) for a, b in zip(tree_leaves(carry),
+                                    tree_leaves(new_carry)) if a is not b]
+    if pairs:
+        torch._foreach_copy_([a for a, _ in pairs], [b for _, b in pairs])
+
+
+def _unpack_rows(rows: torch.Tensor, packed: torch.Tensor, nb: int,
+                 d: int) -> None:
+    """Write the gathered rows (``_row_matrix`` of the packed statistics,
+    columns ``[0, d + 4)``) into the packed buffer of ``nb`` rows."""
+    mean, sstd, cstd, finite, mask = ref.packed_uq_views(packed, nb, d)
+    mean.view(torch.int32).copy_(rows[:, :d])
+    sstd.view(torch.int32).copy_(rows[:, d])
+    cstd.view(torch.int32).copy_(rows[:, d + 1])
+    finite.copy_(rows[:, d + 2])
+    mask.copy_(rows[:, d + 3] != 0)
+
+
+def _row_matrix(*cols: torch.Tensor) -> torch.Tensor:
+    """Per-row fields as one int32 (rows, width) matrix, bit for bit: fp32
+    and int32 columns by their bits, bool as 0/1 (one collective carries
+    every field of a row)."""
+    out = []
+    for c in cols:
+        c = c.reshape(c.shape[0], -1)
+        if c.dtype == torch.bool:
+            c = c.to(torch.int32)
+        out.append(c.view(torch.int32))
+    return torch.cat(out, dim=1)
 
 
 class FusedEngine(UQEngine):
@@ -488,19 +593,61 @@ class FusedEngine(UQEngine):
     ``x: (n, in_dim) -> (n, out_dim)``; ``cparams`` is the stacked committee
     (leading K axis), copied to ``device`` (default: the CUDA device; raises
     without CUDA).
+
+    MESH PATH (``mesh=``, a ``launch/mesh.Mesh``; ``sharding_rules=``
+    overrides the logical-axis rules).  Every rank of the mesh builds the
+    same engine from the same global inputs and scores the same batches
+    (SPMD).  The stacked committee goes over the ``COMMITTEE`` rules'
+    axes (``('model',)``, with the divisibility fallback, warned once):
+    each rank keeps its own members.  Each bucket's rows go over the
+    ``BATCH`` rules' axes (``('pod', 'data')``, fallback per bucket).  The
+    rank's members score the rank's rows; the members' predictions are
+    gathered over the committee axes BEFORE ``committee_uq`` (the Welford
+    order over K is the unsharded one), the packed statistics of the rows
+    after it, and every rank runs the rule pipeline over the whole batch —
+    the carried rule state is replicated and equals the unsharded engine's.
+    A bucket whose mesh axes all have size 1 is the unsharded program (one
+    CUDA graph); any other is captured as the graphs between its
+    collectives (``_Staged``).  Every rank uploads the whole batch and
+    downloads the whole packed result, so ``bytes_to_device`` and
+    ``bytes_to_host`` are the unsharded engine's; bytes a gloo collective
+    stages through host memory are counted apart, in
+    ``collective_host_bytes``.
     """
 
     def __init__(self, apply_fn: Callable, cparams: Any, threshold: float,
                  *, rules: Optional[Sequence[SelectionRule]] = None,
                  min_bucket: int = 8, block_n: int = 128,
-                 mesh=None, device: DeviceLike = None,
+                 mesh=None, sharding_rules=None, device: DeviceLike = None,
                  capture: bool = True):
-        if mesh is not None:
-            raise NotImplementedError(_MESH)
         self.device = resolve_device(device)
         self.apply = make_committee_apply(apply_fn)
+        self.mesh = mesh
+        self._mesh_rules = None
+        self._k = committee_size(cparams)
+        # this rank's members and the mesh axes the committee is split over
+        self._member_axes: Tuple[str, ...] = ()
+        self._members = slice(0, self._k)
+        if mesh is not None:
+            from repro_torch.sharding.rules import (
+                MeshRules, committee_shardings, spec_axes, warn_fallbacks,
+            )
+
+            self._mesh_rules = MeshRules(mesh, sharding_rules)
+            spec = tree_leaves(committee_shardings(self._mesh_rules,
+                                                   cparams))[0].spec
+            self._member_axes = tuple(a for a in spec_axes(spec[0])
+                                      if mesh.shape[a] > 1)
+            # surface divisibility fallbacks (e.g. K=3 on a 2-way model
+            # axis degrading to replicated) once, with the chosen layout
+            warn_fallbacks(self._mesh_rules, "FusedEngine")
+            if self._member_axes:
+                kl = self._k // mesh.axes_size(self._member_axes)
+                i = mesh.axes_index(self._member_axes)
+                self._members = slice(i * kl, (i + 1) * kl)
+        self._row_axes_cache: Dict[int, Tuple[str, ...]] = {}
         self._cparams = tree_map(
-            lambda t: t.to(self.device, copy=True), cparams)
+            lambda t: t[self._members].to(self.device, copy=True), cparams)
         self.threshold = float(threshold)
         self.rules = tuple(rules) if rules is not None \
             else default_rules(threshold)
@@ -531,6 +678,7 @@ class FusedEngine(UQEngine):
         # host<->device traffic accounting
         self.bytes_to_device = 0
         self.bytes_to_host = 0
+        self.collective_host_bytes = 0       # gloo's staging (mesh path)
         # weight-refresh accounting: the device path stays at 0 host bytes
         self.refresh_host_bytes = 0
         self.device_refreshes = 0
@@ -541,11 +689,13 @@ class FusedEngine(UQEngine):
 
     @property
     def size(self) -> int:
-        return committee_size(self._cparams)
+        """The committee size K (over every rank of a mesh)."""
+        return self._k
 
     @property
     def cparams(self) -> Any:
-        """The engine's committee params (its own buffers)."""
+        """The engine's committee params (its own buffers): this rank's
+        members on a mesh whose committee axes are sharded."""
         return self._cparams
 
     @cparams.setter
@@ -573,17 +723,27 @@ class FusedEngine(UQEngine):
         preds = self.apply(cparams, x).contiguous()
         packed = ops.committee_uq_packed(preds, self.threshold, n_valid,
                                          out=out)
-        nb, d = preds.shape[1], preds.shape[2]
+        return (packed,) + self._rules_body(packed, x, n_valid, stream,
+                                            rstate, want_stats=want_stats)
+
+    def _rules_body(self, packed, x, n_valid, stream, rstate, *,
+                    want_stats: bool):
+        """The rule pipeline over the packed statistics of the batch ``x``;
+        writes the final mask into ``packed`` and returns ``(new_state,
+        stats, mask)`` (``stats`` None on the kernel-mask path unless
+        ``want_stats``)."""
+        nb = x.shape[0]
+        d = (packed.numel() - nb) // (4 * nb) - 3
         mean, sstd, cstd, finite, out_mask = ref.packed_uq_views(
             packed, nb, d)
         if self._kernel_mask_final and not want_stats:
-            return packed, (), None, out_mask
+            return (), None, out_mask
         valid = torch.arange(nb, device=x.device) < n_valid
         stats = UQStats(x=x, mean=mean, scalar_std=sstd, component_std=cstd,
                         valid=valid, n_valid=n_valid, stream=stream,
                         finite_members=finite)
         if self._kernel_mask_final:
-            return packed, (), stats, out_mask
+            return (), stats, out_mask
         mask = valid
         new_state, si = [], 0
         for rule in self.rules:
@@ -597,7 +757,7 @@ class FusedEngine(UQEngine):
         # quarantine floor: a row no finite member scored carries no
         # information — never selectable, whatever the rules say
         out_mask.copy_(mask & (finite > 0))
-        return packed, tuple(new_state), stats, out_mask
+        return tuple(new_state), stats, out_mask
 
     def _bucket(self, nb: int, in_dim: int) -> _Bucket:
         b = self._buckets.get(nb)
@@ -605,7 +765,9 @@ class FusedEngine(UQEngine):
             with self._compile_lock:
                 b = self._buckets.get(nb)
                 if b is None:
-                    b = _Bucket(nb, in_dim, self.device)
+                    # made on the engine's stream, which writes it
+                    b = self._on_stream(
+                        lambda: _Bucket(nb, in_dim, self.device))
                     if not self.capture:
                         self.trace_counts[nb] = \
                             self.trace_counts.get(nb, 0) + 1
@@ -615,7 +777,147 @@ class FusedEngine(UQEngine):
                              f"inputs, got {in_dim}")
         return b
 
+    # ---------------------------------------------------------------- mesh
+    def _row_axes(self, nb: int) -> Tuple[str, ...]:
+        """The mesh axes (of size > 1) a bucket's rows are split over: the
+        BATCH rules' axes, with the divisibility fallback for this nb."""
+        if self._mesh_rules is None:
+            return ()
+        ax = self._row_axes_cache.get(nb)
+        if ax is None:
+            from repro_torch.configs import base as axes
+            from repro_torch.sharding.rules import spec_axes
+
+            spec = self._mesh_rules.pspec((axes.BATCH, None), (nb, 1),
+                                          name="uq_batch")
+            ax = tuple(a for a in spec_axes(spec[0])
+                       if self.mesh.shape[a] > 1)
+            self._row_axes_cache[nb] = ax
+        return ax
+
+    def rows_of(self, nb: int) -> Tuple[int, int]:
+        """This rank's rows ``[r0, r1)`` of a bucket of ``nb`` rows
+        (``(0, nb)`` unsharded)."""
+        ax = self._row_axes(nb)
+        if not ax:
+            return 0, nb
+        n = nb // self.mesh.axes_size(ax)
+        i = self.mesh.axes_index(ax)
+        return i * n, (i + 1) * n
+
+    def _sharded(self, nb: int) -> bool:
+        return bool(self._member_axes or self._row_axes(nb))
+
+    def _count_staged(self, nbytes: int) -> None:
+        if nbytes:
+            with self._counter_lock:
+                self.collective_host_bytes += nbytes
+
+    def gather_rows(self, t: torch.Tensor, nb: int) -> torch.Tensor:
+        """A row-split tensor of a bucket of ``nb`` rows (dim 0 = this
+        rank's rows) with every rank's rows, in order; ``t`` itself
+        unsharded.  Every rank of the mesh must call it (a collective)."""
+        ax = self._row_axes(nb)
+        if not ax:
+            return t
+        out, staged = self.mesh.all_gather(t, ax)
+        self._count_staged(staged)
+        return out
+
+    def sum_rows(self, t: torch.Tensor, nb: int) -> torch.Tensor:
+        """The sum over the row ranks of a per-rank partial ``t`` (a count
+        over this rank's rows); ``t`` itself unsharded.  A collective."""
+        ax = self._row_axes(nb)
+        return self.mesh.all_reduce_sum(t, ax) if ax else t
+
+    def _gather_step(self, env: Dict[str, Any], src: str, dst: str,
+                     axes: Tuple[str, ...]) -> Callable[[], int]:
+        """A collective step: ``env[src]`` of every rank over ``axes``
+        (dim 0) into the static buffer ``env[dst]``."""
+        def gather() -> int:
+            out, staged = self.mesh.all_gather(env[src], axes)
+            if dst in env:
+                env[dst].copy_(out)
+            else:
+                env[dst] = out
+            return staged
+        return gather
+
+    def _mesh_steps(self, nb: int, n_valid, forward: Callable,
+                    finish: Callable) -> Tuple[_Staged, Dict[str, Any]]:
+        """A sharded program of a bucket of ``nb`` rows as a ``_Staged``,
+        and the dict of buffers its steps share: ``forward(env)`` sets
+        ``env['preds']`` (this rank's members on this rank's rows) and, for
+        ``score_after``, ``env['x']`` (the rank's proposals); the
+        predictions are gathered over the committee axes; ``committee_uq``
+        runs on the rank's rows (``n_valid`` shifted to them) into
+        ``env['packed_loc']``; the rows' statistics (and ``env['x']``) are
+        gathered over the row axes into ``env['rows']``; ``finish(env)``
+        runs over the whole batch."""
+        r0, r1 = self.rows_of(nb)
+        rows_ax = self._row_axes(nb)
+        env: Dict[str, Any] = {}
+
+        def uq():
+            src = env["preds_all"] if self._member_axes else env["preds"]
+            env["d"] = int(src.shape[2])
+            env["nv"] = (n_valid - r0).clamp(0, r1 - r0)
+            env["packed_loc"] = ops.committee_uq_packed(
+                src, self.threshold, env["nv"], out=env.get("packed_loc"))
+            if rows_ax:
+                env["rows_loc"] = _row_matrix(*ref.packed_uq_views(
+                    env["packed_loc"], r1 - r0, env["d"]),
+                    *([env["x"]] if "x" in env else []))
+
+        steps: List[Tuple[str, Callable]] = [("stage", lambda: forward(env))]
+        if self._member_axes:
+            steps.append(("coll", self._gather_step(
+                env, "preds", "preds_all", self._member_axes)))
+        steps.append(("stage", uq))
+        if rows_ax:
+            steps.append(("coll", self._gather_step(env, "rows_loc", "rows",
+                                                    rows_ax)))
+        steps.append(("stage", lambda: finish(env)))
+        return _Staged(steps), env
+
+    def _whole_packed(self, env: Dict[str, Any], packed, nb: int):
+        """The packed statistics of the whole bucket: the rank's own when
+        its rows are the bucket's, else the gathered rows written into
+        ``packed`` (allocated at the first run when None)."""
+        if not self._row_axes(nb):
+            return env["packed_loc"]
+        if packed is None:
+            packed = torch.empty(ref.packed_uq_nbytes(nb, env["d"]),
+                                 dtype=torch.uint8, device=self.device)
+        _unpack_rows(env["rows"], packed, nb, env["d"])
+        return packed
+
+    def _score_steps(self, b: _Bucket) -> Tuple[_Staged, Dict[str, Any]]:
+        """A sharded bucket's ``_Staged`` program (``_mesh_steps``): the
+        rank's members on the rank's rows of the batch, then the rule
+        pipeline over the whole batch writing the bucket's packed
+        output."""
+        r0, r1 = self.rows_of(b.nb)
+
+        def forward(env):
+            env["preds"] = self.apply(self._cparams, b.x[r0:r1]).contiguous()
+
+        def finish(env):
+            packed = self._whole_packed(env, b.packed, b.nb)
+            if b.packed is None:
+                b.set_output(packed)
+            env["new_state"] = self._rules_body(
+                b.packed, b.x, b.n_valid, b.stream, self.rule_state,
+                want_stats=False)[0]
+
+        return self._mesh_steps(b.nb, b.n_valid, forward, finish)
+
     def _run_program(self, b: _Bucket):
+        if self._sharded(b.nb):
+            if b.staged is None:
+                b.staged, b.env = self._score_steps(b)
+            self._count_staged(b.staged.run())
+            return b.env["new_state"]
         packed, new_state = self.program(
             self._cparams, b.x, b.n_valid, b.stream, self.rule_state,
             out=b.packed)
@@ -635,13 +937,17 @@ class FusedEngine(UQEngine):
         with platform.capture_lock:
             for _ in range(2):
                 self._run_program(b)
-            graph = torch.cuda.CUDAGraph()
             before = cuq_kernel.captured
-            with torch.cuda.graph(graph, stream=self._stream,
-                                  capture_error_mode="thread_local"):
-                _, new_state = self.program(
-                    self._cparams, b.x, b.n_valid, b.stream,
-                    self.rule_state, out=b.packed)
+            if b.staged is not None:            # a sharded bucket's stages
+                b.staged.capture(self._stream)
+                graph, new_state = b.staged, b.env["new_state"]
+            else:
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph, stream=self._stream,
+                                      capture_error_mode="thread_local"):
+                    _, new_state = self.program(
+                        self._cparams, b.x, b.n_valid, b.stream,
+                        self.rule_state, out=b.packed)
             b.launches = cuq_kernel.captured - before
             b.graph, b.new_state = graph, new_state
             with self._counter_lock:
@@ -661,7 +967,10 @@ class FusedEngine(UQEngine):
             if self.capture:
                 if b.graph is None:
                     self._capture(b)
-                b.graph.replay()
+                if b.staged is not None:
+                    self._count_staged(b.staged.replay())
+                else:
+                    b.graph.replay()
                 cuq_kernel.count_replays(b.launches)
                 new_state = b.new_state
             else:
@@ -731,10 +1040,20 @@ class FusedEngine(UQEngine):
     def place_carry(self, carry: Any, nb: int) -> Any:
         """A copy of the carried tree ``carry`` on the engine's device — the
         buffers a ``score_after`` caller then owns and passes every round.
-        ``nb`` (the rows' bucket) places rows on a mesh, which comes with
-        the multi-device slice; without one every leaf is copied whole."""
-        return self.carry_call(lambda: tree_map(
-            lambda t: torch.as_tensor(t).to(self.device, copy=True), carry))
+        On a mesh whose bucket ``nb`` splits its rows, a leaf whose leading
+        dimension is ``nb`` (per-walker state: positions, velocities, noise
+        counters, patience counters) keeps this rank's rows
+        (``rows_of(nb)``); every other leaf is copied whole (replicated)."""
+        r0, r1 = self.rows_of(nb)
+        split = (r0, r1) != (0, nb)
+
+        def leaf(t):
+            t = torch.as_tensor(t)
+            if split and t.dim() and int(t.shape[0]) == nb:
+                t = t[r0:r1]
+            return t.to(self.device, copy=True)
+
+        return self.carry_call(lambda: tree_map(leaf, carry))
 
     def carry_call(self, fn: Callable[[], Any]) -> Any:
         """Run ``fn`` (writes into, or reads of, a carry's buffers) ordered
@@ -759,27 +1078,91 @@ class FusedEngine(UQEngine):
             self._cparams, x, n_valid, stream, rstate, sb.packed,
             want_stats=True)
         if sb.packed is None:
-            sb.packed = packed
-            sb.d = stats.mean.shape[1]
-            sb.sel_x = torch.empty_like(x)
-            if x.device.type == "cuda":
-                sb.host_sel = torch.empty(tuple(x.shape), dtype=x.dtype,
-                                          pin_memory=True)
+            self._step_outputs(sb, packed, stats.mean.shape[1], x)
         new_carry = react_fn(mid, stats, mask) if react_fn is not None \
             else mid
+        self._select(sb, x, mask)
+        _write_carry(carry, new_carry)
+        return new_state
+
+    @staticmethod
+    def _step_outputs(sb: _StepBucket, packed: torch.Tensor, d: int,
+                      x: torch.Tensor) -> None:
+        """Keep a step program's packed output and allocate its selection
+        buffers (and their pinned host twins on the card)."""
+        sb.packed, sb.d = packed, d
+        sb.sel_x = torch.empty_like(x)
+        if x.device.type == "cuda":
+            sb.host_sel = torch.empty(tuple(x.shape), dtype=x.dtype,
+                                      pin_memory=True)
+
+    @staticmethod
+    def _select(sb: _StepBucket, x: torch.Tensor, mask: torch.Tensor
+                ) -> None:
+        """The selected rows of ``x`` packed to the front of ``sb.sel_x``
+        in stable order, their count into ``sb.n_sel``."""
         csum = torch.cumsum(mask.to(torch.int64), 0)
         rows = torch.searchsorted(csum, sb.ranks).clamp_(max=sb.nb - 1)
         torch.index_select(x, 0, rows, out=sb.sel_x)
         sb.n_sel.copy_(csum[-1:])
-        if tree_paths(new_carry) != tree_paths(carry):
-            raise ValueError(
-                f"score_after: the new carry's keys {tree_paths(new_carry)} "
-                f"are not the carry's {tree_paths(carry)}")
-        dst, src = tree_leaves(carry), tree_leaves(new_carry)
-        pairs = [(a, b) for a, b in zip(dst, src) if a is not b]
-        if pairs:
-            torch._foreach_copy_([a for a, _ in pairs], [b for _, b in pairs])
-        return new_state
+
+    def _step_steps(self, sb: _StepBucket, step_fn, react_fn, carry
+                    ) -> Tuple[_Staged, Dict[str, Any]]:
+        """A sharded ``score_after`` program (``_mesh_steps``): the step
+        and the rank's members on the rank's rows of the carry, then the
+        rule pipeline and the selection over the whole batch (the
+        proposals gathered with the statistics) and the react on the
+        rank's rows."""
+        nb = sb.nb
+        r0, r1 = self.rows_of(nb)
+        split = bool(self._row_axes(nb))
+
+        def forward(env):
+            env["x"], env["mid"] = step_fn(carry)
+            env["preds"] = self.apply(self._cparams, env["x"]).contiguous()
+
+        def finish(env):
+            d, x = env["d"], env["x"]
+            if split:
+                if sb.packed is None:
+                    env["x_all"] = torch.empty((nb, x.shape[1]),
+                                               dtype=x.dtype,
+                                               device=self.device)
+                env["x_all"].view(torch.int32).copy_(env["rows"][:, d + 4:])
+            x_all = env["x_all"] if split else x
+            packed = self._whole_packed(env, sb.packed, nb)
+            if sb.packed is None:
+                self._step_outputs(sb, packed, d, x_all)
+            new_state, stats, mask = self._rules_body(
+                sb.packed, x_all, sb.n_valid, sb.stream, self.rule_state,
+                want_stats=True)
+            if split:                    # the react sees this rank's rows
+                stats = UQStats(
+                    x=x, mean=stats.mean[r0:r1],
+                    scalar_std=stats.scalar_std[r0:r1],
+                    component_std=stats.component_std[r0:r1],
+                    valid=stats.valid[r0:r1], n_valid=env["nv"],
+                    stream=stats.stream,
+                    finite_members=stats.finite_members[r0:r1])
+            mid = env["mid"]
+            new_carry = react_fn(mid, stats, mask[r0:r1]) \
+                if react_fn is not None else mid
+            self._select(sb, x_all, mask)
+            _write_carry(carry, new_carry)
+            env["new_state"] = new_state
+
+        return self._mesh_steps(nb, sb.n_valid, forward, finish)
+
+    def _run_step(self, sb: _StepBucket, step_fn, react_fn, carry):
+        """One eager run of a step program; returns the rules' new state."""
+        if not self._sharded(sb.nb):
+            return self.step_program(step_fn, react_fn, carry, sb.n_valid,
+                                     sb.stream, self.rule_state, sb)
+        if sb.staged is None:
+            sb.staged, sb.env = self._step_steps(sb, step_fn, react_fn,
+                                                 carry)
+        self._count_staged(sb.staged.run())
+        return sb.env["new_state"]
 
     def _step_bucket(self, key: Tuple[str, int], carry: Any) -> _StepBucket:
         sb = self._step_buckets.get(key)
@@ -787,7 +1170,8 @@ class FusedEngine(UQEngine):
             with self._compile_lock:
                 sb = self._step_buckets.get(key)
                 if sb is None:
-                    sb = _StepBucket(key[1], self.device)
+                    sb = self._on_stream(
+                        lambda: _StepBucket(key[1], self.device))
                     sb.carry = tuple(tree_leaves(carry))
                     if not self.capture:
                         self.step_trace_counts[key] = \
@@ -828,16 +1212,19 @@ class FusedEngine(UQEngine):
         with platform.capture_lock:
             saved = [t.clone() for t in sb.carry]
             for _ in range(2):
-                self.step_program(step_fn, react_fn, carry, sb.n_valid,
-                                  sb.stream, self.rule_state, sb)
+                self._run_step(sb, step_fn, react_fn, carry)
             torch._foreach_copy_(list(sb.carry), saved)
-            graph = torch.cuda.CUDAGraph()
             before = cuq_kernel.captured
-            with torch.cuda.graph(graph, stream=self._stream,
-                                  capture_error_mode="thread_local"):
-                new_state = self.step_program(
-                    step_fn, react_fn, carry, sb.n_valid, sb.stream,
-                    self.rule_state, sb)
+            if sb.staged is not None:           # a sharded bucket's stages
+                sb.staged.capture(self._stream)
+                graph, new_state = sb.staged, sb.env["new_state"]
+            else:
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph, stream=self._stream,
+                                      capture_error_mode="thread_local"):
+                    new_state = self.step_program(
+                        step_fn, react_fn, carry, sb.n_valid, sb.stream,
+                        self.rule_state, sb)
             sb.launches = cuq_kernel.captured - before
             sb.graph, sb.new_state = graph, new_state
             with self._counter_lock:
@@ -900,13 +1287,14 @@ class FusedEngine(UQEngine):
             if self.capture:
                 if sb.graph is None:
                     self._capture_step(sb, step_fn, react_fn, carry, key)
-                sb.graph.replay()
+                if sb.staged is not None:
+                    self._count_staged(sb.staged.replay())
+                else:
+                    sb.graph.replay()
                 cuq_kernel.count_replays(sb.launches)
                 new_state = sb.new_state
             else:
-                new_state = self.step_program(
-                    step_fn, react_fn, carry, sb.n_valid, sb.stream,
-                    self.rule_state, sb)
+                new_state = self._run_step(sb, step_fn, react_fn, carry)
             if advance:
                 _copy_leaves(self.rule_state, new_state)
             packed = sb.packed.clone()
@@ -949,7 +1337,13 @@ class FusedEngine(UQEngine):
         self._on_stream(lambda: _copy_leaves(dst, src))
 
     def _load_params(self, cparams) -> None:
+        """Copy ``cparams`` into the engine's buffers: the rank's members
+        (on a mesh whose committee axes are split, a whole committee is cut
+        to this rank's members first)."""
         cur = self._cparams
+        local = self._members.stop - self._members.start
+        if local != self._k and committee_size(cparams) == self._k:
+            cparams = tree_map(lambda t: t[self._members], cparams)
         if tree_paths(cparams) != tree_paths(cur) or any(
                 tuple(a.shape) != tuple(b.shape)
                 for a, b in zip(tree_leaves(cparams), tree_leaves(cur))):
@@ -993,9 +1387,11 @@ class FusedEngine(UQEngine):
         tree is copied device to device into the engine's own buffers
         (which every captured graph reads) — no packed host round trip,
         so ``refresh_host_bytes`` stays untouched.  The committee size and
-        every leaf's shape must not change."""
+        every leaf's shape must not change.  On a mesh ``cparams`` is the
+        whole committee or this rank's members (a mesh trainer's
+        ``snapshot_cparams``)."""
         k = committee_size(cparams)
-        if k != self.size:
+        if k not in (self.size, self._members.stop - self._members.start):
             raise ValueError(
                 f"refresh_from_device: committee size changed ({k} vs "
                 f"{self.size})")
@@ -1120,6 +1516,41 @@ def wants_legacy(run_cfg, committee: Optional[CommitteeSpec],
                                                 and committee is None)
 
 
+def resolve_mesh(run_cfg):
+    """``PALRunConfig.uq_mesh`` -> a ``launch/mesh.Mesh`` (or None).
+
+    ''  (default) — no mesh: single-device dispatch.
+    'host'        — ``make_host_mesh()``: the degenerate 1x1
+                    ('data', 'model') mesh; the unsharded program.
+    'scaleout'    — ``make_scaleout_mesh()``: every rank on the 'data'
+                    axis (committee replicated, rows scale out).
+    'DxM'         — e.g. ``'4x2'``: an explicit ('data', 'model') grid
+                    over the first D*M ranks.
+    'production'  — ``make_production_mesh()``: the 16x16 ('data',
+                    'model') mesh (raises unless 256 ranks are up).
+
+    Divisibility fallbacks are NOT silent: ``FusedEngine`` and
+    ``CommitteeTrainer`` log a WARNING with the chosen fallback layout at
+    construction (``sharding.rules.warn_fallbacks``).
+    """
+    name = getattr(run_cfg, "uq_mesh", "") or ""
+    if not name:
+        return None
+    from repro_torch.launch import mesh as mesh_mod
+
+    if name == "host":
+        return mesh_mod.make_host_mesh()
+    if name == "scaleout":
+        return mesh_mod.make_scaleout_mesh()
+    if name == "production":
+        return mesh_mod.make_production_mesh()
+    m = re.fullmatch(r"(\d+)x(\d+)", name)
+    if m:
+        return mesh_mod.make_scaleout_mesh(int(m.group(1)), int(m.group(2)))
+    raise ValueError(f"uq_mesh={name!r}: expected '', 'host', 'scaleout', "
+                     "'DxM' (e.g. '4x2') or 'production'")
+
+
 def make_engine(
     run_cfg,
     *,
@@ -1145,10 +1576,10 @@ def make_engine(
                  float64 host statistics; it has no device
 
     ``force_legacy`` overrides everything (a ``predict_all_override`` puts
-    the user in control of raw predictions).  A mesh (``mesh=``,
-    ``sharding_rules=`` or ``uq_mesh``) on a fused engine raises
-    ``NotImplementedError``; the legacy path ignores meshes, as in the
-    reference.
+    the user in control of raw predictions).  ``mesh`` /
+    ``sharding_rules`` select the fused engine's mesh path; when ``mesh``
+    is None it is resolved from ``run_cfg.uq_mesh`` (:func:`resolve_mesh`).
+    The legacy path ignores meshes, as in the reference.
 
     When no explicit ``rules=`` are given, the pipeline comes from the
     config's budget knobs (``core/budget.rules_from_config``).
@@ -1170,13 +1601,13 @@ def make_engine(
         raise ValueError(
             f"uq_impl={getattr(run_cfg, 'uq_impl', 'auto')!r} is a fused "
             "backend and needs a CommitteeSpec (apply_fn + stacked cparams)")
-    if (mesh is not None or sharding_rules is not None
-            or getattr(run_cfg, "uq_mesh", "")):
-        raise NotImplementedError(_MESH)
+    if mesh is None:
+        mesh = resolve_mesh(run_cfg)
     return FusedEngine(
         committee.apply_fn, committee.cparams, run_cfg.std_threshold,
         rules=rules,
         block_n=getattr(run_cfg, "uq_block_n", 128),
         min_bucket=getattr(run_cfg, "uq_bucket", 8),
+        mesh=mesh, sharding_rules=sharding_rules,
         device=dev, capture=capture,
     )

@@ -45,8 +45,14 @@ device-resident ``exploration.WalkerFleet`` on the engine's device: each
 exchange round is one ``FusedEngine.score_after`` program (on the card one
 captured CUDA graph replay) that advances, scores and selects every walker.
 
-Not ported yet: the mesh path (``mesh=`` / ``sharding_rules=``) raises
-``NotImplementedError`` naming its ROADMAP item (multi-device).
+``mesh=`` / ``sharding_rules=`` (or ``PALRunConfig.uq_mesh``) put the
+engine on a ``launch/mesh.Mesh`` and hand the engine's mesh to the trainer,
+as the reference does.  A mesh of one process (``uq_mesh='host'``, or any
+mesh of a one-rank process group) runs the unsharded program.  A mesh that
+spans more than one process raises ``NotImplementedError``: the exchange,
+Manager and serving threads would start the mesh's collectives in a
+different order on each rank (ROADMAP §A: multi-process PAL); the
+reference never runs PAL across processes either.
 """
 from __future__ import annotations
 
@@ -105,11 +111,14 @@ class PAL:
         fleet_init: Optional[np.ndarray] = None,
         device: DeviceLike = None,
     ):
-        if mesh is not None or sharding_rules is not None:
+        if mesh is None:
+            mesh = acq.resolve_mesh(run_cfg)
+        if mesh is not None and mesh.size > 1:
             raise NotImplementedError(
-                "mesh= / sharding_rules=: the mesh-parallel engine and "
-                "trainer come with the multi-device slice (ROADMAP §A: "
-                "multi-device)")
+                f"PAL on a mesh of {mesh.size} processes ({mesh.shape}): the "
+                "exchange, Manager and serving threads would start the "
+                "mesh's collectives in a different order on each rank "
+                "(ROADMAP §A: multi-process PAL)")
         self.device = resolve_device(device)
         self.cfg = run_cfg
         self.monitor = Monitor()
@@ -185,11 +194,12 @@ class PAL:
             run_cfg, committee=committee, rules=rules,
             predict_all=self.prediction_pool.predict_all,
             force_legacy=predict_all_override is not None,
-            device=self.device)
+            mesh=mesh, sharding_rules=sharding_rules, device=self.device)
         self.prediction_pool.engine = self.engine
 
         # --- fused committee trainer (training/committee_trainer.py) -------
-        # trains the SAME stacked layout the engine scores, on PAL's device
+        # trains the SAME stacked layout the engine scores, on PAL's device:
+        # the trainer reuses the engine's resolved mesh
         self.committee_trainer = None
         if fused_training:
             from repro_torch.optim.memory_policy import MemoryPolicy
@@ -209,6 +219,8 @@ class PAL:
                 lr=run_cfg.train_lr,
                 bootstrap=run_cfg.train_bootstrap,
                 replay_capacity=run_cfg.train_replay_capacity,
+                mesh=getattr(self.engine, "mesh", None),
+                sharding_rules=sharding_rules,
                 seed=run_cfg.seed,
                 monitor=self.monitor,
                 memory_policy=policy,

@@ -75,9 +75,12 @@ class ReplayTrainingBuffer:
         return torch.cuda.stream(self.stream)
 
     def _allocate(self, width: int, dx: int):
-        self._buf = torch.zeros((self.capacity, width),
-                                dtype=torch_dtype(self.dtype),
-                                device=self.device)
+        # on the ring's stream, as every write into it: a zero fill left on
+        # the caller's stream could land after the first block's copy
+        with self._on_stream():
+            self._buf = torch.zeros((self.capacity, width),
+                                    dtype=torch_dtype(self.dtype),
+                                    device=self.device)
         self._dx = dx
         self.generation += 1
 

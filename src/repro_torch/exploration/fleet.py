@@ -200,6 +200,14 @@ class WalkerFleet:
 
     ``engine`` must be a ``FusedEngine`` — the legacy per-member backend
     has no fused step entry point (the runtime enforces this).
+
+    On a mesh engine whose bucket splits its rows, each rank's carry holds
+    its rows of the per-walker leaves (``engine.place_carry``) — the noise
+    counters beside the positions, so every walker draws the noise it
+    draws unsharded — and ``step``, ``nan_resets`` and the program run on
+    every rank (SPMD).  ``nan_resets`` then counts this rank's walkers;
+    the inspection and checkpoint methods gather the rows and sum the
+    counts over the ranks (collectives: every rank calls them).
     """
 
     def __init__(self, engine, x0: np.ndarray, cfg: FleetConfig,
@@ -315,18 +323,29 @@ class WalkerFleet:
         ordered after every program on the engine's stream."""
         return self.engine.carry_call(lambda: fn().cpu()).numpy()
 
+    def _whole(self, name: str) -> torch.Tensor:
+        """A carry leaf over every walker: a per-walker leaf's rows of
+        every rank, ``nan_resets`` summed over the ranks, ``step`` as it
+        is (the same on every rank)."""
+        t = self._carry[name]
+        if name == "nan_resets":
+            return self.engine.sum_rows(t, self.nb)
+        return self.engine.gather_rows(t, self.nb) if t.dim() else t
+
     def positions(self) -> np.ndarray:
         """(n_walkers, d) host snapshot of walker positions — diagnostics
         and tests only; the hot loop never calls this."""
-        return self._read(lambda: self._carry["x"][:self.n_walkers]).copy()
+        return self._read(
+            lambda: self._whole("x")[:self.n_walkers]).copy()
 
     def stats(self) -> Dict[str, Any]:
         """Host snapshot of fleet health (PAL.report) — one transfer per
         call, off the hot path."""
-        c, n = self._carry, self.n_walkers
+        n = self.n_walkers
         v = self._read(lambda: torch.cat([
-            c["step"].reshape(1), c["nan_resets"].reshape(1),
-            c["restarts"][:n], c["counts"][:n]]))
+            self._whole("step").reshape(1),
+            self._whole("nan_resets").reshape(1),
+            self._whole("restarts")[:n], self._whole("counts")[:n]]))
         return {
             "walkers": n,
             "steps": int(v[0]),
@@ -342,24 +361,32 @@ class WalkerFleet:
         exact trajectory (bit-identical resume)."""
         keys = sorted(self._carry)
         host = self.engine.carry_call(
-            lambda: [self._carry[k].cpu() for k in keys])
+            lambda: [self._whole(k).cpu() for k in keys])
         return {k: t.numpy().astype(_SNAPSHOT_DTYPE.get(k, t.numpy().dtype))
                 for k, t in zip(keys, host)}
 
     def load_state_dict(self, state: Dict[str, np.ndarray]):
         """Copy a snapshot (this package's, or a reference fleet's with the
-        same walker bucket) into the carry's buffers."""
+        same walker bucket) into the carry's buffers — on a mesh, this
+        rank's rows (and ``nan_resets`` on the first rank of the rows)."""
         if set(state) != set(self._carry):
             raise ValueError(
                 f"fleet snapshot keys {sorted(state)} do not match the "
                 f"carry {sorted(self._carry)}")
+        r0, r1 = self.engine.rows_of(self.nb)
         src = {}
         for k, buf in self._carry.items():
             a = np.asarray(state[k])
-            if tuple(a.shape) != tuple(buf.shape):
+            whole = (self.nb,) + tuple(buf.shape[1:]) if buf.dim() \
+                else ()
+            if tuple(a.shape) != whole:
                 raise ValueError(
                     f"fleet snapshot {k!r} has shape {a.shape}, the carry "
-                    f"{tuple(buf.shape)}")
+                    f"{whole}")
+            if buf.dim():
+                a = a[r0:r1]
+            elif k == "nan_resets" and r0:
+                a = np.zeros_like(a)
             src[k] = torch.from_numpy(np.array(
                 a, dtype=torch.empty((), dtype=buf.dtype).numpy().dtype))
 
@@ -374,5 +401,7 @@ class WalkerFleet:
         """Set walker i's position non-finite (chaos ``nan_walker``): the
         next fused step routes it through the restart gate — reset to its
         trusted state, never a crash."""
-        self.engine.carry_call(
-            lambda: self._carry["x"][i].fill_(float("nan")))
+        r0, r1 = self.engine.rows_of(self.nb)
+        if r0 <= i < r1:
+            self.engine.carry_call(
+                lambda: self._carry["x"][i - r0].fill_(float("nan")))

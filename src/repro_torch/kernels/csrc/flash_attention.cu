@@ -72,6 +72,17 @@
 //    flash_combine_kernel merges them in split order (no atomics: the
 //    result is the same bits on every run).  A split that sees no key
 //    writes m = -inf, l = 0.  One split writes o itself.
+// 4. A sequence-sharded KV cache (ops.attention(kv_seq_shard=True) on a
+//    mesh; the TPU reference leaves the distributed softmax to XLA): each
+//    rank holds a contiguous key range of the cache.
+//    flash_attention_partials runs the split-KV kernel of 3 on the rank's
+//    range (q_offset and kv_len shifted by the range's start, so the
+//    masks stay global) and writes its splits' fp32 partials, never o.
+//    The ranks' partial buffers are all-gathered in rank order, and
+//    flash_attention_combine merges every rank's splits in (rank, split)
+//    order with flash_combine_kernel.  Bound: the rank's K/V range read
+//    once, plus (D + 2) floats a split for each (b, t, h) row written and
+//    read back by the merge.
 //
 // Build without --use_fast_math (IEEE division; the fp32 kernel keeps the
 // library's expf):
@@ -816,8 +827,9 @@ struct SplitSmem {
 };
 
 // The warps have written their rows' (m, l, acc) to `sm` (rows < R):
-// merge them in warp order and write o (a single split) or this split's
-// partials (m, l, acc[D]; (-inf, 0, 0) for a split with no visible key).
+// merge them in warp order and write o (no partials buffer: a single
+// split) or this split's partials (m, l, acc[D]; (-inf, 0, 0) for a split
+// with no visible key).
 template <typename T, int D, int RP>
 __device__ __forceinline__ void finish_split(
     SplitSmem<D, RP>& sm, T* __restrict__ o, float* __restrict__ part,
@@ -849,7 +861,7 @@ __device__ __forceinline__ void finish_split(
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) a = fmaf(sm.acc[w][r][d], sm.w[w][r], a);
     const float L = sm.L[r];
-    if (n_splits == 1) {  // the whole key range: write o
+    if (part == nullptr) {  // the whole key range in one split: write o
       const int t = r / G;
       const int g = r - t * G;
       o[(((size_t)b * T_len + t) * H + (size_t)kvh * G + g) * D + d] =
@@ -1218,11 +1230,15 @@ flash_split_mma_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // one warp per output row (b, t, h): merge its splits' partials in split
-// order (lanes take the splits' (m, l) in turns for the weights)
+// order (lanes take the splits' (m, l) in turns for the weights).  The
+// partials of n_ranks ranks lie one after another, each rank's as one
+// split launch writes them (acc rows, then (m, l) pairs); split s of rank
+// p is split p * n_splits + s of the merge.
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_combine_kernel(const float* __restrict__ part, T* __restrict__ o,
-                     int B, int T_len, int H, int KV, int n_splits) {
+                     int B, int T_len, int H, int KV, int n_splits,
+                     int n_ranks) {
   constexpr int DL = (D + 31) / 32;
   const long long row = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
@@ -1236,29 +1252,41 @@ flash_combine_kernel(const float* __restrict__ part, T* __restrict__ o,
   const int R = T_len * G;
   const int r = t * G + (h - kvh * G);
   const size_t part_rows = (size_t)B * KV * n_splits * R;
-  const float2* ml = reinterpret_cast<const float2*>(part + part_rows * D);
+  const size_t rank_floats = part_rows * (D + 2);
   const size_t prow0 = ((size_t)b * KV + kvh) * n_splits * R + r;
+  const int total = n_splits * n_ranks;
+  // (m, l) and acc of merged split gs = p * n_splits + s
+  auto ml_at = [&](int gs) -> float2 {
+    const int p = gs / n_splits;
+    const float2* ml = reinterpret_cast<const float2*>(
+        part + (size_t)p * rank_floats + part_rows * D);
+    return ml[prow0 + (size_t)(gs - p * n_splits) * R];
+  };
+  auto acc_at = [&](int gs) -> const float* {
+    const int p = gs / n_splits;
+    return part + (size_t)p * rank_floats +
+           (prow0 + (size_t)(gs - p * n_splits) * R) * D;
+  };
 
   float mx = -INFINITY;
-  for (int s = lane; s < n_splits; s += 32)
-    mx = fmaxf(mx, ml[prow0 + (size_t)s * R].x);
+  for (int s = lane; s < total; s += 32) mx = fmaxf(mx, ml_at(s).x);
   mx = warp_max(mx);
   const float base = mx == -INFINITY ? 0.0f : mx;
   float L = 0.0f, acc[DL];
 #pragma unroll
   for (int i = 0; i < DL; ++i) acc[i] = 0.0f;
-  for (int s0 = 0; s0 < n_splits; s0 += 32) {
+  for (int s0 = 0; s0 < total; s0 += 32) {
     float w = 0.0f;  // split s0 + lane's weight; 0 for a split with no key
-    if (s0 + lane < n_splits) {
-      const float2 p = ml[prow0 + (size_t)(s0 + lane) * R];
+    if (s0 + lane < total) {
+      const float2 p = ml_at(s0 + lane);
       w = exp2_sfu(p.x - base);
       L = fmaf(p.y, w, L);
     }
-    const int n = min(32, n_splits - s0);
+    const int n = min(32, total - s0);
 #pragma unroll 4
     for (int j = 0; j < n; ++j) {
       const float wj = __shfl_sync(kFullMask, w, j);
-      const float* src = part + (prow0 + (size_t)(s0 + j) * R) * D;
+      const float* src = acc_at(s0 + j);
 #pragma unroll
       for (int i = 0; i < DL; ++i) {
         const int d = lane + 32 * i;
@@ -1275,37 +1303,26 @@ flash_combine_kernel(const float* __restrict__ part, T* __restrict__ o,
   }
 }
 
-// the split kernel `kern`, then (more than one split) the merge
+// the merge of n_ranks * n_splits splits' partials into o
 template <typename T, int D>
-int launch_split(void (*kern)(const T*, const T*, const T*, T*, float*,
-                              const int32_t*, int, int, int, int, int, int,
-                              int, float, int),
-                 const void* q, const void* k, const void* v, void* o,
-                 float* part, const int32_t* kv_len, int B, int T_len, int S,
-                 int H, int KV, int q_offset, int causal, int window,
-                 float scale, int n_splits, int keys_per_split,
-                 cudaStream_t stream) {
-  const dim3 grid((unsigned)n_splits, (unsigned)KV, (unsigned)B);
-  kern<<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), part, kv_len, T_len, S,
-      H, KV, q_offset, causal, window, scale * kLog2e, keys_per_split);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || n_splits == 1) return (int)err;
+int launch_combine(const float* part, void* o, int B, int T_len, int H,
+                   int KV, int n_splits, int n_ranks, cudaStream_t stream) {
   const long long rows = (long long)B * T_len * H;
   const long long blocks = (rows + kWarps - 1) / kWarps;
   if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
   flash_combine_kernel<T, D><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      part, static_cast<T*>(o), B, T_len, H, KV, n_splits);
+      part, static_cast<T*>(o), B, T_len, H, KV, n_splits, n_ranks);
   return (int)cudaGetLastError();
 }
 
-// bf16 on the tensor cores; fp32 on the CUDA cores
+// the split kernel of a dtype and row count: bf16 on the tensor cores,
+// fp32 on the CUDA cores
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, float* part,
-           const int32_t* kv_len, int B, int T_len, int S, int H, int KV,
-           int q_offset, int causal, int window, float scale, int n_splits,
-           int keys_per_split, cudaStream_t st) {
+int launch_split(const void* q, const void* k, const void* v, void* o,
+                 float* part, const int32_t* kv_len, int B, int T_len, int S,
+                 int H, int KV, int q_offset, int causal, int window,
+                 float scale, int n_splits, int keys_per_split,
+                 cudaStream_t stream) {
   const int R = T_len * (H / KV);
   void (*kern)(const T*, const T*, const T*, T*, float*, const int32_t*, int,
                int, int, int, int, int, int, float, int);
@@ -1317,9 +1334,27 @@ int launch(const void* q, const void* k, const void* v, void* o, float* part,
            : R <= 4 ? flash_split_kernel<D, 4>
                     : flash_split_kernel<D, kMaxRows>;
   }
-  return launch_split<T, D>(kern, q, k, v, o, part, kv_len, B, T_len, S, H,
-                            KV, q_offset, causal, window, scale, n_splits,
-                            keys_per_split, st);
+  const dim3 grid((unsigned)n_splits, (unsigned)KV, (unsigned)B);
+  kern<<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), part, kv_len, T_len, S,
+      H, KV, q_offset, causal, window, scale * kLog2e, keys_per_split);
+  return (int)cudaGetLastError();
+}
+
+// the split kernel, then (more than one split) the merge; one split
+// writes o itself (no partials buffer)
+template <typename T, int D>
+int launch(const void* q, const void* k, const void* v, void* o, float* part,
+           const int32_t* kv_len, int B, int T_len, int S, int H, int KV,
+           int q_offset, int causal, int window, float scale, int n_splits,
+           int keys_per_split, cudaStream_t st) {
+  float* p = n_splits > 1 ? part : nullptr;
+  const int err = launch_split<T, D>(q, k, v, o, p, kv_len, B, T_len, S, H,
+                                     KV, q_offset, causal, window, scale,
+                                     n_splits, keys_per_split, st);
+  if (err != 0 || p == nullptr) return err;
+  return launch_combine<T, D>(p, o, B, T_len, H, KV, n_splits, 1, st);
 }
 
 }  // namespace split
@@ -1353,6 +1388,49 @@ int dispatch_d(int path, const void* q, const void* k, const void* v,
 }
 
 }  // namespace
+
+// the split-KV entries of a sequence-sharded cache, by dtype and head dim
+template <typename T>
+int dispatch_partials(const void* q, const void* k, const void* v,
+                      float* part, const int32_t* kv_len, int B, int T_len,
+                      int S, int H, int KV, int D, int q_offset, int causal,
+                      int window, float scale, int n_splits,
+                      int keys_per_split, cudaStream_t st) {
+  switch (D) {
+#define FLASH_CASE(DD)                                                        \
+  case DD:                                                                    \
+    return split::launch_split<T, DD>(q, k, v, nullptr, part, kv_len, B,      \
+                                      T_len, S, H, KV, q_offset, causal,      \
+                                      window, scale, n_splits,                \
+                                      keys_per_split, st);
+    FLASH_CASE(16)
+    FLASH_CASE(64)
+    FLASH_CASE(120)
+    FLASH_CASE(128)
+#undef FLASH_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+int dispatch_combine(const float* part, void* o, int B, int T_len, int H,
+                     int KV, int D, int n_splits, int n_ranks,
+                     cudaStream_t st) {
+  switch (D) {
+#define FLASH_CASE(DD)                                                        \
+  case DD:                                                                    \
+    return split::launch_combine<T, DD>(part, o, B, T_len, H, KV, n_splits,   \
+                                        n_ranks, st);
+    FLASH_CASE(16)
+    FLASH_CASE(64)
+    FLASH_CASE(120)
+    FLASH_CASE(128)
+#undef FLASH_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
 
 // Plain C entry point, bound with ctypes.  dtype: 0 = fp32, 1 = bf16.
 // kv_len: (B,) int32 on the device, or null.  window <= 0 means none.
@@ -1392,5 +1470,67 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     return dispatch_d<__nv_bfloat16>(path, q, k, v, o, part, kvl, B, T_len,
                                      S, H, KV, D, q_offset, causal, window,
                                      scale, n_splits, keys_per_split, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Partials out (sequence-sharded cache): the split-KV kernel over this
+// rank's K/V range of S keys, n_splits ranges of keys_per_split keys, its
+// fp32 partials written to the caller's `part`: B*T*H*n_splits*(D+2)
+// floats, acc rows ((b*KV + kvh)*n_splits + split)*R + r (R = T*(H/KV),
+// r = t*(H/KV) + g) of D floats, then one (m, l) pair per row, m in log2
+// units.  q_offset and kv_len are the rank's (shifted by the range's
+// start by the caller; q_offset may be negative).  T*(H/KV) <= 8.  Never
+// writes o.  Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for what the kernel does not take.
+extern "C" int flash_attention_partials(const void* q, const void* k,
+                                        const void* v, const void* kv_len,
+                                        int B, int T_len, int S, int H,
+                                        int KV, int D, int dtype,
+                                        int q_offset, int causal, int window,
+                                        float scale, int n_splits,
+                                        int keys_per_split, void* part,
+                                        void* stream) {
+  if (B < 1 || T_len < 1 || S < 0 || KV < 1 || H < KV || H % KV != 0 ||
+      B > 65535 || KV > 65535 || part == nullptr ||
+      (long long)T_len * (H / KV) > split::kMaxRows || n_splits < 1 ||
+      n_splits > 65535 || keys_per_split < 1 ||
+      (long long)n_splits * keys_per_split < S)
+    return (int)cudaErrorInvalidValue;
+  const int32_t* kvl = static_cast<const int32_t*>(kv_len);
+  float* p = static_cast<float*>(part);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return dispatch_partials<float>(q, k, v, p, kvl, B, T_len, S, H, KV, D,
+                                    q_offset, causal, window, scale,
+                                    n_splits, keys_per_split, st);
+  if (dtype == 1)
+    return dispatch_partials<__nv_bfloat16>(q, k, v, p, kvl, B, T_len, S, H,
+                                            KV, D, q_offset, causal, window,
+                                            scale, n_splits, keys_per_split,
+                                            st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Partials in: n_ranks ranks' partial buffers, one after another in rank
+// order, each laid out as flash_attention_partials writes it with n_splits
+// splits; merges every rank's splits in (rank, split) order into o
+// (B, T, H, D) of dtype (0 = fp32, 1 = bf16).  Returns cudaGetLastError()
+// after the launch, or cudaErrorInvalidValue.
+extern "C" int flash_attention_combine(const void* part, void* o, int B,
+                                       int T_len, int H, int KV, int D,
+                                       int dtype, int n_splits, int n_ranks,
+                                       void* stream) {
+  if (B < 1 || T_len < 1 || KV < 1 || H < KV || H % KV != 0 ||
+      part == nullptr || o == nullptr || n_splits < 1 || n_ranks < 1 ||
+      (long long)T_len * (H / KV) > split::kMaxRows)
+    return (int)cudaErrorInvalidValue;
+  const float* p = static_cast<const float*>(part);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return dispatch_combine<float>(p, o, B, T_len, H, KV, D, n_splits,
+                                   n_ranks, st);
+  if (dtype == 1)
+    return dispatch_combine<__nv_bfloat16>(p, o, B, T_len, H, KV, D,
+                                           n_splits, n_ranks, st);
   return (int)cudaErrorInvalidValue;
 }

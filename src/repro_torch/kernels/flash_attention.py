@@ -27,6 +27,14 @@ not (sharp attention over large values that cancel).
 
 Unlike the Pallas kernel, which raises unless T and S tile by its blocks,
 the CUDA kernels mask ragged tails themselves and take any T and S.
+
+A sequence-sharded cache (``ops.attention(kv_seq_shard=True)`` on a mesh)
+uses the split path's two kernels apart: ``flash_partials`` writes a
+rank's fp32 partials for its key range, and ``flash_combine`` merges the
+partials of every rank, gathered in rank order (``launches_partials``,
+``launches_combine``).  Their plain versions are ``split_kv_partials``
+(in the kernel's layout, ``pack_partials``) and ``combine_partials``,
+whose composition is ``split_kv_model``.
 """
 from __future__ import annotations
 
@@ -53,6 +61,8 @@ SPLIT_MAX_SPLITS = 128      # bounds the scratch and the merge's loop
 launches = 0                # wrapper calls since the last reset
 launches_tiled = 0          # ... of them on the tiled path
 launches_split = 0          # ... of them on the split-KV path
+launches_partials = 0       # flash_partials calls (a rank's key range)
+launches_combine = 0        # flash_combine calls (the ranks' merge)
 _count_lock = threading.Lock()
 _bound = False
 
@@ -79,6 +89,67 @@ def plan(B: int, T: int, S: int, H: int, KV: int) -> Plan:
     return Plan("split", max(1, -(-S // keys)), keys)
 
 
+def split_kv_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      splits: int, keys_per_split: int, causal: bool = True,
+                      window: Optional[int] = None, q_offset: int = 0,
+                      kv_len: Optional[torch.Tensor] = None):
+    """The split kernels' partials in plain PyTorch: for each key range of
+    ``keys_per_split`` keys, fp32 (m in log2 units, l, acc) over its visible
+    keys -- (-inf, 0, 0) for a range with none.  Returns (m, l, acc) of
+    shapes (splits, B, KV, G, T) and (splits, B, KV, G, T, D)."""
+    B, T, H, D = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    dev = q.device
+    scale_log2 = (1.0 / math.sqrt(D)) * math.log2(math.e)
+    qf = q.float().reshape(B, T, KV, G, D)
+    s = torch.einsum("btkgd,bskd->bkgts", qf, k.float()) * scale_log2
+    qpos = q_offset + torch.arange(T, device=dev)[:, None]
+    kpos = torch.arange(S, device=dev)[None, :]
+    vis = torch.ones(T, S, dtype=torch.bool, device=dev)
+    if causal:
+        vis &= kpos <= qpos
+    if window is not None:
+        vis &= kpos > qpos - window
+    vis = vis[None].expand(B, T, S)
+    if kv_len is not None:
+        vis = vis & (kpos < kv_len.to(dev)[:, None, None])
+    vis = vis[:, None, None]                           # (B, 1, 1, T, S)
+    s = s.masked_fill(~vis, float("-inf"))
+    vf = v.float()
+    m_all, l_all, acc_all = [], [], []
+    for i in range(splits):
+        lo, hi = i * keys_per_split, min(S, (i + 1) * keys_per_split)
+        si = s[..., lo:hi]
+        m = si.amax(dim=-1) if hi > lo else torch.full(
+            s.shape[:-1], float("-inf"), device=dev)
+        base = torch.where(m == float("-inf"), 0.0, m)
+        p = torch.exp2(si - base[..., None])
+        m_all.append(m)
+        l_all.append(p.sum(dim=-1))
+        acc_all.append(torch.einsum("bkgts,bskd->bkgtd", p, vf[:, lo:hi]))
+    return torch.stack(m_all), torch.stack(l_all), torch.stack(acc_all)
+
+
+def combine_partials(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
+                     dtype: torch.dtype) -> torch.Tensor:
+    """Merge ``split_kv_partials``' partials (splits first, merged in split
+    order): o = acc / l over the common maximum, 0 where l == 0; (B, T, H,
+    D) in ``dtype``."""
+    S_, B, KV, G, T, D = acc.shape
+    m_max = m.amax(dim=0)
+    base = torch.where(m_max == float("-inf"), 0.0, m_max)
+    L = torch.zeros_like(base)
+    out = torch.zeros(B, KV, G, T, D, device=acc.device)
+    for i in range(S_):                          # fixed split order
+        w = torch.exp2(m[i] - base)
+        L = L + l[i] * w
+        out = out + acc[i] * w[..., None]
+    out = torch.where(L[..., None] == 0, 0.0,
+                      out / torch.where(L == 0, 1.0, L)[..., None])
+    return out.permute(0, 3, 1, 2, 4).reshape(B, T, KV * G, D).to(dtype)
+
+
 def split_kv_model(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    splits: int, keys_per_split: int, causal: bool = True,
                    window: Optional[int] = None, q_offset: int = 0,
@@ -89,47 +160,35 @@ def split_kv_model(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     the partials merged in split order, o = acc / l (0 where l == 0).
     Holds the design against ``ref.attention_ref`` on the CPU; the kernel
     runs the same steps on the card."""
-    B, T, H, D = q.shape
-    S, KV = k.shape[1], k.shape[2]
+    m, l, acc = split_kv_partials(q, k, v, splits=splits,
+                                  keys_per_split=keys_per_split,
+                                  causal=causal, window=window,
+                                  q_offset=q_offset, kv_len=kv_len)
+    return combine_partials(m, l, acc, v.dtype)
+
+
+def pack_partials(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor
+                  ) -> torch.Tensor:
+    """``split_kv_partials``' partials in the kernel's flat fp32 layout:
+    acc rows ((b*KV + kvh)*splits + split)*R + r (r = t*G + g) of D
+    floats, then one (m, l) pair per row."""
+    S_, B, KV, G, T, D = acc.shape
+    rows_acc = acc.permute(1, 2, 0, 4, 3, 5).reshape(-1, D)
+    ml = torch.stack([m, l], dim=-1).permute(1, 2, 0, 4, 3, 5)
+    return torch.cat([rows_acc.reshape(-1), ml.reshape(-1)])
+
+
+def unpack_partials(part: torch.Tensor, B: int, T: int, H: int, KV: int,
+                    D: int, splits: int):
+    """``pack_partials`` inverted: (m, l, acc) as ``split_kv_partials``
+    returns them."""
     G = H // KV
-    scale_log2 = (1.0 / math.sqrt(D)) * math.log2(math.e)
-    qf = q.float().reshape(B, T, KV, G, D)
-    s = torch.einsum("btkgd,bskd->bkgts", qf, k.float()) * scale_log2
-    qpos = q_offset + torch.arange(T)[:, None]
-    kpos = torch.arange(S)[None, :]
-    vis = torch.ones(T, S, dtype=torch.bool)
-    if causal:
-        vis &= kpos <= qpos
-    if window is not None:
-        vis &= kpos > qpos - window
-    vis = vis[None].expand(B, T, S)
-    if kv_len is not None:
-        vis = vis & (kpos < kv_len.cpu()[:, None, None])
-    vis = vis[:, None, None]                           # (B, 1, 1, T, S)
-    s = s.masked_fill(~vis, float("-inf"))
-    vf = v.float()
-    m_all, l_all, acc_all = [], [], []
-    for i in range(splits):
-        lo, hi = i * keys_per_split, min(S, (i + 1) * keys_per_split)
-        si = s[..., lo:hi]
-        m = si.amax(dim=-1) if hi > lo else torch.full(
-            s.shape[:-1], float("-inf"))
-        base = torch.where(m == float("-inf"), 0.0, m)
-        p = torch.exp2(si - base[..., None])
-        m_all.append(m)
-        l_all.append(p.sum(dim=-1))
-        acc_all.append(torch.einsum("bkgts,bskd->bkgtd", p, vf[:, lo:hi]))
-    m_max = torch.stack(m_all).amax(dim=0)
-    base = torch.where(m_max == float("-inf"), 0.0, m_max)
-    L = torch.zeros_like(base)
-    acc = torch.zeros(B, KV, G, T, D)
-    for m, l, a in zip(m_all, l_all, acc_all):     # fixed split order
-        w = torch.exp2(m - base)
-        L = L + l * w
-        acc = acc + a * w[..., None]
-    out = torch.where(L[..., None] == 0, 0.0,
-                      acc / torch.where(L == 0, 1.0, L)[..., None])
-    return out.permute(0, 3, 1, 2, 4).reshape(B, T, H, D).to(v.dtype)
+    rows = B * KV * splits * T * G
+    acc = part[:rows * D].reshape(B, KV, splits, T, G, D)
+    ml = part[rows * D:rows * (D + 2)].reshape(B, KV, splits, T, G, 2)
+    return (ml[..., 0].permute(2, 0, 1, 4, 3),
+            ml[..., 1].permute(2, 0, 1, 4, 3),
+            acc.permute(2, 0, 1, 4, 3, 5))
 
 
 def _lib() -> ctypes.CDLL:
@@ -140,9 +199,65 @@ def _lib() -> ctypes.CDLL:
         lib.flash_attention_launch.argtypes = [
             ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32,
             i32, i32, ctypes.c_float, i32, i32, i32, ptr, ptr]
-        lib.flash_attention_launch.restype = ctypes.c_int
+        lib.flash_attention_partials.argtypes = [
+            ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32, i32,
+            i32, ctypes.c_float, i32, i32, ptr, ptr]
+        lib.flash_attention_combine.argtypes = [
+            ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32, ptr]
+        for fn in (lib.flash_attention_launch, lib.flash_attention_partials,
+                   lib.flash_attention_combine):
+            fn.restype = ctypes.c_int
         _bound = True
     return lib
+
+
+def _check(q, k, v, window, kv_len, dev):
+    """The checks of every entry on q, k, v: device, dtype, shapes, head
+    dim, contiguity and alignment; returns ``kv_len`` as contiguous int32
+    (or None)."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != dev or dev.type != "cuda":
+            raise ValueError(f"flash_attention kernel: {name} on {t.device}, "
+                             f"expected the CUDA device {dev}")
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or \
+            v.dtype != q.dtype:
+        raise TypeError(f"flash_attention kernel takes float32 or bfloat16 "
+                        f"q, k, v of one dtype, got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"flash_attention kernel takes q (B,T,H,D) and k, v "
+                         f"(B,S,KV,D), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, T, H, D = q.shape
+    KV = k.shape[2]
+    if k.shape[0] != B or k.shape[3] != D or KV < 1 or H % KV:
+        raise ValueError(f"flash_attention kernel: q {tuple(q.shape)} and "
+                         f"k {tuple(k.shape)} do not match (H % KV == 0)")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel takes head dims "
+                         f"{HEAD_DIMS}, got D={D}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention kernel takes contiguous q, k, v")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention kernel takes 16-byte aligned q, "
+                         "k, v (it reads them with 16-byte loads)")
+    if window is not None and window <= 0:
+        raise ValueError(f"flash_attention kernel: window must be positive, "
+                         f"got {window}")
+    if kv_len is not None:
+        if not isinstance(kv_len, torch.Tensor) or kv_len.device != dev \
+                or tuple(kv_len.shape) != (B,):
+            raise ValueError(f"flash_attention kernel: kv_len must be a "
+                             f"({B},) tensor on {dev}")
+        kv_len = kv_len.to(torch.int32).contiguous()
+    return kv_len
+
+
+def _raise_on(err: int, what: str, q, k, detail) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {err} (q "
+                           f"{tuple(q.shape)}, k {tuple(k.shape)}, "
+                           f"{q.dtype}, {detail})")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -160,42 +275,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     global launches, launches_tiled, launches_split
     refuse_grad("flash_attention", q, k, v)
     dev = resolve_device(device)
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device != dev or dev.type != "cuda":
-            raise ValueError(f"flash_attention kernel: {name} on {t.device}, "
-                             f"expected the CUDA device {dev}")
-    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or \
-            v.dtype != q.dtype:
-        raise TypeError(f"flash_attention kernel takes float32 or bfloat16 "
-                        f"q, k, v of one dtype, got {q.dtype}, {k.dtype}, "
-                        f"{v.dtype}")
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError(f"flash_attention kernel takes q (B,T,H,D) and k, v "
-                         f"(B,S,KV,D), got {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    kv_len = _check(q, k, v, window, kv_len, dev)
     B, T, H, D = q.shape
     _, S, KV, _ = k.shape
-    if k.shape[0] != B or k.shape[3] != D or KV < 1 or H % KV:
-        raise ValueError(f"flash_attention kernel: q {tuple(q.shape)} and "
-                         f"k {tuple(k.shape)} do not match (H % KV == 0)")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel takes head dims "
-                         f"{HEAD_DIMS}, got D={D}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention kernel takes contiguous q, k, v")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash_attention kernel takes 16-byte aligned q, "
-                         "k, v (it reads them with 16-byte loads)")
-    if window is not None and window <= 0:
-        raise ValueError(f"flash_attention kernel: window must be positive, "
-                         f"got {window}")
     q_offset = operator.index(q_offset)
-    if kv_len is not None:
-        if not isinstance(kv_len, torch.Tensor) or kv_len.device != dev \
-                or tuple(kv_len.shape) != (B,):
-            raise ValueError(f"flash_attention kernel: kv_len must be a "
-                             f"({B},) tensor on {dev}")
-        kv_len = kv_len.to(torch.int32).contiguous()
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
@@ -215,14 +298,84 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             0 if window is None else int(window), scale,
             _PATH_CODE[p.path], p.splits, p.keys_per_split,
             scratch.data_ptr() if scratch is not None else None, stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {err} (q {tuple(q.shape)}, k "
-                           f"{tuple(k.shape)}, {q.dtype}, {p})")
+    _raise_on(err, "flash_attention kernel", q, k, p)
     with _count_lock:
         launches += 1
         if p.path == "tiled":
             launches_tiled += 1
         else:
             launches_split += 1
+    return out
+
+
+def flash_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   causal: bool = True, window: Optional[int] = None,
+                   q_offset: int = 0, kv_len: Optional[torch.Tensor] = None,
+                   device: DeviceLike = None):
+    """The split kernel's fp32 partials of q (B, T, H, D) against this
+    rank's key range k, v (B, S, KV, D), in ``pack_partials``' layout, for
+    the split plan ``plan(B, T, S, H, KV)`` (key ranges of the rank's S
+    keys; ``q_offset`` and ``kv_len`` already shifted by the range's start,
+    so ``q_offset`` may be negative).  Returns ``(part, splits)``.
+    T * (H // KV) must be at most ``SPLIT_MAX_ROWS`` (decode)."""
+    global launches_partials
+    refuse_grad("flash_partials", q, k, v)
+    dev = resolve_device(device)
+    kv_len = _check(q, k, v, window, kv_len, dev)
+    B, T, H, D = q.shape
+    _, S, KV, _ = k.shape
+    if T * (H // KV) > SPLIT_MAX_ROWS:
+        raise ValueError(f"flash_partials: {T * (H // KV)} (t, g) rows per "
+                         f"kv head, the split kernel holds at most "
+                         f"{SPLIT_MAX_ROWS}")
+    p = plan(B, T, max(S, 1), H, KV)
+    part = torch.empty(B * T * H * p.splits * (D + 2), dtype=torch.float32,
+                       device=dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.flash_attention_partials(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            kv_len.data_ptr() if kv_len is not None else None,
+            B, T, S, H, KV, D, _DTYPE_CODE[q.dtype],
+            operator.index(q_offset), int(causal),
+            0 if window is None else int(window), 1.0 / math.sqrt(D),
+            p.splits, p.keys_per_split, part.data_ptr(), stream)
+    _raise_on(err, "flash_partials", q, k, p)
+    with _count_lock:
+        launches_partials += 1
+    return part, p.splits
+
+
+def flash_combine(parts: torch.Tensor, *, ranks: int, splits: int, B: int,
+                  T: int, H: int, KV: int, D: int, dtype: torch.dtype,
+                  device: DeviceLike = None) -> torch.Tensor:
+    """Merge ``ranks`` ranks' ``flash_partials`` buffers (one after another
+    in rank order, ``splits`` splits each) in (rank, split) order: the
+    attention output (B, T, H, D) in ``dtype``."""
+    global launches_combine
+    dev = resolve_device(device)
+    want = ranks * B * T * H * splits * (D + 2)
+    if parts.device != dev or dev.type != "cuda" or \
+            parts.dtype != torch.float32 or parts.numel() != want or \
+            not parts.is_contiguous():
+        raise ValueError(f"flash_combine takes {want} contiguous float32 "
+                         f"partials on {dev}, got {parts.numel()} "
+                         f"{parts.dtype} on {parts.device}")
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"flash_combine writes float32 or bfloat16, not "
+                        f"{dtype}")
+    out = torch.empty((B, T, H, D), dtype=dtype, device=dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.flash_attention_combine(
+            parts.data_ptr(), out.data_ptr(), B, T, H, KV, D,
+            _DTYPE_CODE[dtype], splits, ranks, stream)
+    if err != 0:
+        raise RuntimeError(f"flash_combine launch failed: CUDA error {err} "
+                           f"(B={B}, T={T}, H={H}, KV={KV}, D={D}, "
+                           f"{ranks} ranks x {splits} splits)")
+    with _count_lock:
+        launches_combine += 1
     return out

@@ -4,7 +4,7 @@ runs the hand-written kernel — or the call raises.  There is no fallback
 from the kernel to the plain version."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -64,20 +64,98 @@ def plain_attention(q, k, v, *, causal: bool = True,
                                      q_offset=q_offset, chunk=q_chunk)
 
 
+def kv_seq_axes(rules, batch: int) -> Tuple[str, ...]:
+    """The mesh axes (of size > 1) a KV cache's sequence axis is split over
+    under ``rules`` (a ``sharding.rules.MeshRules``): the ``CACHE_SEQ``
+    rule's axes in the cache (BATCH, CACHE_SEQ, KV_HEADS, HEAD_DIM) once
+    BATCH took its own (the batch's divisibility fallback applies).  ()
+    when the cache is not split."""
+    from repro_torch.configs import base as ax
+    from repro_torch.sharding.rules import MeshRules, spec_axes
+
+    mesh = rules.mesh
+    probe = MeshRules(mesh, rules.rules)      # records nothing on ``rules``
+    spec = probe.pspec((ax.BATCH, ax.CACHE_SEQ),
+                       (batch, mesh.axes_size(mesh.axis_names)))
+    return tuple(a for a in spec_axes(spec[1]) if mesh.shape[a] > 1)
+
+
+def kv_seq_range(rules, batch: int, seq: int) -> Tuple[int, int]:
+    """This rank's contiguous key range ``[start, stop)`` of a cache of
+    ``seq`` keys under ``rules`` (``(0, seq)`` when it is not split)."""
+    axes = kv_seq_axes(rules, batch)
+    if not axes:
+        return 0, seq
+    n = rules.mesh.axes_size(axes)
+    if seq % n:
+        raise ValueError(f"a cache of {seq} keys does not split over "
+                         f"{axes} ({n} ranks)")
+    i = rules.mesh.axes_index(axes)
+    return i * (seq // n), (i + 1) * (seq // n)
+
+
+def _seq_sharded_attention(q, k, v, rules, axes, *, causal, window,
+                           q_offset, kv_len) -> torch.Tensor:
+    """Decode attention against a cache split over ``axes``: ``k`` and
+    ``v`` are this rank's key range (``kv_seq_range``).  The rank computes
+    the split path's fp32 partials over its range with the masks shifted
+    to its start (the hand-written split kernel on the card,
+    ``split_kv_partials`` on the CPU), the partials of every rank are
+    all-gathered in rank order, and merged (``flash_combine`` /
+    ``combine_partials``) — a distributed softmax, no gather of the cache.
+    Every rank returns the whole output."""
+    mesh = rules.mesh
+    B, T, H, D = q.shape
+    S_loc, KV = k.shape[1], k.shape[2]
+    start = mesh.axes_index(axes) * S_loc
+    n = mesh.axes_size(axes)
+    kvl = None if kv_len is None else \
+        (kv_len.to(torch.int32) - start).clamp(min=0)
+    qo = int(q_offset) - start
+    if q.device.type == "cuda":
+        part, splits = _fa.flash_partials(q, k, v, causal=causal,
+                                          window=window, q_offset=qo,
+                                          kv_len=kvl, device=q.device)
+        parts, _ = mesh.all_gather(part, axes)
+        return _fa.flash_combine(parts, ranks=n, splits=splits, B=B, T=T,
+                                 H=H, KV=KV, D=D, dtype=q.dtype,
+                                 device=q.device)
+    if q.device.type != "cpu":
+        raise ValueError(f"attention: no implementation for device "
+                         f"{q.device}")
+    part = _fa.pack_partials(*_fa.split_kv_partials(
+        q, k, v, splits=1, keys_per_split=max(S_loc, 1), causal=causal,
+        window=window, q_offset=qo, kv_len=kvl))
+    parts, _ = mesh.all_gather(part, axes)
+    m, l, acc = (torch.cat(x) for x in zip(*(
+        _fa.unpack_partials(p, B, T, H, KV, D, 1)
+        for p in parts.reshape(n, -1))))
+    return _fa.combine_partials(m, l, acc, q.dtype)
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: Optional[int] = None,
               q_offset: int = 0, kv_len: Optional[torch.Tensor] = None,
-              q_chunk: int = 1024, kv_seq_shard: bool = False
-              ) -> torch.Tensor:
+              q_chunk: int = 1024, kv_seq_shard: bool = False,
+              rules=None) -> torch.Tensor:
     """Multi-head attention, GQA-aware. q: (B,T,H,D); k,v: (B,S,KV,D);
     ``kv_len``: optional (B,) valid cache lengths (decode).
 
-    ``kv_seq_shard`` (a cache sharded on its sequence axis, the reference's
-    long-context decode hint) needs the multi-device slice and raises."""
-    if kv_seq_shard:
-        raise NotImplementedError(
-            "attention(kv_seq_shard=True): a sequence-sharded KV cache comes "
-            "with the multi-device slice (ROADMAP §A: multi-device)")
+    ``kv_seq_shard`` with ``rules`` (a ``sharding.rules.MeshRules`` whose
+    ``CACHE_SEQ`` maps to mesh axes of size > 1, ``kv_seq_axes``): the
+    cache is split on its sequence axis over those axes and ``k``, ``v``
+    are this rank's contiguous key range (``kv_seq_range``); ``q``,
+    ``q_offset`` and ``kv_len`` are global.  The ranks merge their partial
+    softmaxes (flash-decode style) instead of gathering the cache, and
+    every rank returns the whole output; T * (H // KV) must fit the split
+    kernel (decode).  Without ``rules``, or with a cache that the rules do
+    not split, the flag changes nothing, as in the reference."""
+    if kv_seq_shard and rules is not None:
+        axes = kv_seq_axes(rules, q.shape[0])
+        if axes:
+            return _seq_sharded_attention(q, k, v, rules, axes,
+                                          causal=causal, window=window,
+                                          q_offset=q_offset, kv_len=kv_len)
     if q.device.type == "cpu":
         return plain_attention(q, k, v, causal=causal, window=window,
                                q_offset=q_offset, kv_len=kv_len,

@@ -104,15 +104,18 @@ def _mix32(h):
 
 
 def draw_indices(seed: int, step_seq: torch.Tensor, size: torch.Tensor,
-                 k: int, batch: int, bootstrap: bool) -> torch.Tensor:
+                 k: int, batch: int, bootstrap: bool,
+                 first: int = 0) -> torch.Tensor:
     """(k, batch) int64 row indices in ``[0, max(size, 1))`` for the step
-    ``step_seq`` (a 0-d integer tensor): a hash of (seed, step_seq, member,
-    position).  ``bootstrap=False`` tiles member 0's draw to every member."""
+    ``step_seq`` (a 0-d integer tensor) and members ``first .. first + k -
+    1``: a hash of (seed, step_seq, member, position).  ``bootstrap=False``
+    tiles member 0's draw to every member."""
     dev = step_seq.device
     base = _mix32((int(seed) & _M32) ^ 0x9E3779B9)
     h = _mix32((step_seq.to(torch.int64) & _M32) ^ base)
-    members = torch.arange(k if bootstrap else 1, dtype=torch.int64,
-                           device=dev)
+    members = torch.arange(first, first + k, dtype=torch.int64,
+                           device=dev) if bootstrap else \
+        torch.zeros(1, dtype=torch.int64, device=dev)
     h = _mix32(h ^ members)[:, None]
     h = _mix32(h ^ torch.arange(batch, dtype=torch.int64, device=dev))
     idx = h % size.to(torch.int64).clamp(min=1)
@@ -236,6 +239,21 @@ class CommitteeTrainer:
     Counters: ``captures`` (graphs captured; 1 per trainer unless a
     restored ring of another shape forces a new one), ``graph_replays``
     (one per step on the card), ``steps_done``, ``rounds``.
+
+    MESH PATH (``mesh=``, a ``launch/mesh.Mesh``; ``sharding_rules=``
+    overrides the logical-axis rules).  Every rank builds the trainer from
+    the same global committee and is given the same blocks (SPMD).  The
+    stacked state goes over the ``COMMITTEE`` rules' axes (``('model',)``,
+    with the divisibility fallback, warned once): each rank keeps and
+    trains its own members, drawing each member's minibatch by its global
+    index, on a replicated ring.  Members are independent, so a step needs
+    no collective and stays one captured graph.  ``train`` gathers the
+    last step's metrics over the committee axes once per round;
+    ``snapshot_cparams`` returns the rank's members (the handoff to an
+    engine on the same mesh, device to device) unless asked for the whole
+    committee; ``state_dict`` gathers the whole committee and
+    ``load_state_dict`` takes one, keeping the rank's members.  Every rank
+    must run the same rounds (the gathers are collectives).
     """
 
     def __init__(
@@ -258,12 +276,29 @@ class CommitteeTrainer:
         device: DeviceLike = None,
         capture: bool = True,
     ):
-        if mesh is not None or sharding_rules is not None:
-            raise NotImplementedError(
-                "the mesh-sharded committee trainer comes with the "
-                "multi-device slice (ROADMAP §A: multi-device)")
         self.device = resolve_device(device)
         self.size = committee_size(cparams)
+        self.mesh = mesh
+        self._mesh_rules = None
+        # the mesh axes the committee is split over, and this rank's members
+        self._member_axes: Tuple[str, ...] = ()
+        self._members = slice(0, self.size)
+        if mesh is not None:
+            from repro_torch.sharding.rules import (
+                MeshRules, committee_shardings, spec_axes, warn_fallbacks,
+            )
+
+            self._mesh_rules = MeshRules(mesh, sharding_rules)
+            spec = pytree.tree_leaves(committee_shardings(
+                self._mesh_rules, cparams))[0].spec
+            self._member_axes = tuple(a for a in spec_axes(spec[0])
+                                      if mesh.shape[a] > 1)
+            warn_fallbacks(self._mesh_rules, "CommitteeTrainer")
+            if self._member_axes:
+                kl = self.size // mesh.axes_size(self._member_axes)
+                i = mesh.axes_index(self._member_axes)
+                self._members = slice(i * kl, (i + 1) * kl)
+        self._kl = self._members.stop - self._members.start
         self.steps = int(steps)
         self.batch = int(batch)
         self.bootstrap = bool(bootstrap)
@@ -294,10 +329,10 @@ class CommitteeTrainer:
             return t.to(pd) if t.is_floating_point() else t
 
         cparams = pytree.tree_map(own, cparams)
-        # stacked TrainState: every leaf (step, params, mu, nu) grows a
-        # leading K axis
+        # stacked TrainState of this rank's members: every leaf (step,
+        # params, mu, nu) grows a leading member axis
         states = [make_train_state(member(cparams, i), tcfg)
-                  for i in range(self.size)]
+                  for i in range(self._members.start, self._members.stop)]
         self.cstate = pytree.tree_map(lambda *xs: torch.stack(xs), *states)
         self._seq_dev = torch.zeros((), dtype=torch.int64,
                                     device=self.device)
@@ -334,8 +369,8 @@ class CommitteeTrainer:
     def _body(self, cstate, x, y, size, step_seq):
         """The pure part of a step: draw, gather, the vmapped member step
         and the quarantine.  Returns (new_state, metrics); writes nothing."""
-        idx = draw_indices(self.seed, step_seq, size, self.size, self.batch,
-                           self.bootstrap)                       # (K, B)
+        idx = draw_indices(self.seed, step_seq, size, self._kl, self.batch,
+                           self.bootstrap, self._members.start)  # (K, B)
         # gathered and cast to fp32 on the device: a bf16 ring never leaks
         # its storage dtype into the loss math
         mb = {"x": x[idx].to(torch.float32), "y": y[idx].to(torch.float32)}
@@ -345,7 +380,7 @@ class CommitteeTrainer:
         # moments AND step, inside the same program
         ok = torch.isfinite(metrics["loss"])
         for leaf in pytree.tree_leaves(new_state.params):
-            ok = ok & torch.isfinite(leaf).reshape(self.size, -1).all(dim=1)
+            ok = ok & torch.isfinite(leaf).reshape(self._kl, -1).all(dim=1)
 
         def keep(new, old):
             return torch.where(ok.reshape((-1,) + (1,) * (new.ndim - 1)),
@@ -443,7 +478,8 @@ class CommitteeTrainer:
                     if interrupt is not None and interrupt.test():
                         break
             with self._state_lock, self._on_stream():
-                out = {k: leaf_to_host(v) for k, v in metrics.items()}
+                out = {k: leaf_to_host(self._whole(v))
+                       for k, v in sorted(metrics.items())}
             self.rounds += 1
             if self.monitor is not None:
                 self.monitor.incr("train.fused_steps", done)
@@ -456,24 +492,38 @@ class CommitteeTrainer:
         return out
 
     # ------------------------------------------------------------- weights
+    def _whole(self, t: torch.Tensor) -> torch.Tensor:
+        """A per-member tensor (leading member axis) over the whole
+        committee: gathered over the committee's mesh axes (a collective),
+        ``t`` itself where the committee is not split."""
+        if not self._member_axes or not t.dim():
+            return t
+        out, _ = self.mesh.all_gather(t, self._member_axes)
+        return out
+
     @property
     def cparams(self) -> Any:
-        """The live stacked committee params (the trainer's buffers)."""
+        """The live stacked committee params (the trainer's buffers): this
+        rank's members on a mesh that splits the committee."""
         return self.cstate.params
 
-    def snapshot_cparams(self) -> Any:
+    def snapshot_cparams(self, whole: bool = False) -> Any:
         """A device copy of the stacked params for the handoff to the
-        acquisition engine.  On the card the copy is made on the CALLER's
-        current stream after every step enqueued so far, and the next step
-        waits for it; ``FusedEngine.refresh_from_device`` orders its own
-        copy after the caller's stream, so the engine sees these weights.
-        Nothing touches the host."""
+        acquisition engine: this rank's members (the whole committee
+        unsplit), or with ``whole=True`` the whole committee gathered over
+        the mesh (checkpoints, a host-side consumer; a collective).  On the
+        card the copy is made on the CALLER's current stream after every
+        step enqueued so far, and the next step waits for it;
+        ``FusedEngine.refresh_from_device`` orders its own copy after the
+        caller's stream, so the engine sees these weights.  The rank's
+        members never touch the host."""
+        copy = (lambda t: self._whole(t).clone()) if whole else torch.clone
         with self._state_lock:
             if self._stream is None:
-                return pytree.tree_map(torch.clone, self.cstate.params)
+                return pytree.tree_map(copy, self.cstate.params)
             cur = torch.cuda.current_stream(self.device)
             cur.wait_stream(self._stream)
-            snap = pytree.tree_map(torch.clone, self.cstate.params)
+            snap = pytree.tree_map(copy, self.cstate.params)
             self._stream.wait_stream(cur)
             return snap
 
@@ -485,10 +535,11 @@ class CommitteeTrainer:
         poisoned weights publish."""
         if not 0 <= int(i) < self.size:
             raise ValueError(f"member index {i} out of range 0..{self.size - 1}")
+        j = int(i) - self._members.start
         with self._state_lock, self._on_stream():
             for leaf in pytree.tree_leaves(self.cstate.params):
-                if leaf.is_floating_point():
-                    leaf[int(i)].fill_(float("nan"))
+                if leaf.is_floating_point() and 0 <= j < self._kl:
+                    leaf[j].fill_(float("nan"))
         if self.monitor is not None:
             self.monitor.incr("train.members_poisoned")
 
@@ -497,10 +548,12 @@ class CommitteeTrainer:
         """FULL training snapshot: TrainState (params + AdamW mu/nu + step;
         QTensor moments as their int8 ``q`` and fp32 ``scale``, bf16 leaves
         as ``BF16Bits``), the step counter and the replay ring, taken under
-        the state lock after the steps enqueued so far."""
+        the state lock after the steps enqueued so far.  On a mesh that
+        splits the committee, the whole committee (a collective)."""
         with self._state_lock, self._on_stream():
             return {
-                "cstate": pytree.tree_map(leaf_to_host, self.cstate),
+                "cstate": pytree.tree_map(
+                    lambda t: leaf_to_host(self._whole(t)), self.cstate),
                 "memory_policy": dataclasses.asdict(self.policy),
                 "step_seq": self._step_seq,
                 "steps_done": self.steps_done,
@@ -555,8 +608,15 @@ class CommitteeTrainer:
                     + ". Restore with a matching memory_policy (or retrain "
                     "from scratch).")
         with self._state_lock, self._on_stream():
+            # a snapshot holds the whole committee: restored at its shapes,
+            # then cut to this rank's members
+            whole = pytree.tree_map(
+                lambda t: t.new_empty((self.size,) + tuple(t.shape[1:])),
+                self.cstate)
             try:
-                restored = _restore_like(self.cstate, snap, self.device)
+                restored = pytree.tree_map(
+                    lambda t: t[self._members],
+                    _restore_like(whole, snap, self.device))
             except _Mismatch as e:
                 log.warning(
                     "committee-trainer snapshot does not match the current "

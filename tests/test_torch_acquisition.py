@@ -338,9 +338,12 @@ def test_refresh_from_device_and_deferred_features():
                                            ws * 3))
     assert isinstance(legacy, tacq.LegacyEngine)
     np.testing.assert_allclose(legacy.score(x).mean, before * 3, rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        tacq.make_engine(PALRunConfig(uq_mesh="host"), committee=spec,
-                         device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        tacq.FusedEngine(_apply_t, eng.cparams, 0.3, mesh=object(),
+    # uq_mesh="host": the 1x1 mesh engine (the multi-device slice) scores
+    # as the engine without a mesh; an unknown mesh name raises
+    hosted = tacq.make_engine(PALRunConfig(uq_mesh="host", std_threshold=0.3),
+                              committee=spec, device="cpu")
+    assert dict(hosted.mesh.shape) == {"data": 1, "model": 1}
+    np.testing.assert_array_equal(hosted.score(x).mean, eng.score(x).mean)
+    with pytest.raises(ValueError, match="uq_mesh"):
+        tacq.make_engine(PALRunConfig(uq_mesh="3z"), committee=spec,
                          device="cpu")

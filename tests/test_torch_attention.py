@@ -167,10 +167,22 @@ def test_plain_version_matches_the_pallas_kernel(B, T, S, H, KV, D, kw,
 
 
 def test_kv_seq_shard_raises_naming_the_multi_device_item():
-    q = torch.zeros(1, 1, 2, 16)
-    k = v = torch.zeros(1, 8, 2, 16)
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        ops.attention(q, k, v, causal=False, kv_seq_shard=True)
+    # the flag without rules (or with rules that do not split the cache)
+    # is the plain call, as in the reference (ops.py acts on it only with
+    # rules); the sharded case is tests/test_torch_mesh.py's
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(1, 1, 2, 16, generator=g)
+    k, v = torch.randn(2, 1, 8, 2, 16, generator=g)
+    want = ops.attention(q, k, v, causal=False)
+    assert torch.equal(ops.attention(q, k, v, causal=False,
+                                     kv_seq_shard=True), want)
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding.rules import MeshRules
+
+    assert torch.equal(ops.attention(q, k, v, causal=False,
+                                     kv_seq_shard=True,
+                                     rules=MeshRules(make_host_mesh())),
+                       want)
 
 
 def test_cpu_attention_never_touches_the_kernel(monkeypatch):

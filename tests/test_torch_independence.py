@@ -51,6 +51,9 @@ def test_every_module_imports_with_jax_blocked():
             "repro_torch.exploration.fleet"} <= set(MODULES)
     assert {"repro_torch.models.whisper", "repro_torch.models.internvl",
             "repro_torch.examples.lm_active_distill"} <= set(MODULES)
+    assert {"repro_torch.sharding", "repro_torch.sharding.rules",
+            "repro_torch.launch.mesh",
+            "repro_torch.launch.distributed"} <= set(MODULES)
 
 
 def test_no_source_imports_jax_or_the_reference():

@@ -1107,6 +1107,171 @@ def test_flash_attention_each_path_matches_plain_version(cuda_device, dtype,
         assert torch.equal(got, ops.attention(q, k, v, **kw))
 
 
+# A sequence-sharded cache: each rank's key range through the partials
+# entry, then every rank's partials through the combine entry.  Cases:
+# (B, T, S, H, KV), the ranks, the masks (kv_len per batch row)
+FA_SHARD_CASES = {
+    "decode-2-ranks": ((4, 1, 576, 16, 2), 2, dict(
+        causal=True, q_offset=575, kv_len=[0, 64, 300, 576])),
+    "decode-4-ranks-window": ((2, 1, 512, 8, 2), 4, dict(
+        causal=True, q_offset=511, window=100, kv_len=[512, 200])),
+    "two-token-2-ranks": ((2, 2, 300, 8, 2), 2, dict(
+        causal=True, q_offset=298, kv_len=[300, 250])),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(FA_SHARD_CASES))
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_flash_partials_and_combine_match_split_kv_model(cuda_device, dtype,
+                                                         D, case):
+    """Each rank's partials (its key range; q_offset and kv_len shifted to
+    its start) against ``split_kv_partials`` with the same split plan, and
+    the combine of every rank's partials against ``split_kv_model`` over
+    the same key ranges and the plain attention over the whole cache."""
+    from repro_torch.kernels import flash_attention as kernel
+
+    (B, T, S, H, KV), n, kw = FA_SHARD_CASES[case]
+    rng = np.random.RandomState(13)
+    q, k, v = (torch.from_numpy(rng.randn(*s).astype(np.float32)).to(
+        cuda_device, dtype) for s in ((B, T, H, D), (B, S, KV, D),
+                                      (B, S, KV, D)))
+    kv_len = torch.tensor(kw["kv_len"], dtype=torch.int32,
+                          device=cuda_device)
+    mask = dict(causal=kw["causal"], window=kw.get("window"))
+    tol = FA_TOL[dtype]
+    S_loc, parts, splits0 = S // n, [], None
+    before = (kernel.launches_partials, kernel.launches_combine)
+    for r in range(n):
+        lo = r * S_loc
+        kl, vl = (t[:, lo:lo + S_loc].contiguous() for t in (k, v))
+        kvl = (kv_len - lo).clamp(min=0)
+        part, splits = kernel.flash_partials(
+            q, kl, vl, q_offset=kw["q_offset"] - lo, kv_len=kvl,
+            device=cuda_device, **mask)
+        p = kernel.plan(B, T, S_loc, H, KV)
+        want = kernel.pack_partials(*kernel.split_kv_partials(
+            q, kl, vl, splits=splits, keys_per_split=p.keys_per_split,
+            q_offset=kw["q_offset"] - lo, kv_len=kvl, **mask))
+        torch.cuda.synchronize()
+        assert splits == p.splits and part.shape == want.shape
+        assert torch.equal(torch.isfinite(part), torch.isfinite(want))
+        fin = torch.isfinite(want)
+        np.testing.assert_allclose(part[fin].cpu().numpy(),
+                                   want[fin].cpu().numpy(), rtol=tol,
+                                   atol=tol)
+        parts.append(part)
+        splits0 = splits
+    got = kernel.flash_combine(torch.cat(parts), ranks=n, splits=splits0,
+                               B=B, T=T, H=H, KV=KV, D=D, dtype=dtype,
+                               device=cuda_device)
+    assert (kernel.launches_partials - before[0],
+            kernel.launches_combine - before[1]) == (n, 1)
+    model = kernel.split_kv_model(q, k, v, splits=n * splits0,
+                                  keys_per_split=-(-S_loc // splits0),
+                                  q_offset=kw["q_offset"], kv_len=kv_len,
+                                  **mask) if S_loc % splits0 == 0 else None
+    plain = ref.attention_ref(q, k, v, q_offset=kw["q_offset"],
+                              kv_len=kv_len, **mask)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == plain.shape
+    for want in (model, plain):
+        if want is not None:
+            np.testing.assert_allclose(got.float().cpu().numpy(),
+                                       want.float().cpu().numpy(),
+                                       rtol=tol, atol=tol)
+    # the same bits on a repeat (splits merged in a fixed order)
+    assert torch.equal(got, kernel.flash_combine(
+        torch.cat(parts), ranks=n, splits=splits0, B=B, T=T, H=H, KV=KV,
+        D=D, dtype=dtype, device=cuda_device))
+
+
+@pytest.mark.cuda
+def test_flash_partials_and_combine_reject_what_they_do_not_take(
+        cuda_device):
+    from repro_torch.kernels import flash_attention as kernel
+
+    q = torch.zeros(1, 4, 8, 64, device=cuda_device)    # T*G = 16 rows
+    k = torch.zeros(1, 32, 2, 64, device=cuda_device)
+    with pytest.raises(ValueError, match="split kernel holds"):
+        kernel.flash_partials(q, k, k, device=cuda_device)
+    part, splits = kernel.flash_partials(q[:, :1], k, k, device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        kernel.flash_combine(part[:-1], ranks=1, splits=splits, B=1, T=1,
+                             H=8, KV=2, D=64, dtype=torch.float32,
+                             device=cuda_device)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        kernel.flash_combine(part, ranks=1, splits=splits, B=1, T=1, H=8,
+                             KV=2, D=64, dtype=torch.float16,
+                             device=cuda_device)
+
+
+@pytest.mark.cuda
+def test_mesh_engine_and_trainer_on_a_one_rank_nccl_group(cuda_device,
+                                                          tmp_path):
+    """World size 1 over NCCL: the 1x1 mesh engine and trainer equal the
+    unsharded ones on the card bit for bit; the committee axis of a 1-rank
+    mesh needs no collective."""
+    from repro_torch.core import acquisition as acq
+    from repro_torch.core import budget
+    from repro_torch.core.committee import params_from_numpy
+    from repro_torch.launch import distributed
+    from repro_torch.launch.mesh import make_host_mesh, make_scaleout_mesh
+    from repro_torch.training.committee_trainer import CommitteeTrainer
+
+    distributed._join(f"file://{tmp_path / 'store'}", 1, 0, "nccl",
+                      cuda_device)
+    try:
+        one = torch.ones(1, device=cuda_device)
+        torch.distributed.all_reduce(one)
+        assert float(one) == 1.0
+        rng = np.random.RandomState(3)
+        ws = {"w": rng.randn(4, 6, 6).astype(np.float32)}
+
+        def rules():
+            return (budget.RollingReweightRule(n_buckets=8),
+                    budget.BudgetRule(target=0.25, thr_init=0.4, horizon=8))
+
+        engines = [acq.FusedEngine(lambda p, x: torch.tanh(x @ p["w"]),
+                                   params_from_numpy(ws, cuda_device), 0.4,
+                                   rules=rules(), mesh=m,
+                                   device=cuda_device)
+                   for m in (None, make_host_mesh(), make_scaleout_mesh())]
+        for r in range(4):
+            x = rng.randn(29, 6).astype(np.float32)
+            outs = [e.score(x) for e in engines]
+            for o in outs[1:]:
+                for f in ("mean", "scalar_std", "component_std", "mask"):
+                    np.testing.assert_array_equal(getattr(o, f),
+                                                  getattr(outs[0], f))
+        for e in engines[1:]:
+            for a, b in zip(e.state_dict(), engines[0].state_dict()):
+                for x, y in zip(a.values(), b.values()):
+                    np.testing.assert_array_equal(x, y)
+            assert e.trace_counts == {32: 1}
+            assert e.collective_host_bytes == 0
+
+        def loss(p, b):
+            return torch.mean((torch.tanh(b["x"] @ p["w"]) - b["y"]) ** 2), {}
+
+        trs = [CommitteeTrainer(loss, params_from_numpy(ws, cuda_device),
+                                batch=8, lr=1e-2, replay_capacity=64,
+                                mesh=m, device=cuda_device)
+               for m in (None, make_host_mesh())]
+        xs = rng.randn(40, 6).astype(np.float32)
+        for t in trs:
+            t.add_blocks(list(zip(xs, np.tanh(xs))))
+            t.train(steps=20)
+        assert torch.equal(trs[0].cparams["w"], trs[1].cparams["w"])
+        assert trs[1].captures == 1
+        engines[1].refresh_from_device(trs[1].snapshot_cparams())
+        assert engines[1].refresh_host_bytes == 0
+    finally:
+        distributed.shutdown()
+
+
 @pytest.mark.cuda
 def test_flash_attention_kernel_rejects_what_it_does_not_take(cuda_device):
     from repro_torch.kernels import flash_attention as kernel

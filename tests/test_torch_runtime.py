@@ -26,8 +26,8 @@ Added here: a reference ``PAL``'s checkpoint resumed by the port's ``PAL``
 (trainer state, engine rule state, buffers and iteration equal); the
 legacy-engine publish path of the fused trainer; ``PAL()`` without
 ``device=`` raising without CUDA; ``fleet_walkers > 0`` needing the fused
-engine and replacing the host generators; ``mesh=`` raising; the
-quickstart twin.
+engine and replacing the host generators; a mesh of more than one process
+raising (multi-process PAL); the quickstart twin.
 """
 import functools
 import pickle
@@ -306,11 +306,15 @@ def test_fleet_and_mesh_raise_naming_their_items():
     assert pal.exchange.fleet is pal.fleet
     assert pal.exchange.step() is None
     assert pal.report()["fleet"]["steps"] == 1
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    # a mesh of more than one process is refused (its own ROADMAP item)
+    from repro_torch.launch.mesh import Mesh
+
+    with pytest.raises(NotImplementedError, match="multi-process PAL"):
         PAL(PALRunConfig(result_dir=tempfile.mkdtemp()),
             make_generator=test_pal_runtime.ToyGene,
             make_model=test_pal_runtime.ToyModel,
-            make_oracle=test_pal_runtime.ToyOracle, mesh=object(),
+            make_oracle=test_pal_runtime.ToyOracle,
+            mesh=Mesh(np.arange(2).reshape(2, 1), ("data", "model")),
             device="cpu")
 
 

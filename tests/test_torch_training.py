@@ -14,8 +14,9 @@ loss's parameter gradients (a double backward): rtol 1e-4 atol 1e-6; the
 fused trainer on the potential loss: per-step losses rtol 1e-4 over 12
 steps; bf16 and int8 final losses against fp32: rtol 0.15 atol 5e-3 (the
 reference's own gate); snapshots, quarantine and restores: bit for bit.
-Not mirrored: the two host-mesh tests (they fail in the reference) and the
-PAL-runtime tests (the runtime is not ported yet).
+Not mirrored here: the two host-mesh tests (they fail in the reference;
+tests/test_torch_mesh.py holds the 1x1 mesh trainer against the unsharded
+one) and the PAL-runtime tests (tests/test_torch_runtime.py).
 """
 import contextlib
 import dataclasses
@@ -716,10 +717,19 @@ def test_train_yields_to_interrupt_and_empty_ring():
 
 
 def test_mesh_raises_not_implemented():
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        _trainer(mesh=object())
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        _trainer(sharding_rules={})
+    # the mesh trainer is ported (tests/test_torch_mesh.py); what is left
+    # to refuse is a mesh whose committee axis spans ranks with no process
+    # group to gather them: the round's metrics gather raises
+    from repro_torch.launch.mesh import Mesh, make_host_mesh
+
+    xs, ys = _data()
+    tr = _trainer(mesh=Mesh(np.arange(2).reshape(1, 2), ("data", "model")))
+    assert tr.cparams["w1"].shape[0] == K // 2
+    tr.add_blocks(list(zip(xs, ys)))
+    with pytest.raises(RuntimeError, match="process group"):
+        tr.train(steps=1)
+    hosted = _trainer(mesh=make_host_mesh(), sharding_rules={})
+    assert hosted.cparams["w1"].shape[0] == K
 
 
 @contextlib.contextmanager
