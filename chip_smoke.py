@@ -171,14 +171,22 @@ Phases (each raises on a failed check; the script exits non-zero):
    layers at full width against the CPU; every kernel wrapper refuses a
    gradient-tracked input.  Training runs the plain attention and scans
    and launches no kernel;
-18. multi-device (``phase_mesh``, last): (a) NCCL at world size 1, the
+18. multi-device (``phase_mesh``): (a) NCCL at world size 1, the
    1x1 mesh engine and trainer against the unsharded ones bit for bit and
    ``PAL(uq_mesh='host')`` to its stop; (b) two gloo ranks sharing the
    card (``launch/distributed.launch_local``) on 2x1 and 1x2 meshes: the
    engine, the trainer, the fleet (2x1) and ``attention(kv_seq_shard=
    True)`` (the ``flash_attention`` partials and combine entries) against
    the unsharded paths, launch counts per rank; the CLI's ``DIST_OK 2 2
-   28.0``; dispatch and kernel timings.
+   28.0``; dispatch and kernel timings;
+19. the planners (``phase_planner``, last): (a) ``python -m
+   repro_torch.launch.dryrun`` on llama3.2-1b ``decode_32k`` under the
+   16 x 16 production mesh (a trace on fake CUDA tensors) and
+   ``roofline_cell``'s rows for llama3.2-1b ``train_4k`` and
+   qwen3-moe-235b-a22b ``decode_32k``; (b) the plan of phase 17's llama
+   step against that step: resident bytes == the live state's, traced
+   FLOPs == the eager step's (rel 1e-9), the roofline bound <= the
+   captured step's ms, the planned peak beside the measured one.
 
 The flash phase (4) also sweeps and times the new families' shapes (the
 Whisper encoder and cross-attention, InternVL's and qwen2-moe's prefill and
@@ -3998,9 +4006,33 @@ def _top_kernels(fn, calls, n=8):
     return sorted(rows, key=lambda r: -r[1])[:n]
 
 
+def _eager_step_for_the_planner(step, cfg, batch, seq):
+    """One more eager step of the live llama state, for ``phase_planner``:
+    its FLOPs by ``FlopCounterMode`` and its peak memory over what was
+    allocated before it (the state and what earlier phases left)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.synthetic import SyntheticTokenStream
+
+    stream = SyntheticTokenStream(
+        cfg, ShapeConfig("cli", seq, batch, "train"), seed=SEED)
+    host = {k: torch.from_numpy(v).pin_memory()
+            for k, v in next(stream).items()}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with FlopCounterMode(display=False) as fc:
+        step(host)
+    torch.cuda.synchronize()
+    return {"eager_flops": fc.get_total_flops(), "base_bytes": base,
+            "eager_step_peak_bytes": torch.cuda.max_memory_allocated()}
+
+
 def _lm_train_full(smi):
     """(b) llama3.2-1b uncut through ``main(argv)``: 30 captured steps with
-    a checkpoint every 10; 3 eager steps before them; a resume from step 20
+    a checkpoint every 10; 3 eager steps before them (and one more for
+    ``phase_planner``); a resume from step 20
     reproducing steps 21-30."""
     import os
     import shutil
@@ -4022,6 +4054,8 @@ def _lm_train_full(smi):
     eager_ms, eager_peak = eager["step_ms"], eager["peak_bytes"]
     ckpt_bytes = sum(t.nbytes for t in
                      torch.utils._pytree.tree_leaves(eager["step"].state))
+    plan_probe = _eager_step_for_the_planner(eager["step"], cfg, batch, seq)
+    plan_probe["state_bytes"] = ckpt_bytes
     del eager
     gc.collect()
     torch.cuda.empty_cache()
@@ -4070,7 +4104,7 @@ def _lm_train_full(smi):
             "copies": copies, "device_ms": device_us / 1e3,
             "busy_share": out["busy_share"], "busy_share_2_10": window,
             "top": top,
-            "peak_gib": out["peak_bytes"] / 2**30,
+            "peak_gib": out["peak_bytes"] / 2**30, "plan_probe": plan_probe,
             "eager_peak_gib": eager_peak / 2**30,
             "run_seconds": out["seconds"], "losses": losses}
         first = out["metrics"]
@@ -4225,6 +4259,118 @@ def phase_lm_train(smi):
     return full
 
 
+PLAN_FLOPS_RTOL = 1e-9
+
+
+def _planner_cli():
+    """(a) ``python -m repro_torch.launch.dryrun`` on one cell of the
+    production mesh, in a subprocess, tracing on fake CUDA tensors."""
+    import os
+    import subprocess
+    import tempfile
+
+    root = Path(__file__).resolve().parent
+    cell = "decode_32k"
+    with tempfile.TemporaryDirectory() as tmp:
+        env = dict(os.environ, PYTHONPATH=str(root / "src"))
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             LM_ARCH, "--shape", cell, "--out", tmp],
+            capture_output=True, text=True, timeout=600, env=env,
+            cwd=str(root))
+        if out.returncode != 0:
+            raise AssertionError(f"dryrun CLI: rc {out.returncode}\n"
+                                 f"{out.stdout[-2000:]}\n{out.stderr[-2000:]}")
+        with open(os.path.join(tmp, f"{LM_ARCH}_{cell}_singlepod.json")) as f:
+            rep = json.load(f)
+    if rep.get("traced") is not True or rep.get("mesh") != {
+            "data": 16, "model": 16} or not rep.get(
+            "resident_gib_per_device", 0) > 0 or \
+            not str(rep.get("device")).startswith("cuda"):
+        raise AssertionError(f"dryrun CLI report: {rep}")
+    return rep
+
+
+def phase_planner(smi, lm_full):
+    """The planners (``launch/dryrun.py``, ``launch/roofline.py``): (a) the
+    dry-run CLI on llama3.2-1b ``decode_32k`` under the 16 x 16 production
+    mesh (traced on fake CUDA tensors), then ``roofline_cell``'s rows for
+    llama3.2-1b ``train_4k`` and qwen3-moe-235b-a22b ``decode_32k``; (b)
+    the plan of ``phase_lm_train``'s full-width llama step (batch 8, seq
+    512, its ``TrainConfig``) on the host mesh against the steps that
+    phase ran: the planned resident bytes == the live ``TrainState``'s
+    exactly, the traced FLOPs == ``FlopCounterMode`` around one real eager
+    step (rel 1e-9), and the roofline's lower bound <= the measured
+    captured step; the planned peak (resident + temp) printed beside the
+    eager step's ``max_memory_allocated``.  No kernel runs."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import train as lm_train
+    from repro_torch.launch.mesh import make_host_mesh
+
+    rep = _planner_cli()
+    print(f"  (a) dryrun CLI {LM_ARCH} decode_32k on {rep['mesh']}: "
+          f"{rep['resident_gib_per_device']} GiB a device resident, "
+          f"{rep['flops']:.4e} FLOPs and {rep['bytes_accessed']:.4e} bytes "
+          f"a device, temp {rep['memory']['temp_size_in_bytes']} B, "
+          f"collectives {rep['collectives']}; traced in "
+          f"{rep['trace_seconds']} s on {rep['device']}")
+    rows = {}
+    for arch, cell in ((LM_ARCH, "train_4k"),
+                       ("qwen3-moe-235b-a22b", "decode_32k")):
+        rows[(arch, cell)] = r = roofline.roofline_cell(arch, cell)
+        print("  " + roofline.fmt_row(r))
+
+    batch, seq, _ = LM_TRAIN_FULL
+    probe = lm_full["plan_probe"]
+    plan = dryrun.lower_shape(
+        LM_ARCH, ShapeConfig("lm_train", seq, batch, "train"),
+        make_host_mesh(), train_cfg=lm_train.train_config(LM_ARCH, 3, 3e-4),
+        device="cuda")
+    terms = roofline.roofline_terms(plan["flops"], plan["bytes_accessed"],
+                                    plan["collective_bytes_per_device"])
+    resident = plan["resident_bytes_per_device"]
+    if resident != probe["state_bytes"]:
+        raise AssertionError(f"planned resident {resident} B != the live "
+                             f"TrainState's {probe['state_bytes']} B")
+    frel = _rel(plan["flops"], probe["eager_flops"])
+    if frel > PLAN_FLOPS_RTOL:
+        raise AssertionError(f"traced FLOPs {plan['flops']:.6e} != the "
+                             f"eager step's {probe['eager_flops']:.6e} "
+                             f"(rel {frel:.3e})")
+    bound_ms = terms["step_time_lower_bound_s"] * 1e3
+    if not bound_ms <= lm_full["step_ms"]:
+        raise AssertionError(f"roofline bound {bound_ms:.4f} ms > the "
+                             f"measured captured step "
+                             f"{lm_full['step_ms']:.4f} ms")
+    temp = plan["memory"]["temp_size_in_bytes"]
+    peak = probe["eager_step_peak_bytes"]
+    # the eager step's own peak: what it held over what it found allocated
+    # besides the state
+    own = peak - (probe["base_bytes"] - probe["state_bytes"])
+    flops = roofline.analytic_model_flops(
+        get_arch(LM_ARCH).model, ShapeConfig("lm_train", seq, batch, "train"))
+    print(f"  (b) {LM_ARCH} batch {batch} seq {seq} on the host mesh: "
+          f"resident {resident} B == the live TrainState's (held); traced "
+          f"{plan['flops']:.6e} FLOPs against the eager step's "
+          f"{probe['eager_flops']:.6e} (rel {frel:.3e}, held; analytic "
+          f"{flops:.6e}, useful {flops / plan['flops']:.4f}); "
+          f"{plan['bytes_accessed']:.6e} bytes, {plan['aten_ops']} ops; "
+          f"compute {terms['compute_term_s'] * 1e3:.4f} ms, memory "
+          f"{terms['memory_term_s'] * 1e3:.4f} ms -> {terms['bottleneck']} "
+          f"bound {bound_ms:.4f} ms <= the captured step "
+          f"{lm_full['step_ms']:.4f} ms (held; ratio "
+          f"{bound_ms / lm_full['step_ms']:.4f}); planned peak "
+          f"{(resident + temp) / 2**30:.3f} GiB (resident "
+          f"{resident / 2**30:.3f} + temp {temp / 2**30:.3f}) against the "
+          f"eager step's {own / 2**30:.3f} GiB over the rest "
+          f"({peak / 2**30:.3f} allocated at its peak; ratio "
+          f"{(resident + temp) / own:.4f}); the captured run's peak "
+          f"{lm_full['peak_gib']:.3f} GiB; traced in "
+          f"{plan['trace_seconds']} s; {smi}")
+    return {"cli": rep, "rows": rows, "plan": plan, "terms": terms}
+
+
 def _timed(name, fn, *args):
     """Run one phase; print its wall time and what it left allocated on
     the card (after a collection)."""
@@ -4289,10 +4435,11 @@ def main() -> int:
     distill = _timed("lm distill", phase_distill, smi)
     gc.collect()
     torch.cuda.empty_cache()
-    _timed("lm training", phase_lm_train, smi)
+    lm_full = _timed("lm training", phase_lm_train, smi)
     gc.collect()
     torch.cuda.empty_cache()
     mesh = _timed("multi-device", phase_mesh, smi)
+    _timed("planner", phase_planner, smi, lm_full)
     print(f"all phases: {time.perf_counter() - t_start:.2f} s wall")
     fd, fp = fa_t["decode"], fa_t["prefill"]
     jd, jp = fa_t["jamba_decode"], fa_t["jamba_prefill"]

@@ -3,8 +3,9 @@
 Models are functional: parameters are plain (nested) dicts of tensors in
 the reference's layout and keys (weights ``(in, out)``, applied as
 ``x @ w``), so the reference's parameters carry across through numpy with
-no transposes.  ``ParamSpec`` keeps the reference's ``axes`` field for the
-same call sites; the port has no logical-axis sharding and ignores it.
+no transposes.  ``ParamSpec`` carries the reference's logical ``axes``:
+``sharding/rules.py`` resolves them to layouts, and the planners
+(``launch/dryrun.py``) lay abstract trees out with them.
 The numerics follow ``repro/models/common.py`` line by line: norms and
 RoPE in fp32, cast back to the activation dtype.
 """
@@ -35,10 +36,15 @@ def torch_dtype(name) -> torch.dtype:
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
     shape: Tuple[int, ...]
-    axes: Tuple[Optional[str], ...] = ()   # logical axes (unused here)
+    axes: Tuple[Optional[str], ...] = ()   # logical axis per dim
     init: str = "normal"                   # normal | zeros | ones | uniform
     scale: float = 1.0                     # std multiplier (normal) / bound
     dtype: torch.dtype = torch.float32
+
+    def abstract(self) -> torch.Tensor:
+        """The leaf's shape and dtype with no storage: a ``meta`` tensor
+        (the reference's ``ShapeDtypeStruct``)."""
+        return torch.empty(self.shape, dtype=self.dtype, device="meta")
 
     def materialize(self, generator: torch.Generator) -> torch.Tensor:
         """Draw the leaf on the generator's device: zeros, ones, a uniform
@@ -88,6 +94,17 @@ def _spec_leaves(specs):
     if isinstance(specs, dict):
         return [s for k in sorted(specs) for s in _spec_leaves(specs[k])]
     return [specs]
+
+
+def abstract_params(specs):
+    """The spec tree as ``meta`` tensors (shapes and dtypes, nothing
+    allocated)."""
+    return map_specs(lambda s: s.abstract(), specs)
+
+
+def param_axes(specs):
+    """The spec tree's logical axes, one tuple per leaf."""
+    return map_specs(lambda s: s.axes, specs)
 
 
 def count_params(specs) -> int:

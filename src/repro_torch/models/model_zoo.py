@@ -5,13 +5,18 @@
 (dense, moe, rwkv6, hybrid, encdec, vlm); ``make_loss_fn`` builds the
 training loss with the MoE load-balance term; ``make_prefill_fn`` passes
 the encoder-decoder's frame embeddings and the vision LM's patch
-embeddings through to the prefill.  The reference's dry-run stand-ins
-(``input_specs`` / ``decode_input_specs``) wait for the planners item
-(ROADMAP §A).
+embeddings through to the prefill.  ``input_specs`` and
+``decode_input_specs`` are the planners' stand-ins (``launch/dryrun.py``):
+``meta`` tensors of the reference's keys, shapes and dtypes, nothing
+allocated.
 """
 from __future__ import annotations
 
-from repro_torch.configs.base import ModelConfig
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import common as cm
 from repro_torch.models import internvl
 from repro_torch.models import jamba
@@ -39,6 +44,48 @@ def build_model(cfg: ModelConfig, *, impl: str = "auto",
     if cfg.family == "vlm":
         return internvl.InternVLM(cfg, impl=impl)
     raise ValueError(f"unknown family {cfg.family!r}")
+
+
+# ---------------------------------------------------------------------------
+# Dry-run input specs (meta tensors; no allocation)
+# ---------------------------------------------------------------------------
+
+
+def _sds(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
+    """Training / prefill batch stand-ins for one (arch x shape) cell."""
+    B, S = shape.global_batch, shape.seq_len
+    tok = torch.int32
+    if cfg.family == "encdec":
+        return {
+            "tokens": _sds((B, S), tok),
+            "labels": _sds((B, S), tok),
+            "enc_embeds": _sds((B, cfg.encoder_seq, cfg.d_model),
+                               torch.bfloat16),
+        }
+    if cfg.family == "vlm":
+        t_text = S - cfg.vision_tokens
+        return {
+            "tokens": _sds((B, t_text), tok),
+            "labels": _sds((B, t_text), tok),
+            "patch_embeds": _sds((B, cfg.vision_tokens, cfg.d_model),
+                                 torch.bfloat16),
+        }
+    return {"tokens": _sds((B, S), tok), "labels": _sds((B, S), tok)}
+
+
+def decode_input_specs(cfg: ModelConfig, shape: ShapeConfig,
+                       model) -> Dict[str, Any]:
+    """serve_step stand-ins: one new token against a seq_len cache."""
+    B, S = shape.global_batch, shape.seq_len
+    return {
+        "tokens": _sds((B, 1), torch.int32),
+        "cache": cm.abstract_params(model.cache_specs(B, S)),
+        "index": _sds((), torch.int32),
+    }
 
 
 # ---------------------------------------------------------------------------

@@ -5,7 +5,10 @@ Mirrors the four analytic tests of tests/test_launch_analysis.py
 test_analytic_flops_train_is_3x_prefill,
 test_analytic_decode_flops_much_smaller_than_prefill, test_moe_active_ratio)
 on the port, and holds the port's ``analytic_model_flops`` equal to the
-reference's (rtol 1e-12) for every arch x train/prefill/decode.
+reference's (rtol 1e-12) for every arch x train/prefill/decode.  The
+probe-corrected half (``roofline_cell``, ``main``) traces with fake
+tensors on the CPU: its fit against the full-depth trace, the useful-flops
+ratio of llama3.2-1b train_4k, and the sweep on one cell.
 
 The reference module requests 512 emulated devices when it is imported,
 which raises once the JAX backend is up (inside a test body it is), so it
@@ -75,6 +78,7 @@ def test_h100_constants_and_the_planner_stubs():
     assert roofline.PEAK_FLOPS == 989e12
     assert roofline.PEAK_FP32_FLOPS == 67e12
     assert roofline.HBM_BW == 3.35e12
+    assert roofline.LINK_BW == 50e9         # one 400 Gb/s NDR port
     assert roofline.hbm_bytes() > 0
     # the TPU v5e figures of the reference stay there
     assert roofline.PEAK_FLOPS != jroofline.PEAK_FLOPS
@@ -82,7 +86,63 @@ def test_h100_constants_and_the_planner_stubs():
     shape = ShapeConfig("s", 512, 8, "train")
     flops = roofline.analytic_model_flops(cfg, shape)
     assert 30.0e12 < flops < 31.5e12        # 6 x 1.236e9 x 4096 + attention
-    with pytest.raises(NotImplementedError, match=r"\(ROADMAP §A: planners\)"):
-        roofline.roofline_cell("llama3.2-1b", "train_4k")
-    with pytest.raises(NotImplementedError, match=r"\(ROADMAP §A: planners\)"):
+    # the planners replaced the stubs: a skipped cell says why, and the
+    # sweep asks for a cell
+    row = roofline.roofline_cell("llama3.2-1b", "long_500k")
+    assert row["skipped"] == get_arch("llama3.2-1b").skip_shapes["long_500k"]
+    assert "SKIP" in roofline.fmt_row(row)
+    with pytest.raises(SystemExit):
         roofline.main([])
+
+
+# ---------------------------------------------------------------------------
+# The probe-corrected traced totals (the reference's roofline_cell)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape_name", ["train_4k", "decode_32k"])
+@pytest.mark.parametrize("layers", [2, 4])
+def test_probe_fit_equals_full_depth_trace(layers, shape_name):
+    """llama3.2-1b cut to ``layers``: the fit of the depth-1/2 probes
+    equals the full-depth trace: FLOPs, bytes and collective bytes exactly
+    (rel 1e-9; a training cell's bytes through a third probe, with their
+    term in layers squared); the peak of live bytes exactly when serving
+    and within 1e-2 in training (a line through depths 2 and 3: the peak
+    is not a polynomial in depth)."""
+    from repro_torch.launch import dryrun
+
+    ov = {"num_layers": layers}
+    full = dryrun.lower_cell("llama3.2-1b", shape_name, model_overrides=ov,
+                             device="cpu")
+    r = roofline.roofline_cell("llama3.2-1b", shape_name,
+                               model_overrides=ov, full_report=full,
+                               device="cpu")
+    f = r["full"]
+    train = shape_name == "train_4k"
+    assert r["hlo_flops_per_device"] == pytest.approx(f["flops"], rel=1e-9)
+    assert r["coll_bytes_per_device"] == pytest.approx(f["coll"], rel=1e-9)
+    assert f["coll"] > 0
+    assert r["hlo_bytes_per_device"] == pytest.approx(f["bytes"], rel=1e-9)
+    fit_temp = r["nonlayer_temp"] + layers * r["per_layer_temp"]
+    assert fit_temp == pytest.approx(f["temp"], rel=1e-2 if train else 1e-9)
+    assert sorted(r["probes"]) == (["1", "2", "3"] if train else ["1", "2"])
+    assert r["memory_analysis"] == full["memory"]
+
+
+def test_useful_flops_ratio_of_llama_train_4k():
+    """The analytic MODEL_FLOPS over the traced FLOPs at full depth."""
+    r = roofline.roofline_cell("llama3.2-1b", "train_4k", device="cpu")
+    assert 0.9 <= r["useful_flops_ratio"] <= 1.0
+    assert r["full"] is None and r["resident_gib_per_device"] > 0
+    assert r["bottleneck"] in ("compute", "memory", "collective")
+    assert r["step_time_lower_bound_s"] == max(
+        r["compute_term_s"], r["memory_term_s"], r["collective_term_s"])
+
+
+def test_roofline_cli_one_cell(tmp_path):
+    rows = roofline.main(["--arch", "llama3.2-1b", "--shape", "decode_32k",
+                          "--out", str(tmp_path), "--device", "cpu"])
+    assert len(rows) == 1 and "error" not in rows[0], rows
+    assert (tmp_path / "llama3.2-1b_decode_32k.json").exists()
+    assert (tmp_path / "table.json").exists()
+    assert rows[0]["mesh_chips"] == 256 and rows[0]["kind"] == "decode"
