@@ -162,12 +162,16 @@ Phases (each raises on a failed check; the script exits non-zero):
    trainer's weights bit for bit; exchange it/s, labels/s, retrains, fused
    steps, weight refreshes, selection fraction and the busy share by CUDA
    events;
-17. LM training through ``repro_torch.launch.train`` (``phase_lm_train``):
+17. LM training through ``repro_torch.launch.train`` (``phase_lm_train``),
+   under each arch's remat policy (``"dots"``, the reference's default):
    every arch at ``--preset smoke`` with its step one captured CUDA graph
    == the eager step bit for bit == the CPU; llama3.2-1b uncut for 30
    captured steps through ``main(argv)`` with checkpoints and a resume
    from step 20 bit for bit (ms a step captured and eager, tokens/s, MFU,
-   kernels a step, busy share, peak memory, the top kernels); 2 fp32
+   kernels a step, busy share, peak memory, the top kernels), beside
+   eager steps of the same model under ``remat="none"`` in the same
+   process (ms and peak; the "dots" peak must be the lower) and through
+   the ``torch.func`` gradient path (ms and peak); 2 fp32
    layers at full width against the CPU; every kernel wrapper refuses a
    gradient-tracked input.  Training runs the plain attention and scans
    and launches no kernel;
@@ -184,9 +188,12 @@ Phases (each raises on a failed check; the script exits non-zero):
    16 x 16 production mesh (a trace on fake CUDA tensors) and
    ``roofline_cell``'s rows for llama3.2-1b ``train_4k`` and
    qwen3-moe-235b-a22b ``decode_32k``; (b) the plan of phase 17's llama
-   step against that step: resident bytes == the live state's, traced
-   FLOPs == the eager step's (rel 1e-9), the roofline bound <= the
-   captured step's ms, the planned peak beside the measured one.
+   step (under "dots") against that step: resident bytes == the live
+   state's, traced FLOPs == the eager step's (rel 1e-9), the roofline
+   bound <= the captured step's ms, the planned peak beside the measured
+   one; the same beside the "none" eager step (printed, not gated), and
+   each policy's peak from the depth-2/3 probe line beside its full-depth
+   trace.
 
 The flash phase (4) also sweeps and times the new families' shapes (the
 Whisper encoder and cross-attention, InternVL's and qwen2-moe's prefill and
@@ -3954,6 +3961,10 @@ def _lm_train_smoke():
     rows = []
     for arch in list_archs():
         cfg = lm_train.reduced_config(get_arch(arch).model, "smoke")
+        if cfg.remat != "dots":
+            raise AssertionError(f"{arch}: the smoke preset trains under "
+                                 f"remat={cfg.remat!r}, not the reference's "
+                                 f"'dots'")
         state0 = _train_state(arch, cfg, steps, seq)
         kw = dict(steps=steps, batch=batch, seq=seq, init_state=state0)
         with contextlib.redirect_stdout(io.StringIO()):
@@ -3974,8 +3985,9 @@ def _lm_train_smoke():
             LM_TRAIN_LOSS_RTOL.get(arch, LM_TRAIN_LOSS_RTOL_DEFAULT))
         ms = float(np.mean(cap["step_ms"][1:]))
         rows.append(arch)
-        print(f"  {arch}: {steps} steps, captured == eager bit for bit, "
-              f"1 capture; card vs CPU free running: worst loss rel "
+        print(f"  {arch} (remat {cfg.remat}): {steps} steps, captured == "
+              f"eager bit for bit, 1 capture; card vs CPU free running: "
+              f"worst loss rel "
               f"{wl:.3e}; teacher-forced, worst rel: {_tf_text(tf)}; "
               f"{ms:.3f} ms a captured step, "
               f"{float(np.mean(eager['step_ms'][1:])):.3f} eager")
@@ -4029,11 +4041,49 @@ def _eager_step_for_the_planner(step, cfg, batch, seq):
             "eager_step_peak_bytes": torch.cuda.max_memory_allocated()}
 
 
+def _functional_steps(cfg, batch, seq, steps=2):
+    """``steps`` eager steps of ``cfg`` through ``make_train_step(
+    functional=True)``, the ``torch.func`` gradient path (the LM step's
+    before it took ``torch.autograd.grad``; it needs ``remat="none"``):
+    ms a step by CUDA events around each step, and the peak allocated
+    from before the init."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.synthetic import SyntheticTokenStream
+    from repro_torch.launch import train as lm_train
+    from repro_torch.training import make_train_state, make_train_step
+
+    model = model_zoo.build_model(cfg, impl="plain", max_seq=seq)
+    tcfg = lm_train.train_config(LM_ARCH, steps, 3e-4)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = make_train_state(model.init(
+        torch.Generator("cuda").manual_seed(SEED), device="cuda"), tcfg)
+    step = make_train_step(model_zoo.make_loss_fn(model), tcfg,
+                           functional=True)
+    stream = SyntheticTokenStream(
+        cfg, ShapeConfig("cli", seq, batch, "train"), seed=SEED)
+    ms = []
+    for _ in range(steps):
+        b = {k: torch.from_numpy(v).cuda() for k, v in next(stream).items()}
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        state, _ = step(state, b)
+        t1.record()
+        torch.cuda.synchronize()
+        ms.append(t0.elapsed_time(t1))
+    return {"eager_step_ms": ms,
+            "eager_peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
 def _lm_train_full(smi):
-    """(b) llama3.2-1b uncut through ``main(argv)``: 30 captured steps with
-    a checkpoint every 10; 3 eager steps before them (and one more for
-    ``phase_planner``); a resume from step 20
-    reproducing steps 21-30."""
+    """(b) llama3.2-1b uncut through ``main(argv)``, under the arch's
+    ``"dots"``: 30 captured steps with a checkpoint every 10; 3 eager
+    steps before them (and one more for ``phase_planner``); a resume from
+    step 20 reproducing steps 21-30.  First, 2 eager steps of the same
+    model under ``remat="none"`` (and one more for ``phase_planner``):
+    the same process's before, whose peak must lie above the "dots"
+    one's; then 2 eager "none" steps through the ``torch.func`` gradient
+    path."""
     import os
     import shutil
     import tempfile
@@ -4044,14 +4094,35 @@ def _lm_train_full(smi):
 
     batch, seq, steps = LM_TRAIN_FULL
     cfg = get_arch(LM_ARCH).model
+    if cfg.remat != "dots":
+        raise AssertionError(f"{LM_ARCH} trains under remat={cfg.remat!r}")
     flops = roofline.analytic_model_flops(
         cfg, ShapeConfig("train", seq, batch, "train"))
+    # the same model without remat, eagerly, in this process
+    none_cfg = cfg.replace(remat="none")
+    with contextlib.redirect_stdout(io.StringIO()):
+        base = lm_train.train(LM_ARCH, "full", steps=2, batch=batch, seq=seq,
+                              capture=False, model_cfg=none_cfg)
+    none = {"eager_step_ms": base["step_ms"],
+            "eager_peak_gib": base["peak_bytes"] / 2**30,
+            "plan_probe": _eager_step_for_the_planner(base["step"], none_cfg,
+                                                      batch, seq)}
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
+    none["functional"] = _functional_steps(none_cfg, batch, seq)
+    gc.collect()
+    torch.cuda.empty_cache()
     # eager first: its activations leave the card before a graph's pool
     # takes its own
     with contextlib.redirect_stdout(io.StringIO()):
         eager = lm_train.train(LM_ARCH, "full", steps=3, batch=batch,
                                seq=seq, capture=False)
     eager_ms, eager_peak = eager["step_ms"], eager["peak_bytes"]
+    if not eager_peak / 2**30 < none["eager_peak_gib"]:
+        raise AssertionError(f"remat 'dots' peaks at "
+                             f"{eager_peak / 2**30:.3f} GiB, not below "
+                             f"'none''s {none['eager_peak_gib']:.3f} GiB")
     ckpt_bytes = sum(t.nbytes for t in
                      torch.utils._pytree.tree_leaves(eager["step"].state))
     plan_probe = _eager_step_for_the_planner(eager["step"], cfg, batch, seq)
@@ -4105,7 +4176,7 @@ def _lm_train_full(smi):
             "busy_share": out["busy_share"], "busy_share_2_10": window,
             "top": top,
             "peak_gib": out["peak_bytes"] / 2**30, "plan_probe": plan_probe,
-            "eager_peak_gib": eager_peak / 2**30,
+            "eager_peak_gib": eager_peak / 2**30, "none": none,
             "run_seconds": out["seconds"], "losses": losses}
         first = out["metrics"]
         del out, host
@@ -4226,6 +4297,7 @@ def phase_lm_train(smi):
     if any(launched):
         raise AssertionError(f"LM training launched kernels {launched}: it "
                              f"runs the plain path")
+    fnl = full["none"]["functional"]
     print(f"  llama3.2-1b full width, batch {LM_TRAIN_FULL[0]}, seq "
           f"{LM_TRAIN_FULL[1]}: {full['step_ms']:.4f} ms a captured step "
           f"(first, with the capture: {full['first_step_ms']:.1f} ms), "
@@ -4241,7 +4313,14 @@ def phase_lm_train(smi):
           f"{100 * full['busy_share_2_10']:.2f} % over steps 2-10 (CUDA "
           f"events around the steps); "
           f"peak {full['peak_gib']:.3f} GiB captured, "
-          f"{full['eager_peak_gib']:.3f} GiB eager; losses "
+          f"{full['eager_peak_gib']:.3f} GiB eager, under remat 'dots'; "
+          f"remat 'none' in this process: eager "
+          f"{', '.join(f'{x:.4f}' for x in full['none']['eager_step_ms'])} "
+          f"ms, peak {full['none']['eager_peak_gib']:.3f} GiB eager "
+          f"(held: 'dots' peaks lower), and through the torch.func "
+          f"gradient path: eager "
+          f"{', '.join(f'{x:.4f}' for x in fnl['eager_step_ms'])} ms, "
+          f"peak {fnl['eager_peak_gib']:.3f} GiB; losses "
           f"{full['losses'][0]:.4f} -> {full['losses'][-1]:.4f}; resume "
           f"from step {LM_TRAIN_RESUME_AT}: steps {LM_TRAIN_RESUME_AT + 1}-"
           f"{LM_TRAIN_FULL[2]} bit for bit; {smi}")
@@ -4291,6 +4370,20 @@ def _planner_cli():
     return rep
 
 
+def _probe_line_temp(cfg, shape, tcfg, mesh):
+    """``cfg``'s step temp at full depth from the line through its depth-2
+    and depth-3 traces, as ``roofline_cell`` fits a training cell's
+    peak."""
+    from repro_torch.launch import dryrun
+
+    temps = [dryrun.lower_shape(LM_ARCH, shape, mesh,
+                                cfg=cfg.replace(num_layers=d),
+                                train_cfg=tcfg, device="cuda")
+             ["memory"]["temp_size_in_bytes"] for d in (2, 3)]
+    c0, c1, _ = roofline._fit((2, 3), temps)
+    return c0 + c1 * cfg.num_layers
+
+
 def phase_planner(smi, lm_full):
     """The planners (``launch/dryrun.py``, ``launch/roofline.py``): (a) the
     dry-run CLI on llama3.2-1b ``decode_32k`` under the 16 x 16 production
@@ -4302,7 +4395,11 @@ def phase_planner(smi, lm_full):
     exactly, the traced FLOPs == ``FlopCounterMode`` around one real eager
     step (rel 1e-9), and the roofline's lower bound <= the measured
     captured step; the planned peak (resident + temp) printed beside the
-    eager step's ``max_memory_allocated``.  No kernel runs."""
+    eager step's ``max_memory_allocated``.  The plan runs the arch's
+    remat policy, "dots"; (c) the same shape under ``remat="none"``
+    beside that phase's "none" eager step (printed, not gated), and for
+    each policy the temp from the line through its depth-2 and depth-3
+    traces beside its full-depth trace.  No kernel runs."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import dryrun
     from repro_torch.launch import train as lm_train
@@ -4323,10 +4420,10 @@ def phase_planner(smi, lm_full):
 
     batch, seq, _ = LM_TRAIN_FULL
     probe = lm_full["plan_probe"]
-    plan = dryrun.lower_shape(
-        LM_ARCH, ShapeConfig("lm_train", seq, batch, "train"),
-        make_host_mesh(), train_cfg=lm_train.train_config(LM_ARCH, 3, 3e-4),
-        device="cuda")
+    shape = ShapeConfig("lm_train", seq, batch, "train")
+    tcfg = lm_train.train_config(LM_ARCH, 3, 3e-4)
+    plan = dryrun.lower_shape(LM_ARCH, shape, make_host_mesh(),
+                              train_cfg=tcfg, device="cuda")
     terms = roofline.roofline_terms(plan["flops"], plan["bytes_accessed"],
                                     plan["collective_bytes_per_device"])
     resident = plan["resident_bytes_per_device"]
@@ -4367,8 +4464,40 @@ def phase_planner(smi, lm_full):
           f"({peak / 2**30:.3f} allocated at its peak; ratio "
           f"{(resident + temp) / own:.4f}); the captured run's peak "
           f"{lm_full['peak_gib']:.3f} GiB; traced in "
-          f"{plan['trace_seconds']} s; {smi}")
-    return {"cli": rep, "rows": rows, "plan": plan, "terms": terms}
+          f"{plan['trace_seconds']} s; remat 'dots'; {smi}")
+
+    model = get_arch(LM_ARCH).model
+    none_cfg = model.replace(remat="none")
+    none_plan = dryrun.lower_shape(LM_ARCH, shape, make_host_mesh(),
+                                   cfg=none_cfg, train_cfg=tcfg,
+                                   device="cuda")
+    nprobe = lm_full["none"]["plan_probe"]
+    none_temp = none_plan["memory"]["temp_size_in_bytes"]
+    none_peak = nprobe["eager_step_peak_bytes"]
+    none_own = none_peak - (nprobe["base_bytes"] - probe["state_bytes"])
+    none_frel = _rel(none_plan["flops"], nprobe["eager_flops"])
+    line = {"dots": _probe_line_temp(model, shape, tcfg, make_host_mesh()),
+            "none": _probe_line_temp(none_cfg, shape, tcfg,
+                                     make_host_mesh())}
+    full_temp = {"dots": temp, "none": none_temp}
+    print(f"  (c) the same step under remat 'none': traced "
+          f"{none_plan['flops']:.6e} FLOPs against its eager step's "
+          f"{nprobe['eager_flops']:.6e} (rel {none_frel:.3e}); 'dots' "
+          f"traces {plan['flops'] / none_plan['flops']:.4f}x the FLOPs and "
+          f"{plan['bytes_accessed'] / none_plan['bytes_accessed']:.4f}x the "
+          f"bytes; planned peak {(resident + none_temp) / 2**30:.3f} GiB "
+          f"(temp {none_temp / 2**30:.3f}) against the eager 'none' step's "
+          f"{none_own / 2**30:.3f} GiB over the rest ({none_peak / 2**30:.3f}"
+          f" allocated at its peak; ratio "
+          f"{(resident + none_temp) / none_own:.4f}); the temp from the "
+          f"depth-2/3 line at {model.num_layers} layers: "
+          + "; ".join(f"{r} {line[r] / 2**30:.3f} GiB against the full "
+                      f"trace's {full_temp[r] / 2**30:.3f} (error "
+                      f"{100 * (line[r] / full_temp[r] - 1):+.2f} %)"
+                      for r in ("dots", "none"))
+          + f"; {smi}")
+    return {"cli": rep, "rows": rows, "plan": plan, "terms": terms,
+            "none_plan": none_plan, "line_temp": line}
 
 
 def _timed(name, fn, *args):

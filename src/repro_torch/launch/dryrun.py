@@ -16,7 +16,11 @@ tensors), so it reads them as follows:
     (the reference's dry-run lowers its default ``xla`` path; the hand
     kernels launch on raw pointers and cannot run on fake tensors) on
     ``FakeTensorMode`` tensors at the cell's global shapes, on ``cuda`` by
-    default or on the CPU when the caller asks;
+    default or on the CPU when the caller asks.  A training step runs its
+    layers under the arch's remat policy (``cfg.remat``), as the
+    reference compiles it: the checkpoint's recompute runs inside the
+    trace, so the FLOPs and bytes count it and the peak sees the
+    activations it frees;
   * cost: ``flops`` from ``FlopCounterMode`` over the trace;
     ``bytes_accessed`` the sum over every aten op that is not a view of
     its tensor operands' and results' bytes; ``memory.temp_size_in_bytes``

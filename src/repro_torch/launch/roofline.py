@@ -16,7 +16,9 @@ traces (``launch/dryrun.py``) where the reference compiles:
 
 all per device (global / chips).  ``roofline_cell`` fits two reduced-depth
 probes to full depth and sets the analytic MODEL_FLOPS beside the traced
-FLOPs (the useful-flops ratio); ``main`` sweeps the cells.
+FLOPs (the useful-flops ratio); ``main`` sweeps the cells.  The traces run
+the arch's remat policy, so a training cell's traced FLOPs count the
+recompute and its useful-flops ratio falls below 1, as the reference's.
 
 Usage:
   python -m repro_torch.launch.roofline --arch rwkv6-7b --shape train_4k

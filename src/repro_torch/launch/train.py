@@ -18,7 +18,11 @@ finished).
 ``--resume`` restores the latest checkpoint into the live state tensors
 and starts the stream at its step.  The model runs the plain attention and
 scans (``impl="plain"``), as the reference trains through its plain
-``xla`` path: the hand kernels have no backward.
+``xla`` path: the hand kernels have no backward.  Each layer runs under
+the arch's remat policy (``cfg.remat``: "dots" for every arch, the smoke
+preset included, as the reference's ``reduced_config`` keeps it); the
+step takes its gradients through ``torch.autograd.grad``
+(``training/train_step.py``).
 """
 from __future__ import annotations
 

@@ -1,2 +1,4 @@
-"""Models: the committee MLP potential, the LM zoo's dense and RWKV6
-families, and their parameter machinery."""
+"""Models: the committee MLP potential, the LM zoo's six families (dense,
+MoE, RWKV6, the Jamba hybrid, the Whisper encoder-decoder and the InternVL
+vision LM) with their remat policy, and their parameter machinery."""
+from repro_torch.models.model_zoo import build_model  # noqa: F401

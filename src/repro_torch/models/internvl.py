@@ -50,13 +50,19 @@ class InternVLM(tfm.DenseLM):
 
     def _run(self, params: Params, x: torch.Tensor,
              cache: Optional[Params]) -> torch.Tensor:
+        """The layers over x; without a cache (``forward``) under the remat
+        policy, as the reference's ``scan_stack``."""
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device)
+        if cache is None:
+            return tfm.scan_stack(self._layer_fn(positions),
+                                  self._layers(params), x,
+                                  remat=self.cfg.remat)
         rope = self._rope(positions)
         for i, pl in enumerate(self._layers(params)):
-            c = None if cache is None else (cache["k"][i], cache["v"][i])
             x, _ = tfm.dense_layer(pl, x, self.cfg, positions=positions,
-                                   cache=c, impl=self.impl, rope=rope)
+                                   cache=(cache["k"][i], cache["v"][i]),
+                                   impl=self.impl, rope=rope)
         return x
 
     def forward(self, params: Params,

@@ -9,7 +9,8 @@ FFN is MoE (``moe.moe_ffn``) on the offsets ``o % moe_layer_period ==
 moe_layer_offset`` and dense elsewhere.  Parameters keep the reference's
 tree: ``layers`` stacks G groups, and inside a group ``mamba``, ``moe``
 and ``dense`` stack their 7, 4 and 4 slices; a Python loop over both
-levels takes the place of ``jax.lax.scan``.
+levels takes the place of ``jax.lax.scan``.  ``forward`` remats per group
+(``cfg.remat``), not per sublayer, as the reference does.
 
 The cache is updated IN PLACE: ``k``/``v`` (G, B, S, KV, hd) and ``conv``
 (G, 7, B, d_conv - 1, d_inner) in the activation dtype, ``ssd``
@@ -157,12 +158,18 @@ class JambaLM(tfm.DenseLM):
         x = tfm.embed(params, tokens, cfg)
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                  device=tokens.device)
-        rope = self._rope(positions)
+        impl, rope = self.impl, self._rope(positions)
+
+        def fn(gp, carry):
+            x, aux = carry
+            y, a = group_forward(gp, x, cfg, positions=positions, impl=impl,
+                                 with_aux=True, rope=rope)
+            return y, aux + a
+
+        # remat per group (the Mamba mixers inside it), as the reference
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for gp in self._layers(params):
-            x, a = group_forward(gp, x, cfg, positions=positions,
-                                 impl=self.impl, with_aux=True, rope=rope)
-            aux = aux + a
+        x, aux = tfm.scan_stack(fn, self._layers(params), (x, aux),
+                                remat=cfg.remat)
         logits = tfm.unembed(params, x, cfg)
         if return_aux:
             n_moe = self.num_groups * len(_offsets(cfg)[2])

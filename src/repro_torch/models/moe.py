@@ -17,7 +17,11 @@ comparison against ``arange(C)`` here).
 
 ``MoELM`` is ``DenseLM`` with every FFN an MoE FFN: the attention blocks
 run the ported flash kernel, the KV cache is written in place, and the
-rotary tables are computed once per step for every layer.
+rotary tables are computed once per step for every layer.  ``forward``
+remats each layer (``cfg.remat``) with the load-balance sum in the
+checkpointed carry, as the reference does.  The router is a product with
+no batch dims (saved under "dots"), the expert einsums have batch dims
+(``g``, ``e``) and are recomputed, in both packages.
 
 The reference's sharding hints (``shard_constraint``) have no counterpart
 on one card.
@@ -113,7 +117,7 @@ def route(p: Params, x: torch.Tensor, cfg: ModelConfig) -> Routing:
     G = (B * T) // S
     xs = h.reshape(G, S, D)
 
-    gates = xs.to(torch.float32) @ p["router"].to(torch.float32)
+    gates = _proj(xs.to(torch.float32), p["router"])
     probs = torch.softmax(gates, dim=-1)
     top_vals, top_oh = _top_k_one_hot(probs, K)            # (G,S,K), (G,S,K,E)
     top_vals = top_vals / torch.clamp_min(top_vals.sum(-1, keepdim=True),
@@ -201,12 +205,17 @@ class MoELM(tfm.DenseLM):
         x = tfm.embed(params, tokens, cfg)
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                  device=tokens.device)
-        rope = self._rope(positions)
+        impl, rope = self.impl, self._rope(positions)
+
+        def fn(pl, carry):
+            x, aux = carry
+            y, _, a = moe_layer(pl, x, cfg, positions=positions, impl=impl,
+                                with_aux=True, rope=rope)
+            return y, aux + a
+
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for pl in self._layers(params):
-            x, _, a = moe_layer(pl, x, cfg, positions=positions,
-                                impl=self.impl, with_aux=True, rope=rope)
-            aux = aux + a
+        x, aux = tfm.scan_stack(fn, self._layers(params), (x, aux),
+                                remat=cfg.remat)
         logits = tfm.unembed(params, x, cfg)
         if return_aux:
             return logits, cfg.moe_router_aux_coef * aux / cfg.num_layers

@@ -223,8 +223,12 @@ class RWKV6LM(tfm.DenseLM):
                 batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         cfg = self.cfg
         x = tfm.embed(params, batch["tokens"], cfg)
-        for pl in self._layers(params):
-            x = rwkv_layer(pl, x, cfg, impl=self.impl, chunk=self.wkv_chunk)
+        impl, chunk = self.impl, self.wkv_chunk
+
+        def fn(pl, h):
+            return rwkv_layer(pl, h, cfg, impl=impl, chunk=chunk)
+
+        x = tfm.scan_stack(fn, self._layers(params), x, remat=cfg.remat)
         return tfm.unembed(params, x, cfg)
 
     # ------------------------------------------------------------- serving

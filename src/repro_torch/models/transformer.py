@@ -11,9 +11,20 @@ are cast to the activation dtype at each product, as the reference's
 once ahead, which gives the same bits.
 
 Layers are stacked on a leading axis (as the reference's scanned layers);
-a Python loop over that axis takes the place of ``jax.lax.scan``.  The
-reference's sharding hints and remat policy have no counterpart here (this
-path is inference only).
+``scan_stack``, a Python loop over per-layer views, takes the place of
+``jax.lax.scan``.  ``_remat`` is the reference's remat policy
+(``cfg.remat``), each layer of ``forward`` a
+``torch.utils.checkpoint.checkpoint`` when autograd will use what it
+saves: "none" keeps every activation the backward pass reads; "full"
+keeps only the layer's input and recomputes the layer; "dots" keeps what
+``jax.checkpoint_policies.checkpoint_dots_with_no_batch_dims`` keeps, the
+outputs of the products with no batch dims (the weight projections) and
+recomputes the rest (the attention's batched products, softmax, norms,
+activations).  Every product with no batch dims in the reference's
+einsums is a 2-D ``aten.mm`` here (``_proj``), and every product with
+batch dims a ``torch.einsum`` (``aten.bmm``), so the policy saves
+``aten.mm`` and nothing else.  The reference's sharding hints have no
+counterpart on one card.
 
 The KV cache is updated IN PLACE: one (L, B, max_seq, KV, hd) tensor each
 for ``k`` and ``v``; layer ``i`` writes its rows ``[:, index:index+T]``
@@ -29,9 +40,15 @@ to hold the kernel path against the plain one on the card.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Tuple
+import functools
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.utils._pytree as pytree
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from repro_torch.configs import base as ax
 from repro_torch.configs.base import ModelConfig
@@ -42,6 +59,7 @@ from repro_torch.models.common import ParamSpec
 
 Params = Dict[str, Any]
 IMPLS = ("auto", "plain")
+REMAT_MODES = ("none", "dots", "full")
 # leaves the model casts to the activation dtype before use (norm weights
 # are read in fp32 and stay as they are)
 MATMUL_KEYS = ("wq", "wk", "wv", "wo", "wi", "wg", "embedding", "lm_head")
@@ -209,6 +227,69 @@ def layer_params(params: Params, num_layers: int,
 
 
 # ---------------------------------------------------------------------------
+# Scan-over-layers helpers (shared by all families)
+# ---------------------------------------------------------------------------
+
+# the ops whose outputs "dots" saves: the products with no batch dims
+NO_BATCH_PRODUCTS = (torch.ops.aten.mm.default,)
+
+
+def dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """The selective-checkpoint policy of ``remat="dots"``."""
+    if op in NO_BATCH_PRODUCTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn: Callable, mode: str) -> Callable:
+    """``fn`` under the remat policy ``mode`` (see the module docstring).
+    The checkpoint is taken only when autograd will read what it saves
+    (grad mode on and a tensor among the arguments that requires grad);
+    otherwise ``fn`` runs as it is, as ``jax.checkpoint`` is the identity
+    outside a gradient.  A checkpoint under a ``torch.func`` transform
+    raises: torch.func cannot take its saved-tensor hooks, and dropping
+    the checkpoint would change what the step keeps."""
+    if mode not in REMAT_MODES:
+        raise ValueError(f"remat must be one of {REMAT_MODES}, got {mode!r}")
+    if mode == "none":
+        return fn
+    context_fn = (functools.partial(create_selective_checkpoint_contexts,
+                                    dots_policy)
+                  if mode == "dots" else noop_context_fn)
+
+    @functools.wraps(fn)
+    def layer(*args):
+        if not (torch.is_grad_enabled() and any(
+                isinstance(t, torch.Tensor) and t.requires_grad
+                for t in pytree.tree_leaves(args))):
+            return fn(*args)
+        if torch._C._are_functorch_transforms_active():
+            raise RuntimeError(
+                f"remat={mode!r} checkpoints each layer, and a torch.func "
+                f"transform cannot take a checkpoint; build the model with "
+                f"remat='none' to run it under torch.func, or take its "
+                f"gradient with torch.autograd.grad (make_train_step's "
+                f"default)")
+        # no layer draws random numbers, and JAX's checkpoint carries no
+        # RNG state
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False, context_fn=context_fn)
+
+    return layer
+
+
+def scan_stack(layer_fn: Callable, layers: List[Params], x, *,
+               remat: str = "none"):
+    """x' = layer_fn(params_i, x) folded over the per-layer views
+    ``layers``, each layer under ``_remat(layer_fn, remat)``; ``x`` may be
+    a tuple carry.  The reference's ``scan=True`` has no counterpart."""
+    f = _remat(layer_fn, remat)
+    for pl in layers:
+        x = f(pl, x)
+    return x
+
+
+# ---------------------------------------------------------------------------
 # The model
 # ---------------------------------------------------------------------------
 
@@ -294,6 +375,17 @@ class DenseLM:
         return out
 
     # ------------------------------------------------------------- forward
+    def _layer_fn(self, positions: torch.Tensor):
+        """One layer of ``forward``, ``fn(params_i, x) -> x``."""
+        cfg, impl, rope = self.cfg, self.impl, self._rope(positions)
+
+        def fn(pl, x):
+            y, _ = dense_layer(pl, x, cfg, positions=positions, impl=impl,
+                               rope=rope)
+            return y
+
+        return fn
+
     def forward(self, params: Params,
                 batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         cfg = self.cfg
@@ -301,10 +393,8 @@ class DenseLM:
         x = embed(params, tokens, cfg)
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                  device=tokens.device)
-        rope = self._rope(positions)
-        for pl in self._layers(params):
-            x, _ = dense_layer(pl, x, cfg, positions=positions,
-                               impl=self.impl, rope=rope)
+        x = scan_stack(self._layer_fn(positions), self._layers(params), x,
+                       remat=cfg.remat)
         return unembed(params, x, cfg)
 
     # ------------------------------------------------------------- serving

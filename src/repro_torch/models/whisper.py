@@ -11,8 +11,9 @@ decoder self, cross) runs ``ops.attention``: the ported flash kernel on
 the card, non-causal for the encoder and the cross-attention.
 
 Parameters keep the reference's tree (``encoder`` and ``decoder`` stack
-their layers, ``dec_pos``, ``embedding`` tied to the output); a Python loop
-over each stack takes the place of ``jax.lax.scan``.  The cache is
+their layers, ``dec_pos``, ``embedding`` tied to the output); in
+``forward`` and ``encode``, ``transformer.scan_stack`` runs each stack
+under the remat policy (``cfg.remat``), as the reference's.  The cache is
 updated IN PLACE: ``k``/``v`` (L, B, max_seq, KV, hd) for the decoder's
 self-attention, and ``cross_k``/``cross_v`` (L, B, encoder_seq, KV, hd),
 filled once by the prefill from the encoder's output.
@@ -132,13 +133,18 @@ class WhisperLM(tfm.DenseLM):
             pos = cm.sinusoidal_positions(S, D).to(enc_embeds.device)
             self._positions[key] = pos
         x = enc_embeds.to(dt) + pos.to(dt)[None]
-        for pl in self._stacks(params)["encoder"]:
+        impl = self.impl
+
+        def fn(pl, h):
             pa = pl["attn"]
-            hn = cm.rms_norm(x, pa["ln"], cfg.norm_eps)
+            hn = cm.rms_norm(h, pa["ln"], cfg.norm_eps)
             o = tfm._attend(_proj(hn, pa["wq"]), _proj(hn, pa["wk"]),
-                            _proj(hn, pa["wv"]), self.impl, causal=False)
-            x = x + _heads_out(o, pa["wo"])
-            x = x + _ffn(pl["ffn"], x, cfg)
+                            _proj(hn, pa["wv"]), impl, causal=False)
+            h = h + _heads_out(o, pa["wo"])
+            return h + _ffn(pl["ffn"], h, cfg)
+
+        x = tfm.scan_stack(fn, self._stacks(params)["encoder"], x,
+                           remat=cfg.remat)
         return cm.rms_norm(x, params["enc_final_ln"], cfg.norm_eps)
 
     # ------------------------------------------------------------ decoder
@@ -168,14 +174,19 @@ class WhisperLM(tfm.DenseLM):
         x = self._dec_embed(params, tokens, 0)
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                  device=tokens.device)
-        for pl in self._stacks(params)["decoder"]:
-            a, _ = tfm.attention_block(pl["self_attn"], x, cfg,
-                                       positions=positions, impl=self.impl)
-            x = x + a
-            x = x + _cross_attention(pl["cross_attn"], x,
+        impl = self.impl
+
+        def fn(pl, h):
+            a, _ = tfm.attention_block(pl["self_attn"], h, cfg,
+                                       positions=positions, impl=impl)
+            h = h + a
+            h = h + _cross_attention(pl["cross_attn"], h,
                                      _enc_kv(pl["cross_attn"], enc_out), cfg,
-                                     self.impl)
-            x = x + _ffn(pl["ffn"], x, cfg)
+                                     impl)
+            return h + _ffn(pl["ffn"], h, cfg)
+
+        x = tfm.scan_stack(fn, self._stacks(params)["decoder"], x,
+                           remat=cfg.remat)
         return self._logits(params, x)
 
     # ------------------------------------------------------------- serving

@@ -7,7 +7,8 @@ MPI rank per member); here the whole committee is one program:
   * per-member ``TrainState`` (params + AdamW moments + step) stacked on a
     leading committee axis, built from the same stacked ``cparams`` the
     acquisition engine scores;
-  * ``training/train_step.make_train_step`` mapped over that axis with
+  * ``training/train_step.make_train_step(functional=True)`` (its
+    ``torch.func`` gradient) mapped over that axis with
     ``torch.func.vmap``: one program advances all K members, each on its
     OWN minibatch (``bootstrap=False`` gives every member the same one);
   * minibatches are gathered ON THE DEVICE from a
@@ -320,7 +321,7 @@ class CommitteeTrainer:
         self.replay = ReplayTrainingBuffer(replay_capacity,
                                            dtype=policy.replay_dtype,
                                            device=self.device)
-        self._member_step = make_train_step(loss_fn, tcfg)
+        self._member_step = make_train_step(loss_fn, tcfg, functional=True)
         self._vstep = vmap(self._member_step)
         pd = torch_dtype(policy.params_dtype)
 

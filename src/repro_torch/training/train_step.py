@@ -1,12 +1,23 @@
 """Train/eval step builders: loss -> grads -> clip -> schedule -> AdamW, with
 gradient accumulation and an optional bf16 gradient-compression cast.
 
-The reference's ``repro/training/train_step.py`` in torch: gradients come
-from ``torch.func.grad_and_value(loss_fn, has_aux=True)``, so the step
-composes with ``torch.func.vmap`` (the committee trainer maps it over the
-stacked K axis).  The returned step is a pure function (state, batch) ->
-(new_state, metrics) of tensor ops that reads nothing on the host, so the
-committee trainer captures it into one CUDA graph.
+The reference's ``repro/training/train_step.py`` in torch.  The returned
+step is a pure function (state, batch) -> (new_state, metrics) of tensor
+ops that reads nothing on the host, so it is captured into one CUDA graph.
+Its gradient path is chosen once, when the step is built:
+
+  * default: ``torch.autograd.grad`` on requires-grad copies of the
+    params.  This is the LM step's (``CapturedTrainStep``,
+    ``launch/train.py``, the planners): it takes the checkpointed layers
+    of ``cfg.remat`` "dots" and "full" (``models/transformer._remat``),
+    and it frees each saved activation as the backward pass reads it
+    (torch.func differentiates with ``create_graph=True``, which keeps
+    them to the end).
+  * ``functional=True``: ``torch.func.grad_and_value(loss_fn,
+    has_aux=True)``, which composes with ``torch.func.vmap``: the committee
+    trainer maps it over the stacked K axis.  A torch.func transform
+    cannot take a checkpoint, so a model with ``remat != "none"`` raises
+    there; the committee's models keep "none", as the reference's.
 
 The loss is differentiated at fp32 copies of the floating params (a no-op
 for fp32 storage): torch's matmul does not promote a bf16 weight against
@@ -58,11 +69,35 @@ def _as_fp32(params):
         params)
 
 
+def _autograd_grad_and_value(loss_fn):
+    """``grad_and_value(loss_fn, has_aux=True)`` by ``torch.autograd.grad``:
+    the params become fresh requires-grad leaves (detached views, so the
+    caller's tensors are not marked); an unused leaf gets zeros, as under
+    torch.func; the loss and the metrics come back detached."""
+    def grad_fn(params, batch):
+        with torch.enable_grad():
+            params = pytree.tree_map(lambda p: p.detach().requires_grad_(),
+                                     params)
+            loss, aux = loss_fn(params, batch)
+            leaves, spec = pytree.tree_flatten(params)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                        materialize_grads=True)
+        aux = pytree.tree_map(
+            lambda t: t.detach() if isinstance(t, torch.Tensor) else t, aux)
+        return pytree.tree_unflatten(list(grads), spec), (loss.detach(), aux)
+
+    return grad_fn
+
+
 def make_train_step(
     loss_fn: Callable[[Any, Dict[str, torch.Tensor]],
                       Tuple[torch.Tensor, Dict]],
     train_cfg: TrainConfig,
+    *,
+    functional: bool = False,
 ) -> Callable[[TrainState, Dict[str, torch.Tensor]], Tuple[TrainState, Dict]]:
+    """The step of ``loss_fn``; ``functional`` picks the gradient path (see
+    the module docstring)."""
     schedule = make_schedule(
         train_cfg.schedule, train_cfg.learning_rate,
         warmup_steps=train_cfg.warmup_steps,
@@ -76,7 +111,8 @@ def make_train_step(
         quantized=train_cfg.quantized_opt_state,
         moments=getattr(train_cfg, "opt_moments", ""),
     )
-    grad_fn = grad_and_value(loss_fn, has_aux=True)
+    grad_fn = (grad_and_value(loss_fn, has_aux=True) if functional
+               else _autograd_grad_and_value(loss_fn))
     accum = max(1, train_cfg.accum_steps)
 
     def compute_grads(params, batch):

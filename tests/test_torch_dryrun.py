@@ -431,6 +431,27 @@ def test_traced_flops_and_resident_bytes_equal_a_real_eager_step():
     assert mem["temp_size_in_bytes"] >= mem["output_size_in_bytes"]
 
 
+def test_remat_orders_traced_flops_and_peak():
+    """A 2-layer llama training cell (batch 2, seq 256, the widths above)
+    traced under each remat policy: the traced FLOPs grow none < dots <
+    full (dots recomputes the attention's products, full every product)
+    and the peak of live bytes falls none > dots > full (dots keeps the
+    projections' outputs, full only each layer's input); the resident
+    bytes do not move."""
+    shape = ShapeConfig("lm_train", 256, 2, "train")
+    reps = {r: dryrun.lower_shape(
+        "llama3.2-1b", shape, make_host_mesh(),
+        cfg=get_arch("llama3.2-1b").model.replace(**TINY, remat=r),
+        train_cfg=TrainConfig(), device="cpu")
+        for r in ("none", "dots", "full")}
+    flops = [reps[r]["flops"] for r in ("none", "dots", "full")]
+    temp = [reps[r]["memory"]["temp_size_in_bytes"]
+            for r in ("none", "dots", "full")]
+    assert flops[0] < flops[1] < flops[2]
+    assert temp[0] > temp[1] > temp[2]
+    assert len({reps[r]["resident_bytes_per_device"] for r in reps}) == 1
+
+
 def test_lower_cell_reports_the_reference_keys():
     rep = dryrun.lower_cell("whisper-small", "decode_32k",
                             model_overrides={"num_layers": 1,

@@ -56,6 +56,37 @@ def test_every_module_imports_with_jax_blocked():
             "repro_torch.launch.distributed"} <= set(MODULES)
 
 
+@pytest.mark.parametrize("first", ["repro_torch.models",
+                                   "repro_torch.models.common",
+                                   "repro_torch.models.transformer"])
+def test_models_package_reexports_build_model(first):
+    """``from repro_torch.models import build_model``, as the reference's
+    ``repro/models/__init__.py`` offers it, in a fresh process with JAX
+    blocked, whichever module of the package is imported first (no import
+    cycle with ``common``); it is ``model_zoo.build_model`` and builds a
+    model, and neither ``jax`` nor ``repro`` is imported."""
+    code = (
+        "import importlib, sys\n"
+        "sys.modules['jax'] = None\n"
+        f"sys.path[:0] = [{str(ROOT / 'src')!r}]\n"
+        f"importlib.import_module({first!r})\n"
+        "from repro_torch.models import build_model\n"
+        "from repro_torch.models import model_zoo\n"
+        "from repro_torch.configs import get_arch\n"
+        "assert build_model is model_zoo.build_model\n"
+        "m = build_model(get_arch('llama3.2-1b').model)\n"
+        "assert type(m).__name__ == 'DenseLM', m\n"
+        "bad = [m for m, v in sys.modules.items() if v is not None and "
+        "(m in ('jax', 'repro') or m.startswith(('repro.', 'jax.')))]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH="")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, env=env, cwd=str(ROOT))
+    assert out.returncode == 0 and out.stdout.strip() == "ok", \
+        out.stderr[-2000:]
+
+
 def test_no_source_imports_jax_or_the_reference():
     pat = re.compile(r"^\s*(import\s+(jax|repro)\b(?!_)|"
                      r"from\s+(jax|repro)(\.|\s)(?!_))", re.M)

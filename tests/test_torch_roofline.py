@@ -139,6 +139,22 @@ def test_useful_flops_ratio_of_llama_train_4k():
         r["compute_term_s"], r["memory_term_s"], r["collective_term_s"])
 
 
+def test_useful_flops_ratio_drops_below_one_under_dots():
+    """llama3.2-1b ``train_4k`` cut to 2 layers: under the arch's "dots"
+    the traced FLOPs count the recomputed attention products, so the
+    useful-flops ratio is below 1 and below the no-remat ratio, as the
+    reference's (``repro/launch/roofline.py``)."""
+    r = {remat: roofline.roofline_cell(
+        "llama3.2-1b", "train_4k",
+        model_overrides={"num_layers": 2, "remat": remat}, device="cpu")
+        for remat in ("none", "dots")}
+    assert r["dots"]["useful_flops_ratio"] < 1.0
+    assert r["dots"]["useful_flops_ratio"] < r["none"]["useful_flops_ratio"]
+    assert r["dots"]["hlo_flops_per_device"] > \
+        r["none"]["hlo_flops_per_device"]
+    assert r["dots"]["model_flops_global"] == r["none"]["model_flops_global"]
+
+
 def test_roofline_cli_one_cell(tmp_path):
     rows = roofline.main(["--arch", "llama3.2-1b", "--shape", "decode_32k",
                           "--out", str(tmp_path), "--device", "cpu"])
