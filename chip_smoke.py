@@ -57,7 +57,10 @@ Phases (each raises on a failed check; the script exits non-zero):
    exchange and label rates, the rate with the trainer busy and idle,
    round wall, release-to-yield latency, handoff ms, oracle ms per label
    and the device's busy share over the run (CUDA events around every
-   graph replay);
+   graph replay); the LJ oracle replays one captured graph per worker;
+   a third run with the eager oracle (op by op, as before capture) gives the
+   oracle's ms per label in the loop before and after, and both are
+   timed alone;
 3d. the exploration fleet (``repro_torch.exploration.WalkerFleet``, each
    step one replay of ``FusedEngine.score_after``'s captured graph) at
    ``PotentialConfig()`` full width on weights warm-started as
@@ -94,7 +97,15 @@ Phases (each raises on a failed check; the script exits non-zero):
    and decode step (split path), and match the plain attention on every
    attention call of a
    teacher-forced run over the generated tokens, on the model's own
-   activations;
+   activations.  The engine replays CUDA graphs (one prefill graph for
+   (8, 512), one decode graph for B = 8, captured by a first 2-token
+   generate, which is not counted), so every launch of the counted
+   generate is counted by replay; the eager loop the engine ran before
+   (``model_zoo.make_prefill_fn``/``make_decode_fn`` op by op, the
+   position a host int) then runs on the same prompt and weights, and the
+   phase prints both decode ms a step, prefill s, memory and the graphs,
+   and gates the captured tokens on the eager loop's by the margin rule
+   (phases 8, 11 and 13-15 do the same);
 6. card against CPU: llama3.2-1b at full width cut to 2 layers, in fp32,
    prefill + 8 decode steps on the card (kernel) and on the CPU (plain
    path) with the same weights;
@@ -157,11 +168,15 @@ Phases (each raises on a failed check; the script exits non-zero):
 16. PAL at LM scale: the ``repro_torch.examples.lm_active_distill`` twin,
    as the reference configures it, stopped at 120 labelled sequences or
    after 60 s (it prints which): committee_uq launches == student-engine
-   dispatches + 2 per in-run capture, flash_attention launches == teacher
-   forwards x 4 layers, no crash or unjoined thread, the engine holding the
-   trainer's weights bit for bit; exchange it/s, labels/s, retrains, fused
-   steps, weight refreshes, selection fraction and the busy share by CUDA
-   events;
+   dispatches + 2 per in-run capture, flash_attention launches == (teacher
+   forwards + 2 warm-up runs per teacher capture) x 4 layers (each
+   worker's relabel one captured graph, its forwards counted by replay),
+   no crash or unjoined thread, the engine holding the trainer's weights
+   bit for bit; exchange it/s, labels/s, retrains, fused steps, weight
+   refreshes, selection fraction and the busy share by CUDA events; the
+   same loop again with the eager teacher (op by op) gives the
+   teacher's ms per label in the loop before and after, and both are
+   timed alone;
 17. LM training through ``repro_torch.launch.train`` (``phase_lm_train``),
    under each arch's remat policy (``"dots"``, the reference's default):
    every arch at ``--preset smoke`` with its step one captured CUDA graph
@@ -231,10 +246,13 @@ from repro_torch.kernels import committee_uq as cuq_kernel  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_kernel  # noqa: E402
 from repro_torch.kernels import ssd as ssd_kernel  # noqa: E402
 from repro_torch.kernels import wkv6 as wkv_kernel  # noqa: E402
+from repro_torch.examples import lm_active_distill as distill_ex  # noqa: E402
+from repro_torch.examples import quickstart  # noqa: E402
 from repro_torch.launch import platform  # noqa: E402
 from repro_torch.launch import roofline  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch import train_profile  # noqa: E402
+from repro_torch.models import common as cm  # noqa: E402
 from repro_torch.models import model_zoo  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import potential as pot  # noqa: E402
@@ -944,19 +962,21 @@ def _runtime_cfg(tmp):
 
 
 def _runtime_pal(tmp, chaos=None, resume=False, steps=RUNTIME_STEPS,
-                 **cfg):
+                 oracle=None, **cfg):
     """``_runtime_cfg``'s PAL (``cfg`` overrides its fields) with
-    generators that stop after ``steps`` proposals."""
+    generators that stop after ``steps`` proposals; ``oracle``: the
+    oracle class (default the quickstart's captured ``LJOracle``)."""
     import dataclasses
 
     from repro_torch.core import PAL
     from repro_torch.examples import quickstart
 
+    oracle = oracle or quickstart.LJOracle
     return PAL(
         dataclasses.replace(_runtime_cfg(tmp), **cfg),
         make_generator=lambda r, d: quickstart.MDGenerator(
             r, d, n_atoms=PCFG.n_atoms, max_steps=steps),
-        make_oracle=lambda r, d: quickstart.LJOracle(r, d, device="cuda"),
+        make_oracle=lambda r, d: oracle(r, d, device="cuda"),
         committee=acq.CommitteeSpec(member_forces, train_profile.committee()),
         loss_fn=train_profile.member_force_loss, chaos=chaos,
         resume=resume, device="cuda")
@@ -1084,14 +1104,26 @@ def _run_until_stop(pal, what):
     return rep, c, bad, t0, t1
 
 
-def _oracle_alone_and_queued(tr, rows, n=20):
-    """Host ms per LJ label on the card's default stream: alone, and while
-    another thread runs a 400-step round on the trainer's own stream (the
-    label's read-back waits on the default stream only, so it should not
-    wait for the round); and that round's wall ms."""
-    from repro_torch.examples import quickstart
+class EagerLJOracle(quickstart.LJOracle):
+    """The LJ oracle without capture: ``lj_energy_forces`` op by op on
+    the caller's stream (the card's default stream in an oracle worker),
+    the labels read back with ``.cpu()``: the "before" of the captured
+    oracle."""
 
-    oracle = quickstart.LJOracle(0, "", device="cuda")
+    def run_calc(self, input_for_orcl):
+        coords = torch.from_numpy(np.asarray(
+            input_for_orcl, np.float32).reshape(-1, 3)).to(self.device)
+        _, f = pot.lj_energy_forces(coords)
+        return input_for_orcl, f.reshape(-1).cpu().numpy()
+
+
+def _oracle_alone_and_queued(tr, rows, oracle_cls, n=20):
+    """Host ms per LJ label of an ``oracle_cls`` worker: alone, and while
+    another thread runs a 400-step round on the trainer's own stream (the
+    eager oracle reads back on the default stream, the captured one on its
+    own, so neither should wait for the round); and that round's wall
+    ms."""
+    oracle = oracle_cls(0, "", device="cuda")
     oracle.run_calc(rows[0])
     t0 = time.perf_counter()
     for x in rows[:n]:
@@ -1224,9 +1256,9 @@ def phase_runtime(smi):
               f"{1e3 * oracle.mean:.4f} ms per label over {oracle.count} in "
               f"the run [{smi}]")
         share, n_replays, window_ms = busy
-        print(f"runtime device busy share (the union of the engine's and "
-              f"the trainer's graph replays by CUDA events; the oracles' "
-              f"kernels and the copies not counted) over run 1's "
+        print(f"runtime device busy share (the union of the engine's, the "
+              f"trainer's and the oracles' graph replays by CUDA events; "
+              f"the copies not counted) over run 1's "
               f"{window_ms:.1f} ms from its first replay to its last: "
               + (f"{100 * share:.2f} % ({n_replays} replays)"
                  if share is not None else "not measured (no replay)")
@@ -1287,11 +1319,22 @@ def phase_runtime(smi):
               f"bit and its scores == run 1's, one capture per bucket "
               f"{res.engine.trace_counts}, 3 more steps equal run 1's")
         del res, cpu_engine
-        lone_ms, queued_ms, round_ms = _oracle_alone_and_queued(tr, probe)
-        print(f"runtime oracle on the card's default stream: "
-              f"{lone_ms:.4f} ms per label alone, {queued_ms:.4f} ms while "
-              f"a 400-step round ({round_ms:.4f} ms wall) runs on the "
-              f"trainer's stream [{smi}]")
+        alone = {}
+        for name, cls in (("eager", EagerLJOracle),
+                          ("captured", quickstart.LJOracle)):
+            alone[name] = _oracle_alone_and_queued(tr, probe, cls)
+            lone_ms, queued_ms, round_ms = alone[name]
+            print(f"runtime LJ oracle {name} "
+                  + ("(op by op on the default stream)" if name == "eager"
+                     else "(one graph replay on the worker's stream)")
+                  + f": {lone_ms:.4f} ms per label alone, {queued_ms:.4f} "
+                  f"ms while a 400-step round ({round_ms:.4f} ms wall) runs "
+                  f"on the trainer's stream [{smi}]")
+        lone_ms, queued_ms, round_ms = alone["captured"]
+        caps = [o.captures for o in pal._oracle_instances.values()]
+        if not caps or any(c != 1 for c in caps):
+            raise AssertionError(f"run 1: LJ oracle captures per worker "
+                                 f"{caps}, not one each")
 
         # --- run 2: the acceptance fault plan --------------------------------
         pal2 = _runtime_pal(tmp2, chaos=FaultPlan.acceptance(member=1))
@@ -1316,6 +1359,28 @@ def phase_runtime(smi):
               f"bucket {pal2.engine.trace_counts}; {rep2['labeled_total']} "
               f"labels, {c2.get('train.retrains')} rounds [{smi}]")
         del pal2
+
+        # --- run 3: the eager oracle, the "before" in the loop -------------
+        with tempfile.TemporaryDirectory() as tmp3:
+            pal3 = _runtime_pal(tmp3, oracle=EagerLJOracle)
+            rep3, c3, bad3, t30, t31 = _run_until_stop(pal3, "run 3")
+            if any(bad3.values()) or rep3["labeled_total"] <= 0:
+                raise AssertionError(f"run 3: {bad3}, "
+                                     f"{rep3['labeled_total']} labels")
+            o3 = pal3.monitor.timer("oracle.run_calc")
+            wall3 = t31 - t30
+            eager_loop_ms = 1e3 * o3.mean
+            print(f"runtime oracle in the loop, before and after: eager "
+                  f"(run 3, otherwise as run 1) {eager_loop_ms:.4f} ms per "
+                  f"label over {o3.count}, {rep3['labeled_total'] / wall3:.2f}"
+                  f" labels/s, {c3.get('exchange.iterations', 0) / wall3:.2f}"
+                  f" it/s; captured (run 1) {1e3 * oracle.mean:.4f} ms per "
+                  f"label over {oracle.count} (the 4 workers' captures "
+                  f"included), {rep['labeled_total'] / wall:.2f} labels/s, "
+                  f"{it / wall:.2f} it/s; alone: eager "
+                  f"{alone['eager'][0]:.4f} ms, captured "
+                  f"{alone['captured'][0]:.4f} ms per label [{smi}]")
+            del pal3
     return launches, dispatches, {
         "iterations_per_s": it / wall,
         "labels_per_s": rep["labeled_total"] / wall,
@@ -1324,6 +1389,8 @@ def phase_runtime(smi):
         "handoff_ms": 1e3 * float(np.mean(clock.handoffs)),
         "refresh_score_ms": warm_ms, "oracle_ms": 1e3 * oracle.mean,
         "oracle_alone_ms": lone_ms, "oracle_queued_ms": queued_ms,
+        "oracle_eager_ms": eager_loop_ms,
+        "oracle_eager_alone_ms": alone["eager"][0],
         "busy_share": share, "mae": (mae0, mae1)}
 
 
@@ -2215,11 +2282,13 @@ def _check_fa(B, T, S, H, KV, D, dtype, gen, causal=True, window=None,
               q_offset=0, kv_len=None, path=None, q_scale=1.0, v_scale=1.0):
     """Kernel vs plain version on one input (q and v scaled by ``q_scale``
     and ``v_scale``); the call must take the path of the wrapper's rule
-    (and ``path`` when given) by the per-path counts.  Returns the worst
-    abs error."""
+    (and ``path`` when given) by the per-path counts.  ``q_offset="device"``:
+    the decode entry with the position on the device, each row's offset
+    ``kv_len - T`` as a tensor.  Returns the worst abs error."""
     q, k, v, kvl = _fa_inputs(B, T, S, H, KV, D, dtype, gen, kv_len,
                               q_scale, v_scale)
-    kw = dict(causal=causal, window=window, q_offset=q_offset, kv_len=kvl)
+    kw = dict(causal=causal, window=window, kv_len=kvl,
+              q_offset=kvl - T if q_offset == "device" else q_offset)
     want_path = fa_kernel.plan(B, T, S, H, KV).path
     if path is not None and path != want_path:
         raise AssertionError(f"the rule sends {(B, T, S, H, KV)} to "
@@ -2276,8 +2345,11 @@ def _sdpa_inputs(q, k, v, kvl, causal):
 
 def _time_fa(name, B, T, S, H, KV, D, dtype, gen, causal, q_offset, kv_len,
              smi):
+    """``q_offset="device"``: the decode entry, each row's offset ``kv_len -
+    T`` a tensor on the card."""
     q, k, v, kvl = _fa_inputs(B, T, S, H, KV, D, dtype, gen, kv_len)
-    kw = dict(causal=causal, q_offset=q_offset, kv_len=kvl)
+    kw = dict(causal=causal, kv_len=kvl,
+              q_offset=kvl - T if q_offset == "device" else q_offset)
     qs, ks, vs, mask = _sdpa_inputs(q, k, v, kvl, causal)
     kg, vg = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -2420,6 +2492,22 @@ def phase_flash(smi):
         check(8, 512, 512, 16, 16, 128, dtype, path="tiled")
         check(8, 1, 576, 16, 16, 128, dtype, causal=False, q_offset=575,
               kv_len=list(range(513, 577, 8)), path="split")
+        # the decode entry with the position on the device (ServeEngine's
+        # captured decode): the llama and Jamba decode shapes, windows,
+        # a two-token step (split) and an eight-token one (tiled)
+        check(8, 1, 576, 32, 8, 64, dtype, causal=False, q_offset="device",
+              kv_len=list(range(512, 576, 9)), path="split")
+        check(8, 1, 576, 64, 8, 128, dtype, causal=False,
+              q_offset="device", kv_len=list(range(512, 576, 9)),
+              path="split")
+        check(2, 1, 256, 4, 4, 64, dtype, causal=False, window=64,
+              q_offset="device", kv_len=[200, 256], path="split")
+        check(2, 2, 300, 8, 2, 64, dtype, q_offset="device", window=100,
+              kv_len=[300, 250], path="split")
+        check(2, 8, 256, 8, 2, 64, dtype, q_offset="device",
+              kv_len=[208, 150], path="tiled")
+        check(4, 1, 576, 16, 2, 128, dtype, causal=False, window=100,
+              q_offset="device", kv_len=[1, 64, 300, 576], path="split")
         # sharp attention over large values that cancel, as a random-weight
         # LM's activations give (P must keep more than bf16's 8 bits)
         for D in (64, 128):
@@ -2474,6 +2562,9 @@ def phase_flash(smi):
                             gen, True, 0, None, smi),
         "decode": _time_fa("llama decode", 8, 1, 576, 32, 8, 64, bf16, gen,
                            False, 511, list(range(512, 576, 9)), smi),
+        "decode_device": _time_fa(
+            "llama decode, position on the device", 8, 1, 576, 32, 8, 64,
+            bf16, gen, False, "device", list(range(512, 576, 9)), smi),
         "jamba_prefill": _time_fa("Jamba prefill", 8, 512, 512, 64, 8, 128,
                                   bf16, gen, True, 0, None, smi),
         "jamba_decode": _time_fa("Jamba decode", 8, 1, 576, 64, 8, 128,
@@ -2555,6 +2646,117 @@ def _attention_f64(q, k, v, *, causal=True, window=None, q_offset=0,
     return out.reshape(B, T, H, D).to(v.dtype)
 
 
+# each LM serving phase's captured-against-eager numbers, by phase label
+SERVING = {}
+
+
+def _reserved_gib():
+    """What the caching allocator holds on the card once its free blocks
+    are released (a live CUDA graph's pool stays held)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved() / 2**30
+
+
+def _eager_generate(eng, batch, gen):
+    """The engine's loop without capture, op by op on the default
+    stream: ``model_zoo.make_prefill_fn`` and ``make_decode_fn`` on the
+    engine's params, a fresh cache, the position a host int, greedy (after
+    one untimed prefill and step): the "before" of the captured engine.
+    Returns (new tokens (B, gen) int32, the logits that chose them (B,
+    gen, V) fp32, prefill s, decode ms a step, peak GiB allocated over the
+    loop)."""
+    m = eng.model
+    dt = cm.torch_dtype(m.cfg.dtype)
+    inputs = {k: torch.from_numpy(np.asarray(v)).to(
+        "cuda", torch.int32 if k == "tokens" else dt)
+        for k, v in batch.items()}
+    B, P = batch["tokens"].shape
+    n_prefix = m.cfg.vision_tokens if m.cfg.family == "vlm" else 0
+    prefill = model_zoo.make_prefill_fn(m)
+    decode = model_zoo.make_decode_fn(m)
+    # an untimed prefill and decode step first, as the captured engine's
+    # warm-up generate: the allocator's cache (emptied by the memory
+    # readings) and the kernels are warm for the timed loop
+    cache = m.init_cache(B, eng.max_seq, device="cuda")
+    logits, cache = prefill(eng.params, inputs, cache)
+    decode(eng.params, torch.argmax(logits, dim=-1).to(torch.int32)[:, None],
+           cache, n_prefix + P)
+    del cache, logits
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cache = m.init_cache(B, eng.max_seq, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(eng.params, inputs, cache)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    cur = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+    toks, outs = [cur], [logits]
+    t1 = time.perf_counter()
+    for i in range(gen - 1):
+        logits, cache = decode(eng.params, cur, cache, n_prefix + P + i)
+        cur = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+        toks.append(cur)
+        outs.append(logits)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t1) / (gen - 1) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    return (torch.cat(toks, dim=1), torch.stack(outs, dim=1).float(),
+            prefill_s, step_ms, peak)
+
+
+def _captured_against_eager(label, eng, batch, res, reserved, smi):
+    """The captured engine's counted ``generate`` (``res``) against the
+    eager loop on the same prompt and weights: one prefill graph and one
+    decode graph captured in all; decode ms a step, prefill s, memory; the
+    captured tokens must be the eager loop's argmax wherever its top-2
+    margin exceeds 1e-3 x max|logit|, up to the first position where the
+    two runs' tokens part (after it each run conditions on its own
+    tokens).  ``reserved``: ``_reserved_gib`` before and after the
+    capturing generate."""
+    P = batch["tokens"].shape[1]
+    gen = res.tokens.shape[1] - P
+    if eng.captures != 2:
+        raise AssertionError(f"{label}: {eng.captures} graphs captured, not "
+                             f"one prefill graph for ({LM_BATCH}, {P}) and "
+                             f"one decode graph for B={LM_BATCH}")
+    toks, logits, e_prefill, e_step, e_peak = _eager_generate(eng, batch,
+                                                              gen)
+    cap = torch.from_numpy(res.tokens[:, P:]).to("cuda")
+    differ = cap != toks
+    first = torch.where(differ.any(dim=1), differ.int().argmax(dim=1), gen)
+    upto = torch.arange(gen, device="cuda")[None] <= first[:, None]
+    scale = float(logits.abs().max())
+    checked, total = _margin_tokens_agree(
+        cap[upto], logits[upto], 1e-3 * scale,
+        f"{label}: captured generate vs the eager loop")
+    same = int((~differ).sum())
+    step = res.decode_seconds / (gen - 1) * 1e3
+    out = {"step_ms": step, "eager_step_ms": e_step,
+           "prefill_s": res.prefill_seconds, "eager_prefill_s": e_prefill,
+           "reserved_gib": reserved[1],
+           "captured_extra_gib": reserved[1] - reserved[0],
+           "eager_peak_gib": e_peak, "graphs": eng.captures,
+           "tokens_identical": same, "tokens": differ.numel(),
+           "margin_checked": checked}
+    SERVING[label] = out
+    print(f"{label}, captured against eager (the same prompt and weights): "
+          f"decode {step:.4f} ms a step captured, {e_step:.4f} eager "
+          f"({e_step / step:.2f}x); prefill {res.prefill_seconds:.4f} s "
+          f"captured, {e_prefill:.4f} s eager; memory: {reserved[1]:.3f} GiB "
+          f"held after the capture (params, the engine's buffers and its "
+          f"graph pool; +{reserved[1] - reserved[0]:.3f} GiB for the "
+          f"capture), the eager loop's peak {e_peak:.3f} GiB allocated (the "
+          f"engine's buffers and graphs held too); {eng.captures} graphs "
+          f"({eng.replays} replays); tokens identical at {same} of "
+          f"{differ.numel()} positions, the captured == the eager loop's "
+          f"argmax at {checked} of {total} positions (up to the first "
+          f"parting) whose top-2 margin exceeds 1e-3 x max|logit| [{smi}]")
+    del logits
+    return out
+
+
 def phase_lm(smi):
     cfg = get_arch(LM_ARCH).model
     max_seq = LM_PROMPT + LM_GEN
@@ -2569,8 +2771,10 @@ def phase_lm(smi):
                       device="cuda")
     prompt = np.random.RandomState(SEED).randint(
         0, cfg.vocab_size, (LM_BATCH, LM_PROMPT)).astype(np.int32)
-    eng.generate({"tokens": prompt}, max_new_tokens=2)   # warm-up, not counted
-    torch.cuda.synchronize()
+    r0 = _reserved_gib()
+    # warm-up, not counted: captures the prefill and the decode graph
+    eng.generate({"tokens": prompt}, max_new_tokens=2)
+    reserved = (r0, _reserved_gib())
     torch.cuda.reset_peak_memory_stats()
 
     fa_kernel.launches = 0                       # main path starts here
@@ -2603,7 +2807,9 @@ def phase_lm(smi):
           f"= {res.decode_tokens_per_s:.1f} tokens/s, peak memory "
           f"{peak / 2**30:.3f} GiB; flash_attention launches {launches} == "
           f"{cfg.num_layers} x (1 + {LM_GEN - 1}): {paths[0]} tiled "
-          f"(prefill), {paths[1]} split (decode) [{smi}]")
+          f"(prefill), {paths[1]} split (decode), counted by replay [{smi}]")
+    _captured_against_eager(f"LM serving {LM_ARCH}", eng,
+                            {"tokens": prompt}, res, reserved, smi)
 
     # teacher-forced runs over the generated tokens, on the card
     prompt_t = torch.from_numpy(prompt).to("cuda")
@@ -3067,8 +3273,10 @@ def phase_rwkv(smi):
                       device="cuda")
     prompt = np.random.RandomState(SEED).randint(
         0, cfg.vocab_size, (LM_BATCH, LM_PROMPT)).astype(np.int32)
-    eng.generate({"tokens": prompt}, max_new_tokens=2)   # warm-up, not counted
-    torch.cuda.synchronize()
+    r0 = _reserved_gib()
+    # warm-up, not counted: captures the prefill and the decode graph
+    eng.generate({"tokens": prompt}, max_new_tokens=2)
+    reserved = (r0, _reserved_gib())
     torch.cuda.reset_peak_memory_stats()
 
     wkv_kernel.launches = 0                      # main path starts here
@@ -3093,7 +3301,9 @@ def phase_rwkv(smi):
           f"tokens: prefill {res.prefill_seconds:.4f} s, decode "
           f"{res.decode_seconds:.4f} s = {res.decode_tokens_per_s:.1f} "
           f"tokens/s, peak memory {peak / 2**30:.3f} GiB; wkv6 launches "
-          f"{launches} == {L} layers x 1 prefill [{smi}]")
+          f"{launches} == {L} layers x 1 prefill, counted by replay [{smi}]")
+    _captured_against_eager(f"RWKV6 serving {RWKV_ARCH}", eng,
+                            {"tokens": prompt}, res, reserved, smi)
 
     # the kernel launches in the prefill of every layer and never in decode
     prompt_t = torch.from_numpy(prompt).to("cuda")
@@ -3404,8 +3614,10 @@ def phase_jamba(smi):
                       device="cuda")
     prompt = np.random.RandomState(SEED).randint(
         0, cfg.vocab_size, (LM_BATCH, LM_PROMPT)).astype(np.int32)
-    eng.generate({"tokens": prompt}, max_new_tokens=2)   # warm-up, not counted
-    torch.cuda.synchronize()
+    r0 = _reserved_gib()
+    # warm-up, not counted: captures the prefill and the decode graph
+    eng.generate({"tokens": prompt}, max_new_tokens=2)
+    reserved = (r0, _reserved_gib())
     torch.cuda.reset_peak_memory_stats()
 
     ssd_kernel.launches = 0                      # main path starts here
@@ -3444,7 +3656,10 @@ def phase_jamba(smi):
           f"{peak / 2**30:.3f} GiB; ssd launches {launches} == {n_ssd} "
           f"Mamba layers x 1 prefill, flash_attention launches "
           f"{fa_launches} == {n_attn} x (1 + {LM_GEN - 1}): {fa_paths[0]} "
-          f"tiled (prefill), {fa_paths[1]} split (decode) [{smi}]")
+          f"tiled (prefill), {fa_paths[1]} split (decode), counted by "
+          f"replay [{smi}]")
+    _captured_against_eager(f"Jamba serving {JAMBA_ARCH}", eng,
+                            {"tokens": prompt}, res, reserved, smi)
 
     # a separate prefill launches each kernel once per layer; a decode
     # step launches flash_attention only
@@ -3567,8 +3782,10 @@ def serve_family(label, cfg, prompt_len, max_seq, want_paths, smi):
         0, cfg.vocab_size, (LM_BATCH, prompt_len)).astype(np.int32)
     extras = prefill_extras(cfg, LM_BATCH, SEED)
     batch = dict(tokens=prompt, **extras)
-    eng.generate(batch, max_new_tokens=2)        # warm-up, not counted
-    torch.cuda.synchronize()
+    r0 = _reserved_gib()
+    # warm-up, not counted: captures the prefill and the decode graph
+    eng.generate(batch, max_new_tokens=2)
+    reserved = (r0, _reserved_gib())
     torch.cuda.reset_peak_memory_stats()
 
     fa_kernel.launches = 0                       # main path starts here
@@ -3598,11 +3815,13 @@ def serve_family(label, cfg, prompt_len, max_seq, want_paths, smi):
           f"decode {res.decode_seconds:.4f} s = {step_ms:.4f} ms per step, "
           f"{res.decode_tokens_per_s:.1f} tokens/s, peak memory "
           f"{peak / 2**30:.3f} GiB; flash_attention launches {launches}: "
-          f"{paths[0]} tiled, {paths[1]} split [{smi}]")
+          f"{paths[0]} tiled, {paths[1]} split, counted by replay [{smi}]")
     out = {"launches": launches, "paths": paths,
            "prefill_s": res.prefill_seconds, "step_ms": step_ms,
            "tokens_per_s": res.decode_tokens_per_s,
-           "peak_gib": peak / 2**30}
+           "peak_gib": peak / 2**30,
+           "captured": _captured_against_eager(label, eng, batch, res,
+                                               reserved, smi)}
 
     # teacher-forced runs over the generated tokens, on the card
     prompt_t = torch.from_numpy(prompt).to("cuda")
@@ -3733,6 +3952,15 @@ def phase_internvl(smi):
 DISTILL_TIMEOUT = 60.0            # the reference's is 120 s; its stop: 120
 
 
+class EagerTeacherOracle(distill_ex.TeacherOracle):
+    """The distill teacher without capture: ``relabel`` op by op on
+    the caller's stream, the labels read back with ``.cpu()``: the
+    "before" of the captured teacher."""
+
+    def _relabel_program(self, tokens):
+        return self.relabel(tokens.to(self.device)).cpu()
+
+
 def phase_distill(smi):
     """``repro_torch.examples.lm_active_distill`` as the reference
     configures it, stopped at 120 labelled sequences or after 60 s: each
@@ -3772,10 +4000,16 @@ def phase_distill(smi):
                                  f"{eng.dispatches} + {warm} warm-up "
                                  f"launches")
         layers = distill.TEACHER.num_layers
-        if fa_launches != teacher.count * layers or teacher.count == 0:
+        # each teacher worker captures its relabel at its first label: two
+        # eager warm-up forwards, then one replay per label
+        t_caps = [o.captures for o in pal._oracle_instances.values()]
+        forwards = teacher.count + 2 * sum(t_caps)
+        if fa_launches != forwards * layers or teacher.count == 0 or \
+                any(c != 1 for c in t_caps):
             raise AssertionError(f"distill: flash_attention launches "
-                                 f"{fa_launches} != {teacher.count} teacher "
-                                 f"forwards x {layers} layers")
+                                 f"{fa_launches} != ({teacher.count} teacher "
+                                 f"forwards + 2 x {sum(t_caps)} captures "
+                                 f"{t_caps}) x {layers} layers")
         if any(v != 1 for v in eng.trace_counts.values()) or \
                 tr.captures != 1 or tr.graph_replays != tr.steps_done:
             raise AssertionError(f"distill: captures {eng.trace_counts}, "
@@ -3791,15 +4025,25 @@ def phase_distill(smi):
         it = c.get("exchange.iterations", 0)
         sel_frac = rep["labeled_total"] / max(it * pal.cfg.gene_process, 1)
         share, n_replays, window_ms = busy
-        # the teacher alone, after the run: ms per label on an idle card
-        oracle = distill.TeacherOracle(0, tmp, device="cuda")
+        # the teacher alone, after the run: ms per label on an idle card,
+        # captured and eager
         prompts = [distill.PromptGene(r, tmp).generate_new_data(None)[1]
                    for r in range(20)]
-        oracle.run_calc(prompts[0])
-        t0 = time.perf_counter()
-        for x in prompts:
-            oracle.run_calc(x)
-        teacher_alone_ms = (time.perf_counter() - t0) * 1e3 / len(prompts)
+        alone = {}
+        for name, cls in (("captured", distill.TeacherOracle),
+                          ("eager", EagerTeacherOracle)):
+            oracle = cls(0, tmp, device="cuda")
+            labels = [oracle.run_calc(x)[1] for x in prompts[:2]]
+            t0 = time.perf_counter()
+            for x in prompts:
+                oracle.run_calc(x)
+            alone[name] = ((time.perf_counter() - t0) * 1e3 / len(prompts),
+                           labels)
+        if not all(np.array_equal(a, b) for a, b in zip(
+                alone["captured"][1], alone["eager"][1])):
+            raise AssertionError("distill: the captured teacher's labels "
+                                 "differ from the eager teacher's")
+        teacher_alone_ms = alone["captured"][0]
         print(f"distill (PAL at LM scale, examples/lm_active_distill's "
               f"configuration: 8 prompt generators, 3 students of 2 layers, "
               f"2 teacher oracles of 4 layers): stopped by {stopped_by} "
@@ -3810,12 +4054,14 @@ def phase_distill(smi):
               f"fraction {sel_frac:.3f}; {c.get('train.retrains', 0)} "
               f"retrains, {rep['train_fused_steps']} fused train steps, "
               f"{rep['device_weight_refreshes']} device weight refreshes; "
-              f"teacher {1e3 * teacher.mean:.4f} ms per label over "
-              f"{teacher.count} in the run, {teacher_alone_ms:.4f} ms alone "
-              f"after it (mean of 20) [{smi}]")
-        print(f"distill device busy share (the union of the engine's and the "
-              f"trainer's graph replays by CUDA events; the teachers' "
-              f"kernels and the copies not counted) over "
+              f"teacher (captured) {1e3 * teacher.mean:.4f} ms per label "
+              f"over {teacher.count} in the run (the workers' captures "
+              f"included), {teacher_alone_ms:.4f} ms alone after it (mean "
+              f"of 20; eager {alone['eager'][0]:.4f} ms, labels equal bit "
+              f"for bit) [{smi}]")
+        print(f"distill device busy share (the union of the engine's, the "
+              f"trainer's and the teachers' graph replays by CUDA events; "
+              f"the copies not counted) over "
               f"{window_ms:.1f} ms from the first replay to the last: "
               + (f"{100 * share:.2f} % ({n_replays} replays)"
                  if share is not None else "not measured (no replay)")
@@ -3823,10 +4069,32 @@ def phase_distill(smi):
         print(f"distill checks: 0 crashes, 0 unjoined threads; committee_uq "
               f"launches {cuq_launches} == engine dispatches "
               f"{eng.dispatches} + {warm} warm-up launches; flash_attention "
-              f"launches {fa_launches} == {teacher.count} teacher forwards x "
-              f"{layers} layers; one capture per bucket {eng.trace_counts} "
-              f"and one for the trainer; engine weights == the trainer's "
+              f"launches {fa_launches} == ({teacher.count} teacher replays + "
+              f"2 x {sum(t_caps)} warm-up forwards) x {layers} layers; one "
+              f"capture per bucket {eng.trace_counts}, one for the trainer "
+              f"and one per teacher worker; engine weights == the trainer's "
               f"bit for bit")
+
+        # the same loop with the eager teacher: the "before" in the loop
+        pal_e = distill.make_pal(tempfile.mkdtemp(dir=tmp), "cuda",
+                                 oracle=EagerTeacherOracle)
+        stopped_e, wall_e = distill.run_until(pal_e, DISTILL_TIMEOUT)
+        rep_e = pal_e.report()
+        bad_e = {k: rep_e["counters"].get(k, 0) for k in (
+            "runtime.thread_crashes", "runtime.unjoined_threads")}
+        if any(bad_e.values()) or rep_e["labeled_total"] <= 0:
+            raise AssertionError(f"distill, eager teacher: {bad_e}, "
+                                 f"{rep_e['labeled_total']} labels")
+        teacher_e = pal_e.monitor.timer("oracle.run_calc")
+        print(f"distill teacher in the loop, before and after: eager "
+              f"{1e3 * teacher_e.mean:.4f} ms per label over "
+              f"{teacher_e.count} (stopped by {stopped_e} after "
+              f"{wall_e:.4f} s, {rep_e['labeled_total'] / wall_e:.2f} "
+              f"labels/s), captured {1e3 * teacher.mean:.4f} ms over "
+              f"{teacher.count} ({rep['labeled_total'] / wall:.2f} "
+              f"labels/s); alone: eager {alone['eager'][0]:.4f} ms, "
+              f"captured {teacher_alone_ms:.4f} ms per label [{smi}]")
+        del pal_e
     return {"cuq_launches": cuq_launches, "fa_launches": fa_launches,
             "stopped_by": stopped_by, "iterations_per_s": it / wall,
             "labels_per_s": rep["labeled_total"] / wall,
@@ -3835,7 +4103,9 @@ def phase_distill(smi):
             "refreshes": rep["device_weight_refreshes"],
             "selection_fraction": sel_frac, "busy_share": share,
             "teacher_ms": 1e3 * teacher.mean,
-            "teacher_alone_ms": teacher_alone_ms}
+            "teacher_alone_ms": teacher_alone_ms,
+            "teacher_eager_ms": 1e3 * teacher_e.mean,
+            "teacher_eager_alone_ms": alone["eager"][0]}
 
 
 # ---------------------------------------------------------------------------
@@ -4599,6 +4869,10 @@ def main() -> int:
         "runtime_iterations_per_s": rt["iterations_per_s"],
         "runtime_labels_per_s": rt["labels_per_s"],
         "runtime_busy_share": rt["busy_share"],
+        "runtime_oracle_ms": rt["oracle_ms"],
+        "runtime_oracle_eager_ms": rt["oracle_eager_ms"],
+        "runtime_oracle_alone_ms": rt["oracle_alone_ms"],
+        "runtime_oracle_eager_alone_ms": rt["oracle_eager_alone_ms"],
         "fleet_launches": fleet_launches,
         "fleet_step_ms": fleet["alone16"]["host_ms"],
         "fleet_device_ms": fleet["alone16"]["device_ms"],
@@ -4634,6 +4908,9 @@ def main() -> int:
         "library_gqa_ms": fd["library_gqa_ms"], "eager_ms": fd["eager_ms"],
         "plain_eager_ms": fd["plain_eager_ms"],
         "library_eager_ms": fd["library_eager_ms"],
+        "decode_device_offset_ms": fa_t["decode_device"]["ms"],
+        "decode_device_offset_plain_ms": fa_t["decode_device"]["plain_ms"],
+        "decode_device_offset_bound_ms": fa_t["decode_device"]["bound_ms"],
         "prefill_ms": fp["ms"], "prefill_plain_ms": fp["plain_ms"],
         "prefill_bound_ms": fp["bound_ms"],
         "prefill_bound_by": fp["bound_by"],
@@ -4658,6 +4935,11 @@ def main() -> int:
         "whisper_launches": whisper["launches"],
         "internvl_launches": internvl["launches"],
         "distill_launches": distill["fa_launches"],
+        "distill_teacher_ms": distill["teacher_ms"],
+        "distill_teacher_eager_ms": distill["teacher_eager_ms"],
+        "distill_teacher_alone_ms": distill["teacher_alone_ms"],
+        "distill_teacher_eager_alone_ms": distill["teacher_eager_alone_ms"],
+        "serving_captured_vs_eager": SERVING,
         **{f"{key}_{field}": fa_t[key][field]
            for key in ("whisper_encoder", "whisper_cross_decode",
                        "internvl_prefill", "moe_prefill")

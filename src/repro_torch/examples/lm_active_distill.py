@@ -53,6 +53,7 @@ from repro_torch.configs.pal_potential import PALRunConfig
 from repro_torch.core import (PAL, CommitteeSpec, ThresholdRule,
                               TopFractionRule, UserGene, UserOracle)
 from repro_torch.core import committee as cmte
+from repro_torch.kernels.graphs import PerShape
 from repro_torch.launch.platform import DeviceLike, resolve_device
 from repro_torch.models.model_zoo import build_model
 from repro_torch.models.transformer import lm_loss
@@ -130,7 +131,11 @@ class TeacherOracle(UserOracle):
     """The teacher LM on ``device`` (default: the CUDA device; raises
     without it): random weights drawn from a generator seeded
     ``TEACHER_SEED`` (every worker draws the same teacher), or the
-    ``params`` given."""
+    ``params`` given.  As the reference jits ``relabel``, each worker runs
+    it as one program per input shape: on the card a CUDA graph captured
+    on the worker's own stream (``kernels.graphs.PerShape``; its flash
+    launches counted by replay) and replayed for every label; on the CPU
+    eagerly.  ``captures`` counts the graphs."""
 
     def __init__(self, rank, rd, device: DeviceLike = None,
                  params: Optional[Any] = None):
@@ -142,6 +147,12 @@ class TeacherOracle(UserOracle):
                 torch.Generator(device=self.device).manual_seed(
                     TEACHER_SEED), device=self.device)
         self.params = params
+        self._relabel = (PerShape(self.relabel, self.device)
+                         if self.device.type == "cuda" else None)
+
+    @property
+    def captures(self) -> int:
+        return self._relabel.captures if self._relabel is not None else 0
 
     def relabel(self, tokens: torch.Tensor) -> torch.Tensor:
         """The teacher's next-token map (B, T) -> (B, T)."""
@@ -149,9 +160,16 @@ class TeacherOracle(UserOracle):
             logits = self.model.forward(self.params, {"tokens": tokens})
         return torch.argmax(logits, dim=-1)
 
+    def _relabel_program(self, tokens: torch.Tensor) -> torch.Tensor:
+        """``relabel`` of host ``tokens``: eagerly on the CPU, else a
+        replay of the graph of their shape (captured at first use)."""
+        if self._relabel is None:
+            return self.relabel(tokens)
+        return self._relabel(tokens)
+
     def run_calc(self, inp):
-        toks = torch.from_numpy(inp.astype(np.int32))[None].to(self.device)
-        teacher_next = self.relabel(toks)[0].cpu().numpy()
+        toks = torch.from_numpy(inp.astype(np.int32))[None]
+        teacher_next = self._relabel_program(toks)[0].numpy()
         # labeled sequence: prompt token followed by teacher continuation
         labeled = np.concatenate([inp[:1].astype(np.int32),
                                   teacher_next.astype(np.int32)])
@@ -171,12 +189,15 @@ def make_student_committee(n_members: int,
     return CommitteeSpec(member_nll, cparams)
 
 
-def make_pal(result_dir: str, device: DeviceLike = None) -> PAL:
-    """The reference's PAL at LM scale on ``device``."""
+def make_pal(result_dir: str, device: DeviceLike = None,
+             oracle=None) -> PAL:
+    """The reference's PAL at LM scale on ``device``; ``oracle``: the
+    teacher's class (default ``TeacherOracle``)."""
     dev = resolve_device(device)
     cfg = run_config(result_dir)
+    oracle = oracle or TeacherOracle
     return PAL(cfg, make_generator=PromptGene,
-               make_oracle=lambda r, d: TeacherOracle(r, d, device=dev),
+               make_oracle=lambda r, d: oracle(r, d, device=dev),
                committee=make_student_committee(cfg.pred_process),
                loss_fn=student_loss, rules=rules(cfg), device=dev)
 

@@ -33,7 +33,8 @@ import torch
 from repro_torch.configs.pal_potential import PALRunConfig, PotentialConfig
 from repro_torch.core import PAL, CommitteeSpec, UserGene, UserOracle
 from repro_torch.core import committee as cmte
-from repro_torch.launch.platform import resolve_device
+from repro_torch.kernels.graphs import PerShape
+from repro_torch.launch.platform import DeviceLike, resolve_device
 from repro_torch.models import potential as pot
 
 PCFG = PotentialConfig(n_atoms=6, committee_size=4, hidden=(64, 64), n_rbf=24)
@@ -78,19 +79,38 @@ class MDGenerator(UserGene):
         return False, self.x.reshape(-1).astype(np.float32)
 
 
+def _lj_forces(coords: torch.Tensor) -> torch.Tensor:
+    # torch.func.grad needs grad mode, whatever the caller's (and a graph
+    # captured under inference mode would compute no forces)
+    with torch.inference_mode(False), torch.enable_grad():
+        return pot.lj_energy_forces(coords)[1]
+
+
 class LJOracle(UserOracle):
     """Analytic Lennard-Jones cluster = the 'DFT' ground truth stand-in,
-    ``models/potential.lj_energy_forces`` on ``device``."""
+    ``models/potential.lj_energy_forces`` on ``device`` (default: the CUDA
+    device; raises without it).  As the reference jits it, each worker
+    runs it as one program per input shape: on the card a CUDA graph
+    captured on the worker's own stream (``kernels.graphs.PerShape``) and
+    replayed for every label; on the CPU eagerly.  ``captures`` counts the
+    graphs."""
 
-    def __init__(self, rank, result_dir, device="cpu"):
+    def __init__(self, rank, result_dir, device: DeviceLike = None):
         super().__init__(rank, result_dir)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
+        self._forces = (PerShape(_lj_forces, self.device)
+                        if self.device.type == "cuda" else None)
+
+    @property
+    def captures(self) -> int:
+        return self._forces.captures if self._forces is not None else 0
 
     def run_calc(self, input_for_orcl):
         coords = torch.from_numpy(np.asarray(
-            input_for_orcl, np.float32).reshape(-1, 3)).to(self.device)
-        _, f = pot.lj_energy_forces(coords)
-        return input_for_orcl, f.reshape(-1).cpu().numpy()
+            input_for_orcl, np.float32).reshape(-1, 3))
+        f = (self._forces(coords) if self._forces is not None
+             else _lj_forces(coords))
+        return input_for_orcl, f.reshape(-1).numpy()
 
 
 def member_forces(p, flat_batch):                # (n, 3A) -> (n, 3A)

@@ -83,6 +83,15 @@
 //    order with flash_combine_kernel.  Bound: the rank's K/V range read
 //    once, plus (D + 2) floats a split for each (b, t, h) row written and
 //    read back by the merge.
+// 5. A decode step whose position lives on the device (the captured decode
+//    graph of ServeEngine replays one program at every step):
+//    flash_attention_decode takes no q_offset; every kernel of 1-3 then
+//    places batch row b's queries at kv_len[b] - T .. kv_len[b] - 1, read
+//    in the kernel (the cache is filled to kv_len[b] after this step's T
+//    tokens), so the causal and window masks follow each row's position
+//    and nothing of it is baked into the launch.  The internal value
+//    kOffsetFromKvLen of q_offset asks for that; the host entries refuse
+//    it as a q_offset of their own.
 //
 // Build without --use_fast_math (IEEE division; the fp32 kernel keeps the
 // library's expf):
@@ -133,6 +142,17 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// q_offset's value that asks each kernel for the decode offset on the
+// device, kv_len[b] - T (entry 5 above); never a real offset
+constexpr int kOffsetFromKvLen = -2147483647 - 1;
+
+// the first query position of batch row b
+__device__ __forceinline__ int query_offset(int q_offset,
+                                            const int32_t* kv_len, int b,
+                                            int T_len) {
+  return q_offset == kOffsetFromKvLen ? kv_len[b] - T_len : q_offset;
+}
+
 template <int D>
 constexpr size_t smem_floats() {
   // K tile (rows padded to D+1), V tile, the block's q rows, probabilities
@@ -163,6 +183,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int row0 = blockIdx.x * kRows;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
+  q_offset = query_offset(q_offset, kv_len, b, T_len);
 
   // keys any row of this block can see: [kv_begin, kv_end)
   const int row_last = min(row0 + kRows, n_rows) - 1;
@@ -506,6 +527,7 @@ flash_tiled_kernel(const __nv_bfloat16* __restrict__ q,
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const int wrow = warp * MT * 16;  // the warp's first row in the block
+  q_offset = query_offset(q_offset, kv_len, b, T_len);
 
   // keys any row of this block can see: [kv_begin, kv_end)
   const int row_last = min(row0 + BM, n_rows) - 1;
@@ -905,6 +927,7 @@ flash_split_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int c = lane % LG;    // which 16-byte chunk of the row
   const bool lane_on = c < CH;
 
+  q_offset = query_offset(q_offset, kv_len, b, T_len);
   int kv_valid = S;
   if (kv_len != nullptr) kv_valid = min(kv_valid, kv_len[b]);
   int kv_end = kv_valid;
@@ -1104,6 +1127,7 @@ flash_split_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int g = lane >> 2;
   const int t = lane & 3;
 
+  q_offset = query_offset(q_offset, kv_len, b, T_len);
   int kv_valid = S;
   if (kv_len != nullptr) kv_valid = min(kv_valid, kv_len[b]);
   int kv_end = kv_valid;
@@ -1442,14 +1466,12 @@ int dispatch_combine(const float* part, void* o, int B, int T_len, int H,
 // launches (0 on success), or cudaErrorInvalidValue for what the kernels
 // do not take (D outside {16, 64, 120, 128}, H not a multiple of KV, a
 // split plan that does not cover S, a grid too large).
-extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o,
-                                      const void* kv_len, int B, int T_len,
-                                      int S, int H, int KV, int D, int dtype,
-                                      int q_offset, int causal, int window,
-                                      float scale, int path, int n_splits,
-                                      int keys_per_split, void* scratch,
-                                      void* stream) {
+static int launch_entry(const void* q, const void* k, const void* v,
+                        void* o, const void* kv_len, int B, int T_len, int S,
+                        int H, int KV, int D, int dtype, int q_offset,
+                        int causal, int window, float scale, int path,
+                        int n_splits, int keys_per_split, void* scratch,
+                        void* stream) {
   if (B < 1 || T_len < 1 || S < 0 || KV < 1 || H < KV || H % KV != 0 ||
       B > 65535 || KV > 65535 || (path != 0 && path != 1))
     return (int)cudaErrorInvalidValue;
@@ -1473,6 +1495,39 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   return (int)cudaErrorInvalidValue;
 }
 
+extern "C" int flash_attention_launch(const void* q, const void* k,
+                                      const void* v, void* o,
+                                      const void* kv_len, int B, int T_len,
+                                      int S, int H, int KV, int D, int dtype,
+                                      int q_offset, int causal, int window,
+                                      float scale, int path, int n_splits,
+                                      int keys_per_split, void* scratch,
+                                      void* stream) {
+  if (q_offset == kOffsetFromKvLen) return (int)cudaErrorInvalidValue;
+  return launch_entry(q, k, v, o, kv_len, B, T_len, S, H, KV, D, dtype,
+                      q_offset, causal, window, scale, path, n_splits,
+                      keys_per_split, scratch, stream);
+}
+
+// The decode entry with the position on the device (5 above): as
+// flash_attention_launch, but batch row b's queries sit at kv_len[b] - T
+// .. kv_len[b] - 1, read in the kernel; kv_len (B,) int32 is required.
+// Either path (a decode step of more than 8 (t, g) rows per kv head is
+// tiled).
+extern "C" int flash_attention_decode(const void* q, const void* k,
+                                      const void* v, void* o,
+                                      const void* kv_len, int B, int T_len,
+                                      int S, int H, int KV, int D, int dtype,
+                                      int causal, int window, float scale,
+                                      int path, int n_splits,
+                                      int keys_per_split, void* scratch,
+                                      void* stream) {
+  if (kv_len == nullptr) return (int)cudaErrorInvalidValue;
+  return launch_entry(q, k, v, o, kv_len, B, T_len, S, H, KV, D, dtype,
+                      kOffsetFromKvLen, causal, window, scale, path,
+                      n_splits, keys_per_split, scratch, stream);
+}
+
 // Partials out (sequence-sharded cache): the split-KV kernel over this
 // rank's K/V range of S keys, n_splits ranges of keys_per_split keys, its
 // fp32 partials written to the caller's `part`: B*T*H*n_splits*(D+2)
@@ -1492,6 +1547,7 @@ extern "C" int flash_attention_partials(const void* q, const void* k,
                                         void* stream) {
   if (B < 1 || T_len < 1 || S < 0 || KV < 1 || H < KV || H % KV != 0 ||
       B > 65535 || KV > 65535 || part == nullptr ||
+      q_offset == kOffsetFromKvLen ||
       (long long)T_len * (H / KV) > split::kMaxRows || n_splits < 1 ||
       n_splits > 65535 || keys_per_split < 1 ||
       (long long)n_splits * keys_per_split < S)

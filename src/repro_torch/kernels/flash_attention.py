@@ -28,6 +28,12 @@ not (sharp attention over large values that cancel).
 Unlike the Pallas kernel, which raises unless T and S tile by its blocks,
 the CUDA kernels mask ragged tails themselves and take any T and S.
 
+A decode step whose position lives on the device (a captured decode
+graph replays one program at every position) passes ``q_offset`` as a
+tensor: the kernels then take batch row b's offset on the device as
+``kv_len[b] - T`` (the cache filled to ``kv_len[b]`` after this step's T
+tokens), so nothing of the position is baked into the launch.
+
 A sequence-sharded cache (``ops.attention(kv_seq_shard=True)`` on a mesh)
 uses the split path's two kernels apart: ``flash_partials`` writes a
 rank's fp32 partials for its key range, and ``flash_combine`` merges the
@@ -35,6 +41,13 @@ partials of every rank, gathered in rank order (``launches_partials``,
 ``launches_combine``).  Their plain versions are ``split_kv_partials``
 (in the kernel's layout, ``pack_partials``) and ``combine_partials``,
 whose composition is ``split_kv_model``.
+
+Counting: a call made eagerly adds one to ``launches`` and to its path's
+counter (``launches_tiled`` / ``launches_split``; ``launches_partials``,
+``launches_combine``); a call recorded into a CUDA graph under capture adds
+to the same keys of ``captured`` instead (it runs only when the graph is
+replayed, and whoever replays the graph adds its launches with
+``count_replays``).
 """
 from __future__ import annotations
 
@@ -42,11 +55,11 @@ import ctypes
 import math
 import operator
 import threading
-from typing import NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Union
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, ref
 from repro_torch.kernels._guard import refuse_grad
 from repro_torch.launch.platform import DeviceLike, resolve_device
 
@@ -63,6 +76,10 @@ launches_tiled = 0          # ... of them on the tiled path
 launches_split = 0          # ... of them on the split-KV path
 launches_partials = 0       # flash_partials calls (a rank's key range)
 launches_combine = 0        # flash_combine calls (the ranks' merge)
+COUNTERS = ("launches", "launches_tiled", "launches_split",
+            "launches_partials", "launches_combine")
+# calls recorded into CUDA graphs under capture, by counter
+captured = dict.fromkeys(COUNTERS, 0)
 _count_lock = threading.Lock()
 _bound = False
 
@@ -91,12 +108,15 @@ def plan(B: int, T: int, S: int, H: int, KV: int) -> Plan:
 
 def split_kv_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       splits: int, keys_per_split: int, causal: bool = True,
-                      window: Optional[int] = None, q_offset: int = 0,
+                      window: Optional[int] = None,
+                      q_offset: Union[int, torch.Tensor] = 0,
                       kv_len: Optional[torch.Tensor] = None):
     """The split kernels' partials in plain PyTorch: for each key range of
     ``keys_per_split`` keys, fp32 (m in log2 units, l, acc) over its visible
-    keys -- (-inf, 0, 0) for a range with none.  Returns (m, l, acc) of
-    shapes (splits, B, KV, G, T) and (splits, B, KV, G, T, D)."""
+    keys -- (-inf, 0, 0) for a range with none.  ``q_offset`` as
+    ``ref.attention_ref``'s (a host int, or a 0-dim or (B,) tensor).
+    Returns (m, l, acc) of shapes (splits, B, KV, G, T) and (splits, B, KV,
+    G, T, D)."""
     B, T, H, D = q.shape
     S, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -104,14 +124,8 @@ def split_kv_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale_log2 = (1.0 / math.sqrt(D)) * math.log2(math.e)
     qf = q.float().reshape(B, T, KV, G, D)
     s = torch.einsum("btkgd,bskd->bkgts", qf, k.float()) * scale_log2
-    qpos = q_offset + torch.arange(T, device=dev)[:, None]
     kpos = torch.arange(S, device=dev)[None, :]
-    vis = torch.ones(T, S, dtype=torch.bool, device=dev)
-    if causal:
-        vis &= kpos <= qpos
-    if window is not None:
-        vis &= kpos > qpos - window
-    vis = vis[None].expand(B, T, S)
+    vis = ref._mask(T, S, q_offset, causal, window, dev).expand(B, T, S)
     if kv_len is not None:
         vis = vis & (kpos < kv_len.to(dev)[:, None, None])
     vis = vis[:, None, None]                           # (B, 1, 1, T, S)
@@ -152,7 +166,8 @@ def combine_partials(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
 
 def split_kv_model(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    splits: int, keys_per_split: int, causal: bool = True,
-                   window: Optional[int] = None, q_offset: int = 0,
+                   window: Optional[int] = None,
+                   q_offset: Union[int, torch.Tensor] = 0,
                    kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The split-KV path's arithmetic in plain PyTorch: for each key range
     of ``keys_per_split`` keys, fp32 partials (m in log2 units, l, acc)
@@ -191,6 +206,26 @@ def unpack_partials(part: torch.Tensor, B: int, T: int, H: int, KV: int,
             acc.permute(2, 0, 1, 4, 3, 5))
 
 
+def _count(*names: str) -> None:
+    capturing = torch.cuda.is_current_stream_capturing()
+    counters = globals()
+    with _count_lock:
+        for name in names:
+            if capturing:
+                captured[name] += 1
+            else:
+                counters[name] += 1
+
+
+def count_replays(n: Dict[str, int]) -> None:
+    """Add the launches a replayed CUDA graph made (``n``: counts by
+    counter name, as ``captured`` holds them) to the counters."""
+    counters = globals()
+    with _count_lock:
+        for name, k in n.items():
+            counters[name] += k
+
+
 def _lib() -> ctypes.CDLL:
     global _bound
     lib = _build.load("flash_attention")
@@ -199,12 +234,16 @@ def _lib() -> ctypes.CDLL:
         lib.flash_attention_launch.argtypes = [
             ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32,
             i32, i32, ctypes.c_float, i32, i32, i32, ptr, ptr]
+        lib.flash_attention_decode.argtypes = [
+            ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32,
+            i32, ctypes.c_float, i32, i32, i32, ptr, ptr]
         lib.flash_attention_partials.argtypes = [
             ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32, i32,
             i32, ctypes.c_float, i32, i32, ptr, ptr]
         lib.flash_attention_combine.argtypes = [
             ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32, ptr]
-        for fn in (lib.flash_attention_launch, lib.flash_attention_partials,
+        for fn in (lib.flash_attention_launch, lib.flash_attention_decode,
+                   lib.flash_attention_partials,
                    lib.flash_attention_combine):
             fn.restype = ctypes.c_int
         _bound = True
@@ -262,23 +301,39 @@ def _raise_on(err: int, what: str, q, k, detail) -> None:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
-                    q_offset: int = 0, kv_len: Optional[torch.Tensor] = None,
+                    q_offset: Union[int, torch.Tensor] = 0,
+                    kv_len: Optional[torch.Tensor] = None,
                     device: DeviceLike = None) -> torch.Tensor:
     """Attention of q (B, T, H, D) against k, v (B, S, KV, D) with the
     semantics of ``ref.attention_ref``: fp32 scores and softmax, GQA
     (``H % KV == 0``), causal and sliding-window masks, query positions
-    offset by ``q_offset`` (a host int), a per-batch ``kv_len`` (B,)
-    device tensor, and 0 for fully masked rows.  q, k, v: one dtype (fp32
-    or bf16), contiguous and 16-byte aligned, on ``device`` (default: the
-    CUDA device); D in ``HEAD_DIMS``.  Returns (B, T, H, D) in that
-    dtype."""
-    global launches, launches_tiled, launches_split
+    offset by ``q_offset``, a per-batch ``kv_len`` (B,) device tensor, and
+    0 for fully masked rows.  q, k, v: one dtype (fp32 or bf16),
+    contiguous and 16-byte aligned, on ``device`` (default: the CUDA
+    device); D in ``HEAD_DIMS``.  Returns (B, T, H, D) in that dtype.
+
+    ``q_offset`` is a host int, or a decode step's position as an integer
+    tensor (0-dim or (B,)) on the device; the tensor must hold
+    ``kv_len - T``, and needs ``kv_len``: the kernel takes batch row b's
+    offset as ``kv_len[b] - T`` on the device and never reads the tensor
+    on the host, so a captured graph replays at any position."""
     refuse_grad("flash_attention", q, k, v)
     dev = resolve_device(device)
     kv_len = _check(q, k, v, window, kv_len, dev)
     B, T, H, D = q.shape
     _, S, KV, _ = k.shape
-    q_offset = operator.index(q_offset)
+    on_device = isinstance(q_offset, torch.Tensor)
+    if on_device:
+        if kv_len is None:
+            raise ValueError("flash_attention kernel: a tensor q_offset (a "
+                             "decode position on the device) needs kv_len")
+        if q_offset.device != dev or q_offset.dtype.is_floating_point or \
+                q_offset.dim() > 1:
+            raise ValueError(f"flash_attention kernel: a tensor q_offset "
+                             f"must be an integer 0-dim or ({B},) tensor on "
+                             f"{dev}")
+    else:
+        q_offset = operator.index(q_offset)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
@@ -289,22 +344,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                               dtype=torch.float32, device=dev)
     lib = _lib()
     scale = 1.0 / math.sqrt(D)        # as the TPU kernel's, rounded to fp32
+    win = 0 if window is None else int(window)
+    part = scratch.data_ptr() if scratch is not None else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            kv_len.data_ptr() if kv_len is not None else None,
-            B, T, S, H, KV, D, _DTYPE_CODE[q.dtype], q_offset, int(causal),
-            0 if window is None else int(window), scale,
-            _PATH_CODE[p.path], p.splits, p.keys_per_split,
-            scratch.data_ptr() if scratch is not None else None, stream)
-    _raise_on(err, "flash_attention kernel", q, k, p)
-    with _count_lock:
-        launches += 1
-        if p.path == "tiled":
-            launches_tiled += 1
+        if on_device:
+            err = lib.flash_attention_decode(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                kv_len.data_ptr(), B, T, S, H, KV, D, _DTYPE_CODE[q.dtype],
+                int(causal), win, scale, _PATH_CODE[p.path], p.splits,
+                p.keys_per_split, part, stream)
         else:
-            launches_split += 1
+            err = lib.flash_attention_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                kv_len.data_ptr() if kv_len is not None else None,
+                B, T, S, H, KV, D, _DTYPE_CODE[q.dtype], q_offset,
+                int(causal), win, scale, _PATH_CODE[p.path], p.splits,
+                p.keys_per_split, part, stream)
+    _raise_on(err, "flash_attention kernel", q, k, p)
+    _count("launches", f"launches_{p.path}")
     return out
 
 
@@ -318,7 +376,6 @@ def flash_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     keys; ``q_offset`` and ``kv_len`` already shifted by the range's start,
     so ``q_offset`` may be negative).  Returns ``(part, splits)``.
     T * (H // KV) must be at most ``SPLIT_MAX_ROWS`` (decode)."""
-    global launches_partials
     refuse_grad("flash_partials", q, k, v)
     dev = resolve_device(device)
     kv_len = _check(q, k, v, window, kv_len, dev)
@@ -342,8 +399,7 @@ def flash_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             0 if window is None else int(window), 1.0 / math.sqrt(D),
             p.splits, p.keys_per_split, part.data_ptr(), stream)
     _raise_on(err, "flash_partials", q, k, p)
-    with _count_lock:
-        launches_partials += 1
+    _count("launches_partials")
     return part, p.splits
 
 
@@ -353,7 +409,6 @@ def flash_combine(parts: torch.Tensor, *, ranks: int, splits: int, B: int,
     """Merge ``ranks`` ranks' ``flash_partials`` buffers (one after another
     in rank order, ``splits`` splits each) in (rank, split) order: the
     attention output (B, T, H, D) in ``dtype``."""
-    global launches_combine
     dev = resolve_device(device)
     want = ranks * B * T * H * splits * (D + 2)
     if parts.device != dev or dev.type != "cuda" or \
@@ -376,6 +431,5 @@ def flash_combine(parts: torch.Tensor, *, ranks: int, splits: int, B: int,
         raise RuntimeError(f"flash_combine launch failed: CUDA error {err} "
                            f"(B={B}, T={T}, H={H}, KV={KV}, D={D}, "
                            f"{ranks} ranks x {splits} splits)")
-    with _count_lock:
-        launches_combine += 1
+    _count("launches_combine")
     return out

@@ -4,7 +4,7 @@ runs the hand-written kernel — or the call raises.  There is no fallback
 from the kernel to the plain version."""
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -52,12 +52,14 @@ def committee_uq_packed(preds: torch.Tensor, threshold: float,
 
 
 def plain_attention(q, k, v, *, causal: bool = True,
-                    window: Optional[int] = None, q_offset: int = 0,
+                    window: Optional[int] = None,
+                    q_offset: Union[int, torch.Tensor] = 0,
                     kv_len=None, q_chunk: int = 1024) -> torch.Tensor:
     """The plain version on any device, by the reference's rule (its xla
-    path): direct for short queries or decode, chunked over queries
-    otherwise."""
-    if q.shape[1] <= q_chunk or kv_len is not None:
+    path): direct for short queries or decode (a ``q_offset`` tensor is a
+    decode position), chunked over queries otherwise."""
+    if q.shape[1] <= q_chunk or kv_len is not None or \
+            isinstance(q_offset, torch.Tensor):
         return ref.attention_ref(q, k, v, causal=causal, window=window,
                                  q_offset=q_offset, kv_len=kv_len)
     return ref.attention_chunked_ref(q, k, v, causal=causal, window=window,
@@ -103,7 +105,13 @@ def _seq_sharded_attention(q, k, v, rules, axes, *, causal, window,
     ``split_kv_partials`` on the CPU), the partials of every rank are
     all-gathered in rank order, and merged (``flash_combine`` /
     ``combine_partials``) — a distributed softmax, no gather of the cache.
-    Every rank returns the whole output."""
+    Every rank returns the whole output.  It runs eagerly and takes the
+    decode position as a host int (the rank's shift of the masks is
+    computed on the host), never as a device tensor."""
+    if isinstance(q_offset, torch.Tensor):
+        raise TypeError("the sequence-sharded decode takes q_offset as a "
+                        "host int (it runs eagerly, not in a captured "
+                        "graph)")
     mesh = rules.mesh
     B, T, H, D = q.shape
     S_loc, KV = k.shape[1], k.shape[2]
@@ -135,11 +143,14 @@ def _seq_sharded_attention(q, k, v, rules, axes, *, causal, window,
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: Optional[int] = None,
-              q_offset: int = 0, kv_len: Optional[torch.Tensor] = None,
+              q_offset: Union[int, torch.Tensor] = 0,
+              kv_len: Optional[torch.Tensor] = None,
               q_chunk: int = 1024, kv_seq_shard: bool = False,
               rules=None) -> torch.Tensor:
     """Multi-head attention, GQA-aware. q: (B,T,H,D); k,v: (B,S,KV,D);
-    ``kv_len``: optional (B,) valid cache lengths (decode).
+    ``kv_len``: optional (B,) valid cache lengths (decode); ``q_offset``: a
+    host int, or a decode position as an integer tensor on q's device that
+    holds ``kv_len - T`` (see ``flash_attention.flash_attention``).
 
     ``kv_seq_shard`` with ``rules`` (a ``sharding.rules.MeshRules`` whose
     ``CACHE_SEQ`` maps to mesh axes of size > 1, ``kv_seq_axes``): the

@@ -106,10 +106,15 @@ def _f32_sqrt(d: int) -> float:
 
 def _mask(q_len: int, kv_len: int, q_offset, causal: bool,
           window: Optional[int], device=None) -> torch.Tensor:
-    """(q_len, kv_len) boolean mask. q position i sits at q_offset + i."""
+    """(q_len, kv_len) boolean mask. q position i sits at q_offset + i.
+    ``q_offset``: a host int, a 0-dim tensor, or a (B,) tensor of per-batch
+    offsets, which gives a (B, q_len, kv_len) mask."""
+    if isinstance(q_offset, torch.Tensor) and q_offset.dim() == 1:
+        q_offset = q_offset.to(device)[:, None, None]
     qpos = q_offset + torch.arange(q_len, device=device)[:, None]
-    kpos = torch.arange(kv_len, device=device)[None, :]
-    m = torch.ones((q_len, kv_len), dtype=torch.bool, device=device)
+    kpos = torch.arange(kv_len, device=device)
+    m = torch.ones(qpos.shape[:-1] + (kv_len,), dtype=torch.bool,
+                   device=device)
     if causal:
         m &= kpos <= qpos
     if window is not None:
@@ -123,8 +128,10 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Naive full-materialization attention; fp32 softmax; GQA-aware.
 
     q: (B, T, H, D); k, v: (B, S, KV, D); ``kv_len``: optional (B,) valid
-    cache lengths (decode).  Fully masked rows give 0.  Output in
-    ``v.dtype``, as the reference's ``attention_ref``."""
+    cache lengths (decode); ``q_offset``: a host int, or an integer tensor
+    on q's device, 0-dim or (B,) per batch row (a decode position kept on
+    the device).  Fully masked rows give 0.  Output in ``v.dtype``, as the
+    reference's ``attention_ref``."""
     B, T, H, D = q.shape
     _, S, KV, _ = k.shape
     G = H // KV
@@ -132,7 +139,8 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kf = k.to(torch.float32)
     vf = v.to(torch.float32)
     scores = torch.einsum("btkgd,bskd->bkgts", qf, kf) / _f32_sqrt(D)
-    m = _mask(T, S, q_offset, causal, window, q.device)[None, None, None]
+    m = _mask(T, S, q_offset, causal, window, q.device)
+    m = m[:, None, None] if m.dim() == 3 else m[None, None, None]
     if kv_len is not None:
         valid = torch.arange(S, device=q.device)[None, :] < kv_len[:, None]
         m = m & valid[:, None, None, None, :]

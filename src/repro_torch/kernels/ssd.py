@@ -2,7 +2,7 @@
 
 Checks its inputs, allocates the outputs with ``torch.empty``, launches the
 kernel on the current CUDA stream, raises if the launch was refused, and
-counts the launch in ``launches``.  It never falls back to the plain
+counts the launch (see Counting).  It never falls back to the plain
 version: ``ops.ssd`` sends CPU tensors to ``ref.ssd_chunked_ref`` and CUDA
 tensors here.
 
@@ -17,6 +17,11 @@ the products C B^T, A x, S^T C^T and x^T (B * dec) by ``mma.sync``, three
 bf16 terms per fp32 operand); ``mma_model`` is that arithmetic in plain
 PyTorch, held against the reference on the CPU.  fp32 inputs run on the
 CUDA cores.
+
+Counting: a launch made eagerly adds one to ``launches``; a launch recorded
+into a CUDA graph under capture adds one to ``captured`` instead (it runs
+only when the graph is replayed, and whoever replays the graph adds its
+launches with ``count_replays``).
 """
 from __future__ import annotations
 
@@ -38,8 +43,26 @@ TILE = 64           # rows the bf16 kernel stages a chunk in (zero-padded)
 PARTS = 3           # bf16 terms of each fp32 operand in the bf16 kernel
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 launches = 0            # kernel launches since the last reset
+captured = 0            # launches recorded into CUDA graphs under capture
 _count_lock = threading.Lock()
 _bound = False
+
+
+def _count() -> None:
+    global launches, captured
+    capturing = torch.cuda.is_current_stream_capturing()
+    with _count_lock:
+        if capturing:
+            captured += 1
+        else:
+            launches += 1
+
+
+def count_replays(n: int) -> None:
+    """Add the ``n`` launches a replayed CUDA graph made to ``launches``."""
+    global launches
+    with _count_lock:
+        launches += n
 
 
 def _lib() -> ctypes.CDLL:
@@ -140,7 +163,6 @@ def ssd(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
     ``chunk`` in [1, ``MAX_CHUNK``] dividing T.  Returns (y (B, T, H, P) in
     x's dtype, the new state (B, H, N, P) fp32, written into ``state_out``
     when given)."""
-    global launches
     refuse_grad("ssd", x, a, Bm, Cm, state)
     dev = resolve_device(device)
     for name, t in (("x", x), ("a", a), ("Bm", Bm), ("Cm", Cm)):
@@ -198,6 +220,5 @@ def ssd(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
         raise RuntimeError(f"ssd kernel launch failed: CUDA error {err} "
                            f"(x {tuple(x.shape)}, {x.dtype}, N {N}, chunk "
                            f"{chunk})")
-    with _count_lock:
-        launches += 1
+    _count()
     return y, state_out

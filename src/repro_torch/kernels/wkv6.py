@@ -2,7 +2,7 @@
 
 Checks its inputs, allocates the outputs with ``torch.empty``, launches the
 kernel on the current CUDA stream, raises if the launch was refused, and
-counts the launch in ``launches``.  It never falls back to the plain
+counts the launch (see Counting).  It never falls back to the plain
 version: ``ops.wkv6`` sends CPU tensors to ``ref.wkv6_chunked_ref`` and
 CUDA tensors here.
 
@@ -13,6 +13,11 @@ bf16 inputs run on the tensor cores (8-row sub-chunks carried through the
 state, decays as running products of w, three bf16 terms per fp32
 operand); ``subchunk_model`` is that arithmetic in plain PyTorch, held
 against the reference on the CPU.  fp32 inputs run on the CUDA cores.
+
+Counting: a launch made eagerly adds one to ``launches``; a launch recorded
+into a CUDA graph under capture adds one to ``captured`` instead (it runs
+only when the graph is replayed, and whoever replays the graph adds its
+launches with ``count_replays``).
 """
 from __future__ import annotations
 
@@ -32,8 +37,26 @@ MAX_CHUNK = 64
 SUB = 8             # rows per sub-chunk of the bf16 kernel's recurrence
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 launches = 0            # kernel launches since the last reset
+captured = 0            # launches recorded into CUDA graphs under capture
 _count_lock = threading.Lock()
 _bound = False
+
+
+def _count() -> None:
+    global launches, captured
+    capturing = torch.cuda.is_current_stream_capturing()
+    with _count_lock:
+        if capturing:
+            captured += 1
+        else:
+            launches += 1
+
+
+def count_replays(n: int) -> None:
+    """Add the ``n`` launches a replayed CUDA graph made to ``launches``."""
+    global launches
+    with _count_lock:
+        launches += n
 
 
 def _lib() -> ctypes.CDLL:
@@ -127,7 +150,6 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     [1, ``MAX_CHUNK``] dividing T.  Returns (y (B, T, H, N) in the inputs'
     dtype, the new state (B, H, N, N) fp32, written into ``state_out`` when
     given)."""
-    global launches
     refuse_grad("wkv6", r, k, v, w, u, state)
     dev = resolve_device(device)
     for name, t in (("r", r), ("k", k), ("v", v), ("w", w), ("u", u)):
@@ -179,6 +201,5 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"wkv6 kernel launch failed: CUDA error {err} "
                            f"(r {tuple(r.shape)}, {r.dtype}, chunk {chunk})")
-    with _count_lock:
-        launches += 1
+    _count()
     return y, state_out

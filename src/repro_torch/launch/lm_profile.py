@@ -15,10 +15,13 @@ with ``launch/serve.py``'s random frame / patch embeddings), and reports,
 each line with the card's name and power limit:
 
 * one ``generate`` of ``--batch`` prompts of ``--prompt-len`` tokens and
-  ``--gen`` new tokens: prefill seconds, decode seconds per step, decode
-  tokens/s (host clock around synchronized work), peak device memory;
+  ``--gen`` new tokens, after a first one that captured the engine's
+  prefill and decode graphs: prefill seconds, decode seconds per step,
+  decode tokens/s (host clock around synchronized work, the graphs
+  replayed), peak device memory;
 * a ``torch.profiler`` table of the device kernels of one prefill and of
-  ``--profile-steps`` decode steps: device time of the hand-written
+  ``--profile-steps`` decode steps, run op by op (``model.prefill`` and
+  ``model.decode_step``, the engine's eager form): device time of the hand-written
   kernels (``flash_attention``, ``wkv6``, ``ssd``), of the matrix
   products (cuBLAS's ``nvjet``/``gemm`` kernels) and of the rest, and
   each hand-written kernel's share of device time;

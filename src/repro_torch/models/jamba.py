@@ -82,7 +82,7 @@ def _sub(tree, i: int):
 
 def group_forward(gp: Params, x: torch.Tensor, cfg: ModelConfig, *,
                   positions: torch.Tensor, cache: Optional[Params] = None,
-                  index: Optional[int] = None, impl: str = "auto",
+                  index=None, impl: str = "auto",
                   kv_seq_shard: bool = False, with_aux: bool = False,
                   rope=None):
     """One period-8 group.  ``cache``: this group's views {"k", "v" (B, S,
@@ -200,7 +200,7 @@ class JambaLM(tfm.DenseLM):
         }
 
     def _serve(self, params: Params, tokens: torch.Tensor, cache: Params,
-               index: Optional[int], kv_seq_shard: bool) -> torch.Tensor:
+               index, kv_seq_shard: bool) -> torch.Tensor:
         cfg = self.cfg
         x = tfm.embed(params, tokens, cfg)
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
@@ -224,10 +224,10 @@ class JambaLM(tfm.DenseLM):
         return logits[:, 0, :], cache
 
     def decode_step(self, params: Params, tokens: torch.Tensor,
-                    cache: Params, index: int, *,
-                    kv_seq_shard: bool = False):
-        """One decode step: tokens (B, T) at position ``index`` (a host
-        int)."""
-        x = self._serve(params, tokens, cache, int(index), kv_seq_shard)
+                    cache: Params, index, *, kv_seq_shard: bool = False):
+        """One decode step: tokens (B, T) at position ``index`` (a host int
+        or a 0-dim integer tensor on the device, ``tfm.decode_index``)."""
+        x = self._serve(params, tokens, cache, tfm.decode_index(index),
+                        kv_seq_shard)
         logits = tfm.unembed(params, x, self.cfg)
         return logits[:, -1, :], cache

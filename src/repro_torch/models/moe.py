@@ -245,10 +245,10 @@ class MoELM(tfm.DenseLM):
         return logits[:, 0, :], cache
 
     def decode_step(self, params: Params, tokens: torch.Tensor,
-                    cache: Params, index: int, *,
-                    kv_seq_shard: bool = False):
-        """One decode step: tokens (B, T) at position ``index`` (a host
-        int)."""
-        x = self._serve(params, tokens, cache, int(index), kv_seq_shard)
+                    cache: Params, index, *, kv_seq_shard: bool = False):
+        """One decode step: tokens (B, T) at position ``index`` (a host int
+        or a 0-dim integer tensor on the device, ``tfm.decode_index``)."""
+        x = self._serve(params, tokens, cache, tfm.decode_index(index),
+                        kv_seq_shard)
         logits = tfm.unembed(params, x, self.cfg)
         return logits[:, -1, :], cache

@@ -269,8 +269,7 @@ class RWKV6LM(tfm.DenseLM):
         return logits[:, 0, :], cache
 
     def decode_step(self, params: Params, tokens: torch.Tensor,
-                    cache: Params, index: int, *,
-                    kv_seq_shard: bool = False):
+                    cache: Params, index, *, kv_seq_shard: bool = False):
         """One recurrent step; the position ``index`` and ``kv_seq_shard``
         are accepted for the dense signature and not read (O(1) state)."""
         del index, kv_seq_shard

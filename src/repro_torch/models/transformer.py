@@ -32,6 +32,15 @@ of its slice, and ``prefill`` / ``decode_step`` return the same dict they
 were given.  The reference's functional ``dynamic_update_slice`` returns a
 new cache; here nothing is copied.
 
+A decode step's ``index`` is a host int, or a 0-dim integer tensor on the
+model's device, as the reference's jitted step takes a traced int32: then
+the positions are ``index + arange(T)``, the cache rows are written by
+``index_copy_``, ``kv_len`` is ``index + T`` and the attention's offset
+stays on the device, so a captured CUDA graph of the step replays at any
+position and the step reads nothing back to the host.  The range check of
+such an index is the caller's (``ServeEngine.generate`` knows every
+position ahead).
+
 ``impl``: "auto" runs ``ops.attention``, which follows the tensors' device
 (the CUDA kernel on the card, the plain version on the CPU); "plain" runs
 the plain version on any device — only tests and ``chip_smoke.py`` set it,
@@ -146,7 +155,7 @@ def attention_block(
     *,
     positions: torch.Tensor,           # (T,) or (B, T)
     cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # (B,S,KV,hd)
-    index: Optional[int] = None,       # write offset (decode), a host int
+    index=None,                        # write offset (decode): decode_index
     impl: str = "auto",
     kv_seq_shard: bool = False,
     rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
@@ -171,11 +180,17 @@ def attention_block(
 
     if cache is not None:
         ck, cv = cache
-        if index is not None:  # decode: write T new tokens at `index`
+        if isinstance(index, torch.Tensor):  # decode, position on device
+            rows = index + torch.arange(T, device=x.device)
+            ck.index_copy_(1, rows, k.to(ck.dtype))
+            cv.index_copy_(1, rows, v.to(cv.dtype))
+            kv_len = (index + T).to(torch.int32).repeat(B)
+        elif index is not None:  # decode: write T new tokens at `index`
             ck[:, index:index + T] = k.to(ck.dtype)
             cv[:, index:index + T] = v.to(cv.dtype)
             kv_len = torch.full((B,), index + T, dtype=torch.int32,
                                 device=x.device)
+        if index is not None:
             o = _attend(q, ck, cv, impl, causal=False,
                         window=cfg.sliding_window, q_offset=index,
                         kv_len=kv_len, kv_seq_shard=kv_seq_shard)
@@ -208,6 +223,18 @@ def dense_layer(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     x = x + a
     x = x + mlp_block(p["mlp"], x, cfg)
     return x, new_cache
+
+
+def decode_index(index):
+    """A decode step's position as the model takes it: a host int, or a
+    0-dim integer tensor kept on the device (never read on the host)."""
+    if isinstance(index, torch.Tensor):
+        if index.dim() != 0 or index.dtype.is_floating_point:
+            raise ValueError(f"a decode index tensor must be a 0-dim "
+                             f"integer tensor, got {index.dtype} "
+                             f"{tuple(index.shape)}")
+        return index
+    return int(index)
 
 
 def layer_params(params: Params, num_layers: int,
@@ -430,12 +457,12 @@ class DenseLM:
         return logits[:, 0, :], cache
 
     def decode_step(self, params: Params, tokens: torch.Tensor,
-                    cache: Params, index: int, *,
-                    kv_seq_shard: bool = False):
-        """One decode step: tokens (B, T) written at ``index`` (a host
-        int, so the step adds no host sync)."""
+                    cache: Params, index, *, kv_seq_shard: bool = False):
+        """One decode step: tokens (B, T) written at ``index`` (a host int
+        or a 0-dim integer tensor on the device, ``decode_index``); the
+        step adds no host sync either way."""
         cfg = self.cfg
-        index = int(index)
+        index = decode_index(index)
         x = embed(params, tokens, cfg)
         positions = index + torch.arange(tokens.shape[1], dtype=torch.int32,
                                          device=tokens.device)

@@ -149,15 +149,23 @@ class WhisperLM(tfm.DenseLM):
 
     # ------------------------------------------------------------ decoder
     def _dec_embed(self, params: Params, tokens: torch.Tensor,
-                   offset: int) -> torch.Tensor:
+                   offset) -> torch.Tensor:
+        """Token embeddings plus the learned positions ``offset`` ..
+        ``offset + T - 1``; ``offset`` a host int (checked against
+        ``dec_pos``) or a 0-dim tensor on the device (rows gathered there,
+        unchecked: the caller keeps it in range)."""
         dt = cm.torch_dtype(self.cfg.dtype)
         T = tokens.shape[1]
         table = params["dec_pos"]
+        x = cm.take_embedding(params["embedding"], tokens).to(dt)
+        if isinstance(offset, torch.Tensor):
+            rows = table.index_select(
+                0, offset + torch.arange(T, device=offset.device))
+            return x + rows.to(dt)[None]
         if offset + T > table.shape[0]:
             raise ValueError(f"decoder positions {offset}..{offset + T - 1} "
                              f"past dec_pos ({table.shape[0]} rows, the "
                              f"max_seq the model was built with)")
-        x = cm.take_embedding(params["embedding"], tokens).to(dt)
         return x + table[offset:offset + T].to(dt)[None]
 
     def _logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -209,7 +217,7 @@ class WhisperLM(tfm.DenseLM):
         }
 
     def _dec_run(self, params: Params, tokens: torch.Tensor, cache: Params,
-                 index: Optional[int], kv_seq_shard: bool = False
+                 index, kv_seq_shard: bool = False
                  ) -> torch.Tensor:
         cfg = self.cfg
         x = self._dec_embed(params, tokens, 0 if index is None else index)
@@ -244,9 +252,9 @@ class WhisperLM(tfm.DenseLM):
         return self._logits(params, x[:, -1:, :])[:, 0, :], cache
 
     def decode_step(self, params: Params, tokens: torch.Tensor,
-                    cache: Params, index: int, *,
-                    kv_seq_shard: bool = False):
-        """One decode step: tokens (B, T) at position ``index`` (a host
-        int)."""
-        x = self._dec_run(params, tokens, cache, int(index), kv_seq_shard)
+                    cache: Params, index, *, kv_seq_shard: bool = False):
+        """One decode step: tokens (B, T) at position ``index`` (a host int
+        or a 0-dim integer tensor on the device, ``tfm.decode_index``)."""
+        x = self._dec_run(params, tokens, cache, tfm.decode_index(index),
+                          kv_seq_shard)
         return self._logits(params, x)[:, -1, :], cache

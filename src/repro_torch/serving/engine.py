@@ -6,9 +6,13 @@ which ignores the decode index; the encoder-decoder's ``enc_embeds`` and
 the vision LM's ``patch_embeds`` ride with the prompt into the prefill).
 ``generate`` runs greedy (``argmax``) or temperature sampling
 (``torch.multinomial`` over ``softmax(logits / T)`` with the engine's own
-``torch.Generator``).  The
-decode index is a host int, so the loop adds no host sync of its own; the
-only syncs are the timers' and the final copy of the tokens.
+``torch.Generator``).  As the reference jits its prefill and its decode
+step, the engine runs each as one program over static buffers: on the
+card one CUDA graph per prefill shape and one per batch size for the
+decode step, replayed; on the CPU the same programs run eagerly.  The
+decode position lives on the device and the decode graph advances it, so
+the decode loop makes no host sync; the only syncs are the timers' and
+the final copy of the tokens.
 
 ``CommitteeServer`` — committee serving with batch-level UQ: it scores every request batch through the SAME
 ``core/acquisition.UQEngine`` the exchange loop uses (one program per
@@ -19,15 +23,17 @@ cross-round budget controller (``core/budget.BudgetRule``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
-from typing import Any, Dict, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core import acquisition as acq
 from repro_torch.core import committee as cmte
+from repro_torch.kernels.graphs import CapturedProgram
 from repro_torch.launch.platform import DeviceLike, resolve_device
 from repro_torch.models import common as cm
 from repro_torch.models import model_zoo
@@ -137,13 +143,48 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+@dataclasses.dataclass
+class _Prefill:
+    """One prefill shape of a batch: its input buffers and its graph."""
+    inputs: Dict[str, torch.Tensor]
+    graph: Optional[CapturedProgram] = None
+
+
+@dataclasses.dataclass
+class _Slot:
+    """The engine's static buffers for one batch size B: the cache, the
+    next token (B, 1), the decode position (0-dim int32) and every token
+    sampled so far, by position (B, max_seq + 1); the prefill shapes seen
+    and the decode graph."""
+    cache: Dict[str, torch.Tensor]
+    cur: torch.Tensor
+    index: torch.Tensor
+    seq: torch.Tensor
+    prefills: Dict[Any, _Prefill] = dataclasses.field(default_factory=dict)
+    decode: Optional[CapturedProgram] = None
+
+
 class ServeEngine:
     """Prefill a prompt batch, then decode one token per step.
 
     ``params`` must already lie on ``device`` (default: the CUDA device;
     raises without it).  The engine keeps ``model.compute_params(params)``:
     the matmul weights cast once to the activation dtype (the bits of the
-    model's per-product casts) and the layer stack split into views."""
+    model's per-product casts) and the layer stack split into views.
+
+    For each batch size the engine owns a cache and the token and position
+    buffers; every ``generate`` starts its prefill by zeroing the cache
+    (what the reference's ``init_cache`` gives).  The prefill program
+    fills the cache and samples the first token; the decode program takes
+    the token at the device-resident position, samples the next one, and
+    advances the position.  On the card each program is captured once, on
+    the engine's own stream, after two warm-up runs (``kernels.graphs``):
+    a prefill graph per (B, input shapes), a decode graph per B, all in
+    one memory pool (they never run at once), before the timed work; a
+    capture that fails raises.  Greedy sampling runs inside the graphs;
+    temperature sampling runs between the replays with the engine's
+    generator, so its draws are those of the eager loop.  Counters:
+    ``captures`` (graphs captured) and ``replays``."""
 
     def __init__(self, model, params, max_seq: int, batch: int,
                  temperature: float = 0.0, seed: int = 0,
@@ -163,52 +204,159 @@ class ServeEngine:
         self._n_prefix = cfg.vision_tokens if cfg.family == "vlm" else 0
         self._prefill = model_zoo.make_prefill_fn(model)
         self._decode = model_zoo.make_decode_fn(model)
+        cuda = self.device.type == "cuda"
+        self._stream = torch.cuda.Stream(self.device) if cuda else None
+        self._pool = torch.cuda.graph_pool_handle() if cuda else None
+        self._slots: Dict[int, _Slot] = {}
+        self.captures = 0
+        self.replays = 0
+
+    def _greedy(self) -> bool:
+        return self.temperature <= 0.0
 
     def _sample(self, logits: torch.Tensor) -> torch.Tensor:
-        if self.temperature <= 0.0:
+        if self._greedy():
             return torch.argmax(logits, dim=-1).to(torch.int32)
         probs = torch.softmax(logits.to(torch.float32) / self.temperature,
                               dim=-1)
         return torch.multinomial(probs, 1, generator=self.generator)[
             :, 0].to(torch.int32)
 
+    # ------------------------------------------------------------ programs
+    def _slot(self, B: int) -> _Slot:
+        slot = self._slots.get(B)
+        if slot is None:
+            dev = self.device
+            slot = self._slots[B] = _Slot(
+                cache=self.model.init_cache(B, self.max_seq, device=dev),
+                cur=torch.zeros((B, 1), dtype=torch.int32, device=dev),
+                index=torch.zeros((), dtype=torch.int32, device=dev),
+                seq=torch.zeros((B, self.max_seq + 1), dtype=torch.int32,
+                                device=dev))
+        return slot
+
+    def _emit(self, slot: _Slot, logits: torch.Tensor) -> None:
+        """Sample the token at the current position: the next input and
+        its column of ``seq``."""
+        tok = self._sample(logits)[:, None]
+        slot.cur.copy_(tok)
+        slot.seq.index_copy_(1, slot.index.reshape(1).to(torch.int64), tok)
+
+    def _prefill_program(self, slot: _Slot, inputs, start: int):
+        for t in slot.cache.values():
+            t.zero_()
+        logits, _ = self._prefill(self.params, inputs, slot.cache)
+        slot.index.fill_(start)
+        if self._greedy():
+            self._emit(slot, logits)
+        return logits
+
+    def _decode_program(self, slot: _Slot):
+        logits, _ = self._decode(self.params, slot.cur, slot.cache,
+                                 slot.index)
+        slot.index.add_(1)
+        if self._greedy():
+            self._emit(slot, logits)
+        return logits
+
+    def _run(self, graph, program) -> torch.Tensor:
+        """One program: a replay of its graph on the card, else eagerly.
+        Returns its logits."""
+        if graph is not None:
+            logits = graph.replay()
+            self.replays += 1
+        else:
+            logits = program()
+        return logits
+
+    def _capture(self, fn, warmup=None) -> CapturedProgram:
+        graph = CapturedProgram(fn, self._stream, pool=self._pool,
+                                warmup=warmup)
+        self.captures += 1
+        return graph
+
+    def _ensure_graphs(self, slot: _Slot, entry: _Prefill, start: int,
+                       decode: bool) -> None:
+        """Capture the prefill graph of ``entry`` and (``decode``) the
+        decode graph of ``slot`` if not yet captured.  The decode warm-ups
+        run from a filled cache, each at the first decode position."""
+        if entry.graph is None:
+            entry.graph = self._capture(
+                lambda: self._prefill_program(slot, entry.inputs, start))
+        if decode and slot.decode is None:
+            entry.graph.replay()
+
+            def warmup():
+                slot.index.fill_(start)
+                self._decode_program(slot)
+
+            slot.decode = self._capture(
+                lambda: self._decode_program(slot), warmup=warmup)
+
     def generate(self, batch_inputs: Dict[str, Any],
                  max_new_tokens: int) -> GenerationResult:
         tokens = torch.as_tensor(np.asarray(batch_inputs["tokens"]),
-                                 dtype=torch.int32).to(self.device)
+                                 dtype=torch.int32)
         B, T = tokens.shape
         n_prefix = self._n_prefix
-        if n_prefix + T + max_new_tokens - 1 > self.max_seq:
+        start = n_prefix + T              # the first new token's position
+        # positions the run takes: the cache's rows and the tokens' columns
+        # (the device index is never range-checked, so check them here)
+        n_pos = start + max(max_new_tokens, 1) - 1
+        if n_pos > self.max_seq:
             raise ValueError(f"prompt {T} + {max_new_tokens} new tokens do "
                              f"not fit max_seq={self.max_seq}")
-        cache = self.model.init_cache(B, self.max_seq, device=self.device)
+        table = self.params.get("dec_pos")       # Whisper's learned ones
+        if table is not None and n_pos > table.shape[0]:
+            raise ValueError(f"decoder positions up to {n_pos - 1} past "
+                             f"dec_pos ({table.shape[0]} rows, the max_seq "
+                             f"the model was built with)")
         # the encoder's frames and the vision prefix go to the device in
-        # the activation dtype once, before the timed prefill
+        # the activation dtype, as the tokens do, before the timed prefill
         dt = cm.torch_dtype(self.model.cfg.dtype)
-        batch = dict(tokens=tokens, **{
-            k: torch.as_tensor(batch_inputs[k]).to(self.device, dt)
+        host = dict(tokens=tokens, **{
+            k: torch.as_tensor(batch_inputs[k]).to(dt)
             for k in _EXTRA_INPUTS if k in batch_inputs})
+        slot = self._slot(B)
+        key = tuple((k, tuple(v.shape)) for k, v in host.items())
+        entry = slot.prefills.get(key)
+        if entry is None:
+            entry = slot.prefills[key] = _Prefill({
+                k: torch.empty(v.shape, dtype=v.dtype, device=self.device)
+                for k, v in host.items()})
+        cuda = self._stream is not None
+        if cuda:
+            self._stream.wait_stream(torch.cuda.current_stream(self.device))
+        with (torch.cuda.stream(self._stream) if cuda
+              else contextlib.nullcontext()):
+            for k, v in host.items():
+                entry.inputs[k].copy_(v)
+            if cuda:
+                self._ensure_graphs(slot, entry, start, max_new_tokens > 1)
+            greedy = self._greedy()
 
-        _sync(self.device)
-        t0 = time.perf_counter()
-        logits, cache = self._prefill(self.params, batch, cache)
-        _sync(self.device)
-        t_prefill = time.perf_counter() - t0
+            _sync(self.device)
+            t0 = time.perf_counter()
+            logits = self._run(entry.graph, lambda: self._prefill_program(
+                slot, entry.inputs, start))
+            if not greedy:
+                self._emit(slot, logits)
+            _sync(self.device)
+            t_prefill = time.perf_counter() - t0
 
-        out = [tokens]
-        cur = self._sample(logits)[:, None]
-        t1 = time.perf_counter()
-        for i in range(max_new_tokens):
-            out.append(cur)
-            if i == max_new_tokens - 1:
-                break
-            index = n_prefix + T + i
-            logits, cache = self._decode(self.params, cur, cache, index)
-            cur = self._sample(logits)[:, None]
-        _sync(self.device)
-        t_decode = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            for _ in range(max_new_tokens - 1):
+                logits = self._run(slot.decode,
+                                   lambda: self._decode_program(slot))
+                if not greedy:
+                    self._emit(slot, logits)
+            _sync(self.device)
+            t_decode = time.perf_counter() - t1
+            new = slot.seq[:, start:start + max_new_tokens].cpu()
+        if cuda:
+            torch.cuda.current_stream(self.device).wait_stream(self._stream)
         return GenerationResult(
-            tokens=torch.cat(out, dim=1).cpu().numpy(),
+            tokens=torch.cat([tokens, new], dim=1).numpy(),
             prefill_seconds=t_prefill,
             decode_seconds=t_decode,
             steps=max_new_tokens,
