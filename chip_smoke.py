@@ -196,8 +196,14 @@ Phases (each raises on a failed check; the script exits non-zero):
    card (``launch/distributed.launch_local``) on 2x1 and 1x2 meshes: the
    engine, the trainer, the fleet (2x1) and ``attention(kv_seq_shard=
    True)`` (the ``flash_attention`` partials and combine entries) against
-   the unsharded paths, launch counts per rank; the CLI's ``DIST_OK 2 2
-   28.0``; dispatch and kernel timings;
+   the unsharded paths, launch counts per rank, then ``PAL`` through the
+   quickstart loop on each of the two meshes (the leader runs the loop,
+   the follower makes its mesh calls in its order: one stop token, per
+   rank ``committee_uq`` launches == dispatches + 2 x captures, 0 handoff
+   host bytes; labels/s, exchange it/s with the trainer busy and idle,
+   retrains, control-send ms a lane call and collective host bytes beside
+   (a)'s one-rank run); the CLI's ``DIST_OK 2 2 28.0``; dispatch and
+   kernel timings;
 19. the planners (``phase_planner``, last): (a) ``python -m
    repro_torch.launch.dryrun`` on llama3.2-1b ``decode_32k`` under the
    16 x 16 production mesh (a trace on fake CUDA tensors) and
@@ -1096,6 +1102,8 @@ def _run_until_stop(pal, what):
         raise AssertionError(f"{what}: no stop token within 120 s")
     t1 = time.perf_counter()
     pal.shutdown()
+    if pal.lane_error is not None:
+        raise AssertionError(f"{what}: {pal.lane_error}")
     rep = pal.report()
     c = rep["counters"]
     bad = {k: c.get(k, 0) for k in ("runtime.thread_crashes",
@@ -2013,9 +2021,63 @@ def _mesh_fleet(mesh):
     return worst, e.step_dispatches, dict(e.step_trace_counts)
 
 
-def _mesh_rank(shape):
+def _mesh_pal(shape, tmp):
+    """``PAL`` through the quickstart loop (cut as in (a):
+    ``MESH_PAL_STEPS`` proposals a generator) on the (data, model) mesh
+    ``shape``: the leader runs the loop, the follower makes its mesh calls
+    in its order (``core/dispatch.py``); ``tmp`` is their shared result
+    dir.  Gates on every rank: the generators' stop token, one capture per
+    bucket, ``committee_uq`` launches == dispatches + 2 x captures, 0
+    handoff host bytes, no crash.  Returns the numbers phase_mesh
+    prints."""
+    from repro_torch.core import dispatch
+
+    rank = int(torch.distributed.get_rank())
+    what = f"PAL on {shape} rank {rank}"
+    pal = _runtime_pal(tmp, uq_mesh=f"{shape[0]}x{shape[1]}",
+                       steps=MESH_PAL_STEPS)
+    clock = _LoopClock(pal) if pal.leader else None
+    before = cuq_kernel.launches
+    rep, c, bad, t0, t1 = _run_until_stop(pal, what)
+    launches = cuq_kernel.launches - before
+    eng, tok = dispatch.local(pal.engine), pal.stop_token
+    if tok is None or not tok.origin.startswith("generator") or \
+            any(bad.values()):
+        raise AssertionError(f"{what}: stop {tok}, {bad}")
+    if any(v != 1 for v in eng.trace_counts.values()) or \
+            launches != eng.dispatches + 2 * len(eng.trace_counts) or \
+            eng.refresh_host_bytes != 0 or eng.device_refreshes == 0:
+        raise AssertionError(
+            f"{what}: captures {eng.trace_counts}, {launches} launches for "
+            f"{eng.dispatches} dispatches, {eng.device_refreshes} handoffs "
+            f"with {eng.refresh_host_bytes} host bytes")
+    lanes = rep["lanes"]
+    out = {"rank": rank, "leader": pal.leader,
+           "token": (tok.origin, tok.reason), "launches": launches,
+           "dispatches": eng.dispatches, "captures": len(eng.trace_counts),
+           "handoffs": eng.device_refreshes,
+           "collective_host_bytes": eng.collective_host_bytes,
+           "wall_s": t1 - t0,
+           "calls": {k: v["calls"] for k, v in lanes.items()},
+           "send_ms": {k: v["send_s"] * 1e3 / max(v["calls"], 1)
+                       for k, v in lanes.items()},
+           "decides": lanes["trainer"]["decides"],
+           "decide_ms": lanes["trainer"]["decide_s"] * 1e3
+           / max(lanes["trainer"]["decides"], 1)}
+    if pal.leader:
+        busy, idle, *_ = clock.split(t0, t1)
+        out.update(labels=rep["labeled_total"],
+                   labels_per_s=rep["labeled_total"] / (t1 - t0),
+                   retrains=c.get("train.retrains", 0),
+                   it_busy=busy, it_idle=idle)
+    del pal
+    return out
+
+
+def _mesh_rank(shape, tmp):
     """One gloo rank of phase_mesh (b): every check on the (data, model)
-    mesh ``shape``, all ranks sharing this card.  Returns numbers only."""
+    mesh ``shape``, all ranks sharing this card, then ``PAL`` on it
+    (``_mesh_pal``, result dir ``tmp``).  Returns numbers only."""
     from repro_torch.launch.mesh import make_scaleout_mesh
 
     platform.set_reference_precision()
@@ -2032,6 +2094,7 @@ def _mesh_rank(shape):
         out["fleet"] = _mesh_fleet(mesh)
     out["attn_worst"], out["attn_launches"], out["kv_range"] = \
         _mesh_attention(mesh)
+    out["pal"] = _mesh_pal(shape, tmp)
     return out
 
 
@@ -2119,6 +2182,45 @@ def _mesh_flash_times(smi):
     return t
 
 
+def _same_pal_run(shape, pals):
+    """Both ranks of a 2-rank PAL run: one stop token, the same dispatches,
+    captures and handoffs."""
+    lead, follow = sorted(pals, key=lambda p: p["rank"])
+    if not lead["leader"] or follow["leader"]:
+        raise AssertionError(f"PAL on {shape}: rank 0 must lead")
+    for k in ("token", "dispatches", "captures", "handoffs", "launches"):
+        if lead[k] != follow[k]:
+            raise AssertionError(f"PAL on {shape}: {k} {lead[k]} on the "
+                                 f"leader, {follow[k]} on the follower")
+
+
+def _print_mesh_pal(host, b, smi):
+    """The 2-rank PAL runs beside ``PAL(uq_mesh='host')``'s in (a)."""
+    print(f"mesh PAL 1x1 (NCCL, one rank): {host['labels_per_s']:.4f} "
+          f"labels/s, exchange it/s busy {host['it_busy']:.4f} idle "
+          f"{host['it_idle']:.4f}, retrains {host['retrains']}, "
+          f"{host['launches']} committee_uq launches for "
+          f"{host['dispatches']} dispatches [{smi}]")
+    for shape, outs in b.items():
+        for o in sorted((o["pal"] for o in outs), key=lambda p: p["rank"]):
+            head = (f"mesh PAL {shape[0]}x{shape[1]} rank {o['rank']} "
+                    f"({'leader' if o['leader'] else 'follower'}): ")
+            if o["leader"]:
+                head += (f"{o['labels_per_s']:.4f} labels/s, exchange it/s "
+                         f"busy {o['it_busy']:.4f} idle {o['it_idle']:.4f}, "
+                         f"retrains {o['retrains']}, ")
+            print(head + f"{o['launches']} committee_uq launches = "
+                  f"{o['dispatches']} dispatches + 2 x {o['captures']} "
+                  f"captures, {o['handoffs']} handoffs at 0 host bytes, "
+                  f"control send ms a call engine "
+                  f"{o['send_ms']['engine']:.4f} ({o['calls']['engine']} "
+                  f"calls) trainer {o['send_ms']['trainer']:.4f} "
+                  f"({o['calls']['trainer']} calls), stop decision ms a "
+                  f"step {o['decide_ms']:.4f} ({o['decides']} steps), "
+                  f"collective_host_bytes {o['collective_host_bytes']}, "
+                  f"stop {o['token']} after {o['wall_s']:.3f} s [{smi}]")
+
+
 def _free_port():
     import socket
 
@@ -2171,10 +2273,13 @@ def phase_mesh(smi):
     bit for bit, 1x2 rtol 1e-5 atol 1e-6), the fleet on 2x1 at noise 0,
     ``attention(kv_seq_shard=True)`` at the llama decode shape in bf16
     and fp32 against the one-rank kernel and the plain version, and each
-    rank's launch counts; then the CLI's ``DIST_OK 2 2 28.0``.  Prints a
-    64-row dispatch's host ms on 1x1 and 2x1 beside the unsharded
-    engine's, and the partials/combine entries' device ms beside the
-    split path's."""
+    rank's launch counts; then on each mesh ``PAL`` through the quickstart
+    loop, cut as in (a) (``_mesh_pal``: both ranks one stop token and the
+    same dispatches, captures and handoffs); then the CLI's ``DIST_OK 2 2
+    28.0``.  Prints a 64-row dispatch's host ms on 1x1 and 2x1 beside the
+    unsharded engine's, the 2-rank loops' numbers beside the one-rank
+    loop's, and the partials/combine entries' device ms beside the split
+    path's."""
     import tempfile
 
     from repro_torch.launch import distributed
@@ -2201,9 +2306,11 @@ def phase_mesh(smi):
             if dict(pal.engine.mesh.shape) != {"data": 1, "model": 1} or \
                     pal.committee_trainer.mesh is not pal.engine.mesh:
                 raise AssertionError("PAL(uq_mesh='host'): no host mesh")
+            clock = _LoopClock(pal)
             before = cuq_kernel.launches
             rep, c, bad, t0, t1 = _run_until_stop(pal, "PAL on the mesh")
             launches = cuq_kernel.launches - before
+            it_busy, it_idle, *_ = clock.split(t0, t1)
             pe = pal.engine
             tok = pal.stop_token
             if tok is None or not tok.origin.startswith("generator") or \
@@ -2219,7 +2326,9 @@ def phase_mesh(smi):
             pal_stats = {"labels": rep["labeled_total"],
                          "retrains": c.get("train.retrains", 0),
                          "wall_s": t1 - t0, "launches": launches,
-                         "dispatches": pe.dispatches}
+                         "dispatches": pe.dispatches,
+                         "labels_per_s": rep["labeled_total"] / (t1 - t0),
+                         "it_busy": it_busy, "it_idle": it_idle}
             del pal
     finally:
         distributed.shutdown()
@@ -2232,8 +2341,10 @@ def phase_mesh(smi):
     # --- (b) two gloo ranks sharing the card ------------------------------
     b = {}
     for shape in ((2, 1), (1, 2)):
-        b[shape] = distributed.launch_local(2, _mesh_rank, shape,
-                                            device="cuda:0", timeout=600)
+        with tempfile.TemporaryDirectory() as tmp:
+            b[shape] = distributed.launch_local(2, _mesh_rank, shape, tmp,
+                                                device="cuda:0", timeout=600)
+        _same_pal_run(shape, [o["pal"] for o in b[shape]])
     cli = _dist_cli_smoke()
     for shape, outs in b.items():
         for o in outs:
@@ -2253,6 +2364,7 @@ def phase_mesh(smi):
                      f"{o['fleet'][1]} steps" if "fleet" in o else "")
                   + f" [{smi}]")
     print(f"distributed CLI: {cli}")
+    _print_mesh_pal(pal_stats, b, smi)
     times = _mesh_flash_times(smi)
     attn = [o for outs in b.values() for o in outs]
     return {"a": a_eng, "pal": pal_stats, "b": b, "times": times,

@@ -597,8 +597,10 @@ class FusedEngine(UQEngine):
     MESH PATH (``mesh=``, a ``launch/mesh.Mesh``; ``sharding_rules=``
     overrides the logical-axis rules).  Every rank of the mesh builds the
     same engine from the same global inputs and scores the same batches
-    (SPMD).  The stacked committee goes over the ``COMMITTEE`` rules'
-    axes (``('model',)``, with the divisibility fallback, warned once):
+    in the same order (SPMD); under ``PAL`` the leader's engine lane
+    (``core/dispatch.py``) sets that order for every thread that scores.
+    The stacked committee goes over the ``COMMITTEE`` rules' axes
+    (``('model',)``, with the divisibility fallback, warned once):
     each rank keeps its own members.  Each bucket's rows go over the
     ``BATCH`` rules' axes (``('pod', 'data')``, fallback per bucket).  The
     rank's members score the rank's rows; the members' predictions are

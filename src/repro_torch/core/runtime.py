@@ -48,11 +48,29 @@ captured CUDA graph replay) that advances, scores and selects every walker.
 ``mesh=`` / ``sharding_rules=`` (or ``PALRunConfig.uq_mesh``) put the
 engine on a ``launch/mesh.Mesh`` and hand the engine's mesh to the trainer,
 as the reference does.  A mesh of one process (``uq_mesh='host'``, or any
-mesh of a one-rank process group) runs the unsharded program.  A mesh that
-spans more than one process raises ``NotImplementedError``: the exchange,
-Manager and serving threads would start the mesh's collectives in a
-different order on each rank (ROADMAP §A: multi-process PAL); the
-reference never runs PAL across processes either.
+mesh of a one-rank process group) runs the unsharded program.
+
+A mesh of more than one process (``launch/distributed.initialize`` or
+``initialize_from_config`` first, on every rank) runs the reference's
+single-controller loop as one leader and its followers.  Every rank builds
+the same engine, trainer and fleet from the same global inputs; the
+leader (the mesh's first rank) runs the paper's loop as above.  Each call
+that touches the mesh (scoring, the fleet's steps, the trainer's rounds
+and blocks, the handoff, snapshots) goes through one of two ordered lanes
+(``core/dispatch.py``): the engine lane (engine and fleet) and the trainer
+lane (trainer), so scoring and training still overlap.  A follower runs no
+host kernel: its lanes make the leader's calls, in the leader's order, on
+its own objects.  The trainer's stop-early decision is the leader's, sent
+after every step; the handoff is a snapshot taken on the trainer lane and
+taken up by id on the engine lane, so every rank's engine gets the same
+step's weights.  ``run()`` on a follower returns the leader's stop token;
+every rank must end with ``run()`` or ``shutdown()``.  A call that fails
+on any rank ends the run on every rank within ``dispatch.TIMEOUT_S``, and
+``run()`` raises that rank's traceback.  The leader writes checkpoints;
+every rank restores from the same file.  Chaos runs on the leader; a fault
+that changes device state reaches the followers as a lane call.  The
+legacy engine ignores the mesh (as in the reference): its followers only
+wait for the stop.
 """
 from __future__ import annotations
 
@@ -63,11 +81,12 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.pal_potential import PALRunConfig
 from repro_torch.core import acquisition as acq
 from repro_torch.core import committee as cmte
-from repro_torch.core import transport
+from repro_torch.core import dispatch, transport
 from repro_torch.core.al_checkpoint import ALCheckpointer
 from repro_torch.core.buffers import OracleInputBuffer, TrainingDataBuffer
 from repro_torch.core.chaos import ChaosCrash, ChaosInjector, FaultPlan
@@ -90,6 +109,13 @@ class PAL:
 
     Parameters mirror the paper's AL_SETTING (SI S3): user supplies
     generator / model / oracle factories plus optional utils functions.
+
+    On a mesh of several processes every rank builds the same ``PAL``;
+    ``leader`` is True on the mesh's first rank, which runs the loop, and
+    its ``engine``, ``fleet`` and ``committee_trainer`` are lane proxies
+    (``core/dispatch.py``).  A follower's ``run()`` makes the leader's
+    mesh calls until the leader stops; ``lane_error`` holds a broken
+    lane's error, which ``run()`` raises (module docstring).
     """
 
     def __init__(
@@ -113,22 +139,37 @@ class PAL:
     ):
         if mesh is None:
             mesh = acq.resolve_mesh(run_cfg)
-        if mesh is not None and mesh.size > 1:
-            raise NotImplementedError(
-                f"PAL on a mesh of {mesh.size} processes ({mesh.shape}): the "
-                "exchange, Manager and serving threads would start the "
-                "mesh's collectives in a different order on each rank "
-                "(ROADMAP §A: multi-process PAL)")
         self.device = resolve_device(device)
         self.cfg = run_cfg
         self.monitor = Monitor()
+        self.stop_event = threading.Event()
+        self.stop_token: Optional[StopToken] = None
         rd = run_cfg.result_dir
+        # a mesh of several processes: one leader, followers, two lanes
+        self._engine_lane = self._trainer_lane = None
+        self.lane_error: Optional[BaseException] = None
+        if mesh is not None and mesh.size > 1:
+            if not (dist.is_available() and dist.is_initialized()):
+                raise RuntimeError(
+                    f"PAL on a mesh of {mesh.size} ranks ({mesh.shape}) "
+                    "needs a process group: call launch/distributed."
+                    "initialize (or initialize_from_config) on every rank "
+                    "first")
+            mesh.coordinate()                  # raises off the mesh
+            self._engine_lane, self._trainer_lane = (
+                dispatch.Lane(name, mesh, self.device,
+                              on_stop=self._signal_stop,
+                              on_error=self._lane_failed)
+                for name in ("engine", "trainer"))
+            mesh = self._engine_lane.mesh
+        self.leader = self._engine_lane is None or self._engine_lane.leader
         # deterministic fault injection (core/chaos.py): a FaultPlan makes
         # this run execute a scheduled fault sequence — tests drive
-        # recovery behavior through it
+        # recovery behavior through it (on the leader: followers run no
+        # loop)
         if chaos is not None and not isinstance(chaos, ChaosInjector):
             chaos = ChaosInjector(chaos, monitor=self.monitor)
-        self.chaos: Optional[ChaosInjector] = chaos
+        self.chaos: Optional[ChaosInjector] = chaos if self.leader else None
 
         # fused committee training: one CommitteeTrainer loop instead of
         # ml_process per-member trainer threads (loss_fn needs the stacked
@@ -147,7 +188,9 @@ class PAL:
         # engine) — host generator instances are only touched to derive
         # the fleet's trusted initial states when no fleet_init= is given
         use_fleet = getattr(run_cfg, "fleet_walkers", 0) > 0
-        self.generators = [] if use_fleet else \
+        # followers build no host kernel: generators, per-member models
+        # and oracles run on the leader
+        self.generators = [] if use_fleet or not self.leader else \
             [make_generator(i, rd) for i in range(run_cfg.gene_process)]
         # per-member prediction models exist only for the legacy backend
         # without a predict_all_override; fused engines score the stacked
@@ -162,8 +205,8 @@ class PAL:
                 "(fused committee trainer)")
         self.predictors = [make_model(i, rd, i, "predict")
                            for i in range(run_cfg.pred_process)] \
-            if need_models else []
-        self.trainers = [] if fused_training else \
+            if need_models and self.leader else []
+        self.trainers = [] if fused_training or not self.leader else \
             [make_model(i, rd, i, "train")
              for i in range(run_cfg.ml_process)]
         self._make_oracle = make_oracle
@@ -196,10 +239,15 @@ class PAL:
             force_legacy=predict_all_override is not None,
             mesh=mesh, sharding_rules=sharding_rules, device=self.device)
         self.prediction_pool.engine = self.engine
+        # every rank runs the engine's, fleet's and trainer's mesh calls (a
+        # legacy engine ignores the mesh: then only the leader works)
+        spmd = (self._engine_lane is not None
+                and getattr(self.engine, "mesh", None) is not None)
 
         # --- fused committee trainer (training/committee_trainer.py) -------
         # trains the SAME stacked layout the engine scores, on PAL's device:
-        # the trainer reuses the engine's resolved mesh
+        # the trainer reuses the engine's resolved mesh (on several ranks
+        # its twin on the trainer lane: collective groups of its own)
         self.committee_trainer = None
         if fused_training:
             from repro_torch.optim.memory_policy import MemoryPolicy
@@ -219,7 +267,8 @@ class PAL:
                 lr=run_cfg.train_lr,
                 bootstrap=run_cfg.train_bootstrap,
                 replay_capacity=run_cfg.train_replay_capacity,
-                mesh=getattr(self.engine, "mesh", None),
+                mesh=(self._trainer_lane.mesh if spmd
+                      else getattr(self.engine, "mesh", None)),
                 sharding_rules=sharding_rules,
                 seed=run_cfg.seed,
                 monitor=self.monitor,
@@ -240,13 +289,16 @@ class PAL:
                     "pass committee=CommitteeSpec(apply_fn, cparams) (the "
                     "legacy per-member backend cannot fuse the walker "
                     "advance with scoring)")
+            x0 = None
             if fleet_init is not None:
                 x0 = np.asarray(fleet_init, np.float32)
-            else:
+            elif self.leader:
                 x0 = np.stack([
                     np.asarray(make_generator(i, rd).generate_new_data(
                         None)[1], np.float32).reshape(-1)
                     for i in range(run_cfg.fleet_walkers)])
+            if spmd:                # the leader's states, never drawn per rank
+                x0 = self._engine_lane.share(x0)
             self.fleet = WalkerFleet(
                 self.engine, x0,
                 FleetConfig(
@@ -260,7 +312,7 @@ class PAL:
                     max_steps=run_cfg.fleet_max_steps,
                     seed=run_cfg.seed,
                 ),
-                monitor=self.monitor, chaos=self.chaos)
+                monitor=self.monitor, chaos=None if spmd else self.chaos)
         self.exchange = Exchange(
             self.generators, self.prediction_pool, self.oracle_buffer,
             ExchangeConfig(
@@ -303,10 +355,11 @@ class PAL:
         # --- serving: batch-level UQ for served ensembles --------------------
         # the SAME engine serves online requests: served batches get a
         # UQResult and high-uncertainty requests feed the oracle buffer
-        # through the same budget controller as the exchange loop
+        # through the same budget controller as the exchange loop (on the
+        # leader: its microbatches reach the followers as engine-lane calls)
         self.server = None
         self.serve_queue = None
-        if getattr(run_cfg, "serve_uq", False):
+        if getattr(run_cfg, "serve_uq", False) and self.leader:
             from repro_torch.serving.engine import CommitteeServer
 
             self.server = CommitteeServer(
@@ -359,8 +412,6 @@ class PAL:
                     cache=cache)
 
         # --- runtime machinery ----------------------------------------------
-        self.stop_event = threading.Event()
-        self.stop_token: Optional[StopToken] = None
         self._threads: List[threading.Thread] = []
         # supervised execution (core/supervisor.py): kernel loops restart
         # with backoff on crash; escalation to StopToken only after a loop
@@ -399,8 +450,58 @@ class PAL:
                                for _ in range(n_train_lanes)]
         self.checkpointer = ALCheckpointer(rd, run_cfg.checkpoint_every)
         self.oracle_pool = ElasticPool("oracle", self._oracle_worker)
+        self._handoff: Optional[_Handoff] = None
+        self._last_fleet_stats: Optional[Dict[str, Any]] = None
         if resume:
-            self._restore()
+            self._restore()                    # every rank, the same file
+        if self._engine_lane is not None:
+            self._on_lanes(spmd)
+
+    # ----------------------------------------------------------------- lanes
+    def _on_lanes(self, spmd: bool):
+        """Put the mesh objects on the lanes and start them.  On the
+        leader the controllers' engine, fleet and trainer become the lanes'
+        proxies; a legacy engine's run is the leader's alone."""
+        el, tl = self._engine_lane, self._trainer_lane
+        if spmd:
+            el.register("engine", self.engine)
+            if self.fleet is not None:
+                el.register("fleet", self.fleet)
+                el.register("pal", self)        # _keep_fleet_stats
+            if self.committee_trainer is not None:
+                self._handoff = _Handoff(self.committee_trainer, self.engine)
+                tl.register("trainer", self.committee_trainer)
+                tl.register("round", _Round(self.committee_trainer, tl))
+                tl.register("handoff", self._handoff)
+                el.register("handoff", self._handoff)
+            if self.leader:
+                self.engine = _EngineOnLane(el, self.engine)
+                self.prediction_pool.engine = self.engine
+                if self.server is not None:
+                    self.server.engine = self.engine
+                if self.fleet is not None:
+                    self.fleet = _FleetOnLane(el, self.fleet, self.chaos)
+                    self.exchange.fleet = self.fleet
+                if self.committee_trainer is not None:
+                    self.committee_trainer = _TrainerOnLane(
+                        tl, self.committee_trainer)
+        for lane in (el, tl):
+            lane.start()
+
+    def _lane_failed(self, err: BaseException):
+        """A lane broke on this rank: the run ends, and ``run()`` raises
+        ``err`` (the failing rank's traceback)."""
+        if self.lane_error is None:
+            self.lane_error = err
+        log.error("%s", err)
+        self._signal_stop(StopToken("lane", str(err).splitlines()[0]))
+
+    def _keep_fleet_stats(self) -> Dict[str, Any]:
+        """``fleet.stats()`` (a collective on a mesh), kept on every rank:
+        an engine-lane call, so that ``report()`` on a follower or after
+        the lanes closed reads the last one."""
+        self._last_fleet_stats = dispatch.local(self.fleet).stats()
+        return self._last_fleet_stats
 
     # ------------------------------------------------------------------ stop
     def _signal_stop(self, token: StopToken):
@@ -603,9 +704,16 @@ class PAL:
         """Trainer -> engine weight handoff.  The fused engine takes the
         stacked tree device-to-device into its own buffers (zero packed
         host bytes); the legacy per-member backend still pulls packed 1-D
-        arrays through the WeightStore (its models own their params)."""
+        arrays through the WeightStore (its models own their params).  On
+        a mesh the trainer lane takes the snapshot after the round and the
+        engine lane takes it up by id, on every rank."""
         trainer = self.committee_trainer
-        if hasattr(self.engine, "refresh_from_device"):
+        if self._handoff is not None:
+            sid = self._handoff.next_id()
+            self._trainer_lane.call("handoff", "take", sid)
+            self._engine_lane.call("handoff", "give", sid)
+            self.monitor.incr("prediction.weight_refreshes")
+        elif hasattr(self.engine, "refresh_from_device"):
             self.engine.refresh_from_device(trainer.snapshot_cparams())
             self.monitor.incr("prediction.weight_refreshes")
         else:
@@ -645,6 +753,8 @@ class PAL:
 
     # ------------------------------------------------------------------ run
     def start(self):
+        if not self.leader:                # its lanes make the leader's calls
+            return
         if self.chaos is not None:
             transport.install_chaos(self.chaos)
         self.oracle_pool.add(self.cfg.orcl_process)
@@ -662,16 +772,49 @@ class PAL:
             "manager", "manager", self._manager_loop, self.stop_event))
 
     def run(self, timeout: Optional[float] = None) -> Optional[StopToken]:
-        """Start and block until a kernel signals stop (or timeout)."""
-        self.start()
-        self.stop_event.wait(timeout)
-        if not self.stop_event.is_set():
-            self._signal_stop(StopToken("runtime", "timeout"))
-        self.shutdown()
+        """Start and block until a kernel signals stop (or timeout).  On a
+        follower of a mesh: until the leader's stop token arrives (the
+        timeout is the leader's).  Raises the error of a broken lane."""
+        try:
+            self.start()
+            self.stop_event.wait(timeout if self.leader else None)
+            if not self.stop_event.is_set():
+                self._signal_stop(StopToken("runtime", "timeout"))
+        finally:
+            self.shutdown()
+        if self.lane_error is not None:
+            raise self.lane_error
         return self.stop_token
 
     def shutdown(self):
         self.stop_event.set()
+        try:
+            self._stop_threads()
+        finally:
+            self._close_lanes()
+        # the loops' CUDA work (graph replays on the engine's and the
+        # trainer's streams) finishes before anyone frees the graphs
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _close_lanes(self):
+        """Leader: a last fleet snapshot for ``report()``, then the stop
+        token as each lane's last message.  Every rank then joins its
+        lanes (a follower's end at the leader's token)."""
+        el, tl = self._engine_lane, self._trainer_lane
+        if el is None:
+            return
+        if self.leader and el.open and isinstance(self.fleet,
+                                                  dispatch.Proxy):
+            try:
+                el.call("pal", "_keep_fleet_stats")
+            except dispatch.LaneError:
+                pass                        # the lane's error is the run's
+        token = self.stop_token or StopToken("runtime", "shutdown")
+        for lane in (el, tl):
+            lane.close(token)
+
+    def _stop_threads(self):
         if self.serve_queue is not None:
             # flush pending served requests — bounded like every other
             # join here, so a wedged dispatch can't hang shutdown
@@ -700,13 +843,12 @@ class PAL:
                 obj.stop_run()
             except Exception as e:  # noqa: BLE001
                 log.warning("stop_run failed for %r: %r", obj, e)
-        # the loops' CUDA work (graph replays on the engine's and the
-        # trainer's streams) finishes before anyone frees the graphs
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
 
     # ----------------------------------------------------------- checkpoint
     def checkpoint(self) -> str:
+        if not self.leader:
+            raise RuntimeError("on a mesh the leader (its first rank) "
+                               "writes the checkpoints")
         # in-flight oracle tasks (dispatched, not yet labeled) are requeued
         # into the snapshot: a restore re-dispatches them instead of
         # silently losing selected inputs whose labels never arrived
@@ -764,6 +906,16 @@ class PAL:
         self.monitor.incr("runtime.restores")
 
     # ------------------------------------------------------------- reports
+    def _fleet_stats(self) -> Optional[Dict[str, Any]]:
+        """On a mesh a collective: an engine-lane call while the leader's
+        lanes are open, else the last snapshot taken (a follower's, or
+        after ``shutdown``)."""
+        if self._engine_lane is None:
+            return self.fleet.stats()
+        if self.leader and self._engine_lane.open:
+            return self._engine_lane.call("pal", "_keep_fleet_stats")
+        return self._last_fleet_stats
+
     def report(self) -> Dict[str, Any]:
         r = self.monitor.report()
         r["oracle_pool_size"] = self.oracle_pool.size()
@@ -780,7 +932,12 @@ class PAL:
             r["train_replay_rows"] = len(self.committee_trainer.replay)
         if self.fleet is not None:
             # fleet health: one device->host snapshot, off the hot path
-            r["fleet"] = self.fleet.stats()
+            r["fleet"] = self._fleet_stats()
+        for lane in (self._engine_lane, self._trainer_lane):
+            if lane is not None:
+                r.setdefault("lanes", {})[lane.name] = {
+                    "calls": lane.calls, "send_s": lane.send_s,
+                    "decides": lane.decides, "decide_s": lane.decide_s}
         # realized oracle rate: queued / scored over the whole run, the
         # quantity the budget controller steers toward oracle_budget.
         # Serving traffic counts too — with serve_uq the server shares the
@@ -849,3 +1006,133 @@ def _trainer_snapshot(state: Dict[str, Any]) -> Dict[str, Any]:
     if isinstance(state.get("cstate"), TrainState):
         return state
     return state_dict_from_reference(state)
+
+
+# ---------------------------------------------------------------------------
+# PAL's objects on the lanes of a mesh of several processes
+# ---------------------------------------------------------------------------
+
+_ENGINE_CALLS = ("score", "state_dict", "load_state_dict")
+_FLEET_CALLS = ("stats", "state_dict", "load_state_dict", "poison_walker",
+                "positions")
+_TRAINER_CALLS = ("add_blocks", "poison_member", "state_dict",
+                  "load_state_dict")
+
+
+class _StoreCopy:
+    """The leader's ``WeightStore`` as of now (its version and every
+    member's packed weights), sent with a ``refresh_from`` call."""
+
+    def __init__(self, store: WeightStore):
+        self.n_members = store.n_members
+        self._version = store.version()
+        self.packs = [store.pull_packed(i) for i in range(store.n_members)]
+
+    def version(self) -> int:
+        return self._version
+
+    def pull_packed(self, member: int):
+        return self.packs[member]
+
+
+class _EngineOnLane(dispatch.Proxy):
+    """The leader's engine: scoring and its state on the engine lane."""
+
+    def __init__(self, lane: dispatch.Lane, engine):
+        super().__init__(lane, "engine", engine, _ENGINE_CALLS)
+
+    def refresh_from(self, store: WeightStore) -> int:
+        """Per-member trainers publish on the leader: their weights travel
+        with the call, which is made only when the engine would take them
+        (every member published, a newer version)."""
+        snap = _StoreCopy(store)
+        if snap.version() <= self.target.version or any(
+                p is None for p in snap.packs):
+            return 0
+        return self._lane.call("engine", "refresh_from", snap)
+
+
+class _FleetOnLane(dispatch.Proxy):
+    """The leader's fleet: its steps and snapshots on the engine lane; the
+    chaos site ``fleet.step`` fires here, and a poisoned walker reaches
+    the rank that holds it as a lane call."""
+
+    def __init__(self, lane: dispatch.Lane, fleet, chaos):
+        super().__init__(lane, "fleet", fleet, _FLEET_CALLS)
+        self._chaos = chaos
+
+    def step(self):
+        ev = self._chaos.take("fleet.step") if self._chaos else None
+        if ev is not None:
+            if ev.kind == "nan_walker":
+                self._lane.call("fleet", "poison_walker", int(ev.arg))
+            else:
+                self._chaos.execute(ev)
+        return self._lane.call("fleet", "step")
+
+
+class _TrainerOnLane(dispatch.Proxy):
+    """The leader's trainer: blocks, rounds, chaos and snapshots on the
+    trainer lane; a round's ``interrupt`` stays on the leader."""
+
+    def __init__(self, lane: dispatch.Lane, trainer):
+        super().__init__(lane, "trainer", trainer, _TRAINER_CALLS)
+
+    def train(self, interrupt=None, steps: Optional[int] = None):
+        return self._lane.call("round", "train", steps=steps,
+                               _local={"interrupt": interrupt})
+
+
+class _Round:
+    """A trainer round on every rank: after each step every rank stops or
+    goes on as the leader's interrupt says (one decision a step on the
+    trainer lane), so every rank ends the round at the same step."""
+
+    def __init__(self, trainer, lane: dispatch.Lane):
+        self.trainer, self.lane = trainer, lane
+
+    def train(self, steps: Optional[int] = None, interrupt=None):
+        return self.trainer.train(
+            interrupt=_LeaderDecides(self.lane, interrupt), steps=steps)
+
+
+class _LeaderDecides:
+    def __init__(self, lane: dispatch.Lane, interrupt):
+        self.lane, self.interrupt = lane, interrupt
+
+    def test(self) -> bool:
+        return self.lane.decide(self.interrupt is not None
+                                and self.interrupt.test())
+
+
+class _Handoff:
+    """The trainer -> engine handoff on a mesh.  ``take`` (trainer lane,
+    after the round) snapshots the rank's members on the device; ``give``
+    (engine lane) refreshes the engine from the snapshot of that id,
+    waiting for this rank's trainer lane to have taken it.  So every rank's
+    engine takes the weights of the same trainer step, device to device."""
+
+    def __init__(self, trainer, engine):
+        self.trainer, self.engine = trainer, engine
+        self._snaps: Dict[int, Any] = {}
+        self._cv = threading.Condition()
+        self._ids = 0
+
+    def next_id(self) -> int:
+        self._ids += 1
+        return self._ids
+
+    def take(self, sid: int) -> None:
+        snap = self.trainer.snapshot_cparams()
+        with self._cv:
+            self._snaps[sid] = snap
+            self._cv.notify_all()
+
+    def give(self, sid: int) -> int:
+        with self._cv:
+            if not self._cv.wait_for(lambda: sid in self._snaps,
+                                     dispatch.TIMEOUT_S):
+                raise TimeoutError(f"handoff {sid}: the trainer lane took "
+                                   f"no snapshot in {dispatch.TIMEOUT_S} s")
+            snap = self._snaps.pop(sid)
+        return self.engine.refresh_from_device(snap)

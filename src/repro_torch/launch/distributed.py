@@ -116,6 +116,15 @@ def initialize(coordinator: str, num_processes: int, process_id: int,
           device)
 
 
+def control_group(ranks, timeout: datetime.timedelta):
+    """A gloo group over ``ranks`` for small host messages (CPU tensors),
+    whatever the backend of the data's collectives, whose operations wait
+    at most ``timeout``.  Every rank of the process group must make the
+    same control groups in the same order (``new_group`` is collective)."""
+    return dist.new_group([int(r) for r in ranks], timeout=timeout,
+                          backend="gloo")
+
+
 def shutdown() -> None:
     """Leave the process group (a no-op when not initialized)."""
     global _initialized, _device

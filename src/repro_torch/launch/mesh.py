@@ -15,13 +15,17 @@ each, ``launch/distributed.py``) under the reference's axis names —
     axis of size 1 needs none, so a 1x1 mesh runs exactly the unsharded
     program.  Under gloo a CUDA tensor is staged through pinned host memory
     (gloo's collectives are host-side); the staged bytes are returned, so
-    callers count them.
+    callers count them;
+  * ``twin``: the same grid over process groups of its own, for a second
+    thread's collectives (gloo is not safe with two threads issuing
+    collectives on one group).
 
 Functions, not module constants: importing this module creates no
 process-group state.
 """
 from __future__ import annotations
 
+import datetime
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -51,7 +55,8 @@ class Mesh:
     they resolve layouts and run nothing."""
 
     def __init__(self, ranks, axis_names: Sequence[str], *,
-                 device_mesh=None, abstract: bool = False):
+                 device_mesh=None, abstract: bool = False,
+                 groups: Optional[Dict[str, object]] = None):
         self.ranks = np.asarray(ranks, dtype=np.int64)
         self.axis_names = tuple(axis_names)
         if self.ranks.ndim != len(self.axis_names):
@@ -62,6 +67,7 @@ class Mesh:
                                               self.ranks.shape))
         self.device_mesh = device_mesh
         self.abstract = abstract
+        self._groups = dict(groups or {})   # axis -> this rank's group
 
     @property
     def size(self) -> int:
@@ -97,7 +103,26 @@ class Mesh:
         return idx
 
     # ---------------------------------------------------------- collectives
+    def twin(self, timeout: Optional[datetime.timedelta] = None) -> "Mesh":
+        """This grid over process groups of its own, made with ``timeout``
+        (each collective waits at most that long): one group per line of
+        every axis of size > 1.  Every rank of the process group must call
+        it in the same order (``new_group`` is collective)."""
+        rank, _ = _world()
+        groups = {}
+        for d, axis in enumerate(self.axis_names):
+            n = self.shape[axis]
+            if n < 2:
+                continue
+            for line in np.moveaxis(self.ranks, d, -1).reshape(-1, n):
+                g = dist.new_group([int(r) for r in line], timeout=timeout)
+                if rank in line:
+                    groups[axis] = g
+        return Mesh(self.ranks, self.axis_names, groups=groups)
+
     def _group(self, axis: str):
+        if axis in self._groups:
+            return self._groups[axis]
         if self.device_mesh is None:
             raise RuntimeError(f"mesh axis {axis!r} of size "
                                f"{self.shape[axis]} needs a process group "

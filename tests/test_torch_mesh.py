@@ -487,8 +487,9 @@ def test_host_mesh_int8_bit_identical_to_unsharded(w):
 
 
 def test_pal_on_the_host_mesh_runs_unsharded(tmp_path):
-    """PAL(uq_mesh='host') builds its engine and trainer on the 1x1 mesh;
-    a mesh of more than one process is refused."""
+    """PAL(uq_mesh='host') builds its engine and trainer on the 1x1 mesh,
+    the unsharded program with no lanes (PAL on meshes of two processes:
+    ``tests/test_torch_mesh_pal.py``)."""
     from repro_torch.core import PAL
 
     cfg = PALRunConfig(result_dir=str(tmp_path), uq_mesh="host",
@@ -505,3 +506,4 @@ def test_pal_on_the_host_mesh_runs_unsharded(tmp_path):
               loss_fn=loss_fn, device="cpu")
     assert dict(pal.engine.mesh.shape) == {"data": 1, "model": 1}
     assert pal.committee_trainer.mesh is pal.engine.mesh
+    assert pal.leader and pal._engine_lane is None

@@ -27,7 +27,8 @@ Added here: a reference ``PAL``'s checkpoint resumed by the port's ``PAL``
 legacy-engine publish path of the fused trainer; ``PAL()`` without
 ``device=`` raising without CUDA; ``fleet_walkers > 0`` needing the fused
 engine and replacing the host generators; a mesh of more than one process
-raising (multi-process PAL); the quickstart twin.
+without a process group raising at construction (the mesh itself:
+``tests/test_torch_mesh_pal.py``); the quickstart twin.
 """
 import functools
 import pickle
@@ -306,10 +307,11 @@ def test_fleet_and_mesh_raise_naming_their_items():
     assert pal.exchange.fleet is pal.fleet
     assert pal.exchange.step() is None
     assert pal.report()["fleet"]["steps"] == 1
-    # a mesh of more than one process is refused (its own ROADMAP item)
+    # a mesh of more than one process needs a process group: without one
+    # it raises at construction, naming the call that makes one
     from repro_torch.launch.mesh import Mesh
 
-    with pytest.raises(NotImplementedError, match="multi-process PAL"):
+    with pytest.raises(RuntimeError, match="launch/distributed.initialize"):
         PAL(PALRunConfig(result_dir=tempfile.mkdtemp()),
             make_generator=test_pal_runtime.ToyGene,
             make_model=test_pal_runtime.ToyModel,
