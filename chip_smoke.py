@@ -2061,6 +2061,11 @@ def _mesh_pal(shape, tmp):
            "calls": {k: v["calls"] for k, v in lanes.items()},
            "send_ms": {k: v["send_s"] * 1e3 / max(v["calls"], 1)
                        for k, v in lanes.items()},
+           "first_send_ms": {k: v["first_send_s"] * 1e3
+                             for k, v in lanes.items()},
+           "later_send_ms": {k: (v["send_s"] - v["first_send_s"]) * 1e3
+                             / max(v["calls"] - 1, 1)
+                             for k, v in lanes.items()},
            "decides": lanes["trainer"]["decides"],
            "decide_ms": lanes["trainer"]["decide_s"] * 1e3
            / max(lanes["trainer"]["decides"], 1)}
@@ -2214,8 +2219,12 @@ def _print_mesh_pal(host, b, smi):
                   f"captures, {o['handoffs']} handoffs at 0 host bytes, "
                   f"control send ms a call engine "
                   f"{o['send_ms']['engine']:.4f} ({o['calls']['engine']} "
-                  f"calls) trainer {o['send_ms']['trainer']:.4f} "
-                  f"({o['calls']['trainer']} calls), stop decision ms a "
+                  f"calls; first {o['first_send_ms']['engine']:.4f}, the "
+                  f"rest {o['later_send_ms']['engine']:.4f}) trainer "
+                  f"{o['send_ms']['trainer']:.4f} ({o['calls']['trainer']} "
+                  f"calls; first {o['first_send_ms']['trainer']:.4f}, the "
+                  f"rest {o['later_send_ms']['trainer']:.4f}), stop "
+                  f"decision ms a "
                   f"step {o['decide_ms']:.4f} ({o['decides']} steps), "
                   f"collective_host_bytes {o['collective_host_bytes']}, "
                   f"stop {o['token']} after {o['wall_s']:.3f} s [{smi}]")

@@ -18,6 +18,13 @@ so each call they make on a mesh object goes through a ``Lane``:
   * inside a call, ``decide`` sends the leader's yes/no to every rank (the
     trainer's stop-early decision after each step).
 
+A lane makes calls from ``start``.  ``PAL`` starts the leader's lanes at
+construction and a follower's in ``PAL.start()`` (``run()``), so no call
+reaches a follower's objects before its owner is done with them; until
+then the leader's first send waits for the follower's receive.  A
+follower that has not started within ``TIMEOUT_S`` of that send breaks
+the leader's lane with a ``LaneError`` that names it.
+
 Each lane has its own control group and its own ``Mesh.twin`` for its
 objects' collectives, so two lanes run side by side without sharing a
 group.  Every wait on another rank is bounded by ``TIMEOUT_S``: the
@@ -92,10 +99,12 @@ class Lane:
         self._error: Optional[LaneError] = None
         self._closed = False
         self._thread: Optional[threading.Thread] = None
-        # the leader's control cost: host seconds sending each call, and
-        # the per-step decisions' broadcasts (both counted on every rank)
+        # the leader's control cost: host seconds sending each call (the
+        # first apart too: it waits for a follower's start), and the
+        # per-step decisions' broadcasts (both counted on every rank)
         self.calls = 0
         self.send_s = 0.0
+        self.first_send_s = 0.0
         self.decides = 0
         self.decide_s = 0.0
 
@@ -159,6 +168,9 @@ class Lane:
                 and self._error is None)
 
     def start(self) -> None:
+        """Start the lane's thread (once: later calls do nothing)."""
+        if self._thread is not None:
+            return
         self._thread = threading.Thread(
             target=self._lead if self.leader else self._follow,
             name=f"lane-{self.name}", daemon=True)
@@ -213,7 +225,10 @@ class Lane:
                     return
                 t0 = time.perf_counter()
                 self._send(("call", c.name, c.method, c.args, c.kwargs))
-                self.send_s += time.perf_counter() - t0
+                dt = time.perf_counter() - t0
+                if self.calls == 0:
+                    self.first_send_s = dt
+                self.send_s += dt
                 self.calls += 1
                 c.future.set_result(self._run(c))
         except BaseException as e:  # noqa: BLE001 — reported, lane broken
@@ -256,7 +271,8 @@ class Lane:
         """Leader: send ``token`` as the lane's last message (after the
         calls queued before it) and join the thread.  Follower: join the
         thread (it ends at the leader's stop or a failure).  Both wait at
-        most ``TIMEOUT_S``; a broken or closed lane sends nothing."""
+        most ``TIMEOUT_S``; a broken or closed lane sends nothing, and a
+        lane never started returns at once."""
         if self._thread is None:
             return
         if self.leader and self._error is None:

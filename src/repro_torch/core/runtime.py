@@ -63,14 +63,17 @@ host kernel: its lanes make the leader's calls, in the leader's order, on
 its own objects.  The trainer's stop-early decision is the leader's, sent
 after every step; the handoff is a snapshot taken on the trainer lane and
 taken up by id on the engine lane, so every rank's engine gets the same
-step's weights.  ``run()`` on a follower returns the leader's stop token;
-every rank must end with ``run()`` or ``shutdown()``.  A call that fails
-on any rank ends the run on every rank within ``dispatch.TIMEOUT_S``, and
-``run()`` raises that rank's traceback.  The leader writes checkpoints;
-every rank restores from the same file.  Chaos runs on the leader; a fault
-that changes device state reaches the followers as a lane call.  The
-legacy engine ignores the mesh (as in the reference): its followers only
-wait for the stop.
+step's weights.  The leader's lanes start at construction; a follower's
+start in ``start()``, which ``run()`` calls, and its lanes make no call
+before then (the leader's first call waits for them, at most
+``dispatch.TIMEOUT_S``).  ``run()`` on a follower returns the leader's
+stop token; every rank must end with ``run()`` or ``shutdown()``.  A call
+that fails on any rank ends the run on every rank within
+``dispatch.TIMEOUT_S``, and ``run()`` raises that rank's traceback.  The
+leader writes checkpoints; every rank restores from the same file.  Chaos
+runs on the leader; a fault that changes device state reaches the
+followers as a lane call.  The legacy engine ignores the mesh (as in the
+reference): its followers only wait for the stop.
 """
 from __future__ import annotations
 
@@ -113,9 +116,15 @@ class PAL:
     On a mesh of several processes every rank builds the same ``PAL``;
     ``leader`` is True on the mesh's first rank, which runs the loop, and
     its ``engine``, ``fleet`` and ``committee_trainer`` are lane proxies
-    (``core/dispatch.py``).  A follower's ``run()`` makes the leader's
-    mesh calls until the leader stops; ``lane_error`` holds a broken
-    lane's error, which ``run()`` raises (module docstring).
+    (``core/dispatch.py``).  The leader's lanes start at construction, so
+    it may step the loop by hand; a follower's start in ``start()``
+    (which ``run()`` calls), so nothing its owner does between
+    construction and ``run()`` races the leader's calls.  A follower's
+    ``run()`` makes the leader's mesh calls until the leader stops; one
+    that has not called it within ``dispatch.TIMEOUT_S`` of the leader's
+    first call breaks the leader's lane with a ``LaneError`` that names
+    it.  ``lane_error`` holds a broken lane's error, which ``run()``
+    raises (module docstring).
     """
 
     def __init__(
@@ -459,9 +468,11 @@ class PAL:
 
     # ----------------------------------------------------------------- lanes
     def _on_lanes(self, spmd: bool):
-        """Put the mesh objects on the lanes and start them.  On the
-        leader the controllers' engine, fleet and trainer become the lanes'
-        proxies; a legacy engine's run is the leader's alone."""
+        """Put the mesh objects on the lanes, and start the leader's (it
+        may step the loop by hand at once; a follower's start in
+        ``start()``).  On the leader the controllers' engine, fleet and
+        trainer become the lanes' proxies; a legacy engine's run is the
+        leader's alone."""
         el, tl = self._engine_lane, self._trainer_lane
         if spmd:
             el.register("engine", self.engine)
@@ -485,7 +496,11 @@ class PAL:
                 if self.committee_trainer is not None:
                     self.committee_trainer = _TrainerOnLane(
                         tl, self.committee_trainer)
-        for lane in (el, tl):
+        if self.leader:
+            self._start_lanes()
+
+    def _start_lanes(self):
+        for lane in (self._engine_lane, self._trainer_lane):
             lane.start()
 
     def _lane_failed(self, err: BaseException):
@@ -753,7 +768,8 @@ class PAL:
 
     # ------------------------------------------------------------------ run
     def start(self):
-        if not self.leader:                # its lanes make the leader's calls
+        if not self.leader:       # its lanes make the leader's calls
+            self._start_lanes()
             return
         if self.chaos is not None:
             transport.install_chaos(self.chaos)
@@ -937,6 +953,7 @@ class PAL:
             if lane is not None:
                 r.setdefault("lanes", {})[lane.name] = {
                     "calls": lane.calls, "send_s": lane.send_s,
+                    "first_send_s": lane.first_send_s,
                     "decides": lane.decides, "decide_s": lane.decide_s}
         # realized oracle rate: queued / scored over the whole run, the
         # quantity the budget controller steers toward oracle_budget.

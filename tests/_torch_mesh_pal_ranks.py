@@ -365,6 +365,73 @@ def follower_fault(shape, tmp, timeout_s):
             "token": _token(tok), "seconds": time.perf_counter() - t0}
 
 
+def _lane_threads():
+    """The names of this process's lane threads (``Lane.start``'s)."""
+    return sorted(t.name for t in threading.enumerate()
+                  if t.name.startswith("lane-"))
+
+
+def delayed_follower(shape, tmp, delay_s):
+    """(e) The leader records at once and makes ``N_EXCHANGE`` exchange
+    rounds straight away; the follower waits until the leader's first
+    engine-lane send has begun (a file its patched ``_send`` writes),
+    then ``delay_s`` more, then records and calls ``run()``.  Each rank
+    returns its lane threads right after construction, its records and,
+    on the leader, the lanes' counters."""
+    pal = make_pal(tmp, shape)
+    out = {"rank": int(torch.distributed.get_rank()), "leader": pal.leader,
+           "lane_threads": _lane_threads()}
+    marker = os.path.join(tmp, "leader_sending")
+    if pal.leader:
+        lane = pal._engine_lane
+        send = lane._send
+
+        def marked(msg):
+            if not os.path.exists(marker):
+                open(marker, "w").close()
+            return send(msg)
+
+        lane._send = marked
+        rec = Record(pal)
+        try:
+            for _ in range(N_EXCHANGE):
+                assert pal.exchange.step() is None
+        finally:
+            pal.shutdown()
+        out["lanes"] = pal.report()["lanes"]
+    else:
+        deadline = time.monotonic() + 60.0
+        while not os.path.exists(marker):
+            assert time.monotonic() < deadline, "the leader never sent"
+            time.sleep(0.01)
+        time.sleep(delay_s)
+        rec = Record(pal)
+        out["token"] = _follow(pal)
+    out["scores"] = rec.scores
+    return out
+
+
+def unstarted_follower(shape, tmp, timeout_s):
+    """(f) The follower is shut down without ``run()``; the leader runs
+    (lane timeout ``timeout_s``).  Each rank returns its lane threads
+    right after construction, the error ``run()`` raised (the leader's)
+    and its seconds from construction to return."""
+    dispatch.TIMEOUT_S = timeout_s
+    pal = make_pal(tmp, shape, orcl_process=1)
+    out = {"rank": int(torch.distributed.get_rank()), "leader": pal.leader,
+           "lane_threads": _lane_threads(), "error": None}
+    t0 = time.perf_counter()
+    if pal.leader:
+        try:
+            pal.run(timeout=4 * timeout_s)
+        except dispatch.LaneError as e:
+            out["error"] = str(e)
+    else:
+        pal.shutdown()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def resume(shape, tmp):
     """(d) The fleet PAL: rounds, a trained and handed-off round, a
     checkpoint, then ``N_EXCHANGE`` rounds and another round (``after``);

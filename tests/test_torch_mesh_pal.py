@@ -29,6 +29,9 @@ mesh is one spawn of ranks (``launch/distributed.launch_local``, a
   traceback;
 * (d) a checkpoint written on 1x2 and resumed on 1x2 continues bit for
   bit;
+* (e) a follower that waits before its ``run()`` misses none of the
+  leader's calls (its lanes start at ``run()``), and (f) one shut down
+  without ``run()`` ends both ranks within the lane's timeout;
 * and two processes that join from the config alone
   (``initialize_from_config``) and run ``PAL(uq_mesh='2x1')``.
 """
@@ -58,6 +61,7 @@ TOL = dict(mean=(1e-5, 1e-6), std=(1e-4, 1e-6))     # ROADMAP's
 PARAM_TOL = dict(rtol=1e-5, atol=1e-6)               # the committee axis
 POS_ATOL = 5e-5          # tests/test_torch_fleet.py's, fleet positions
 FAULT_TIMEOUT_S = 5.0
+FOLLOWER_DELAY_S = 2.0
 
 
 def _spawn(tmp_path_factory, name, fn, shape, *args):
@@ -382,6 +386,47 @@ def test_a_follower_fault_ends_both_ranks(tmp_path_factory):
         lead["error"]
     for o in outs:
         assert o["token"] is None
+        assert o["seconds"] < 3 * FAULT_TIMEOUT_S
+
+
+def test_a_follower_makes_no_call_before_its_run(tmp_path_factory):
+    """The follower sleeps ``FOLLOWER_DELAY_S`` after the leader's first
+    engine-lane send began, before its ``run()``, while the leader makes
+    its exchange rounds at once: the follower's records hold every one of
+    the leader's calls with the same inputs bit for bit, the leader's
+    sends took at least the delay (its first call waited for the
+    follower), and the follower has no lane thread until ``run()`` (the
+    leader has both from construction)."""
+    outs = _spawn(tmp_path_factory, "delayed", M.delayed_follower, (2, 1),
+                  FOLLOWER_DELAY_S)
+    lead, follow = outs
+    assert len(lead["scores"]) == M.N_EXCHANGE
+    for (xa, adv_a, a), (xb, adv_b, b) in zip(lead["scores"],
+                                              follow["scores"],
+                                              strict=True):
+        np.testing.assert_array_equal(xa, xb)
+        assert adv_a == adv_b
+        _assert_equal(a, b)
+    assert lead["lanes"]["engine"]["send_s"] >= FOLLOWER_DELAY_S
+    assert lead["lane_threads"] == ["lane-engine", "lane-trainer"]
+    assert follow["lane_threads"] == []
+    assert follow["token"] == ("runtime", "shutdown")
+
+
+def test_a_follower_shut_down_without_run_ends_both_ranks(
+        tmp_path_factory):
+    """A follower shut down without ``run()`` starts no lane and leaves
+    at once; to the leader it is a follower that died: its engine lane
+    breaks within the lane's timeout and its run() raises, both ranks
+    within three timeouts."""
+    outs = _spawn(tmp_path_factory, "unstarted", M.unstarted_follower,
+                  (2, 1), FAULT_TIMEOUT_S)
+    lead, follow = outs
+    assert lead["lane_threads"] == ["lane-engine", "lane-trainer"]
+    assert follow["lane_threads"] == [] and follow["error"] is None
+    assert lead["error"] is not None and "lane engine on rank 0" in \
+        lead["error"]
+    for o in outs:
         assert o["seconds"] < 3 * FAULT_TIMEOUT_S
 
 
