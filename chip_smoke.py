@@ -2021,12 +2021,13 @@ def _mesh_fleet(mesh):
     return worst, e.step_dispatches, dict(e.step_trace_counts)
 
 
-def _mesh_pal(shape, tmp):
+def _mesh_pal(shape, tmp, on_pal=None):
     """``PAL`` through the quickstart loop (cut as in (a):
     ``MESH_PAL_STEPS`` proposals a generator) on the (data, model) mesh
     ``shape``: the leader runs the loop, the follower makes its mesh calls
     in its order (``core/dispatch.py``); ``tmp`` is their shared result
-    dir.  Gates on every rank: the generators' stop token, one capture per
+    dir; ``on_pal(pal)``, when given, is called once the PAL is built.
+    Gates on every rank: the generators' stop token, one capture per
     bucket, ``committee_uq`` launches == dispatches + 2 x captures, 0
     handoff host bytes, no crash.  Returns the numbers phase_mesh
     prints."""
@@ -2036,6 +2037,8 @@ def _mesh_pal(shape, tmp):
     what = f"PAL on {shape} rank {rank}"
     pal = _runtime_pal(tmp, uq_mesh=f"{shape[0]}x{shape[1]}",
                        steps=MESH_PAL_STEPS)
+    if on_pal is not None:
+        on_pal(pal)
     clock = _LoopClock(pal) if pal.leader else None
     before = cuq_kernel.launches
     rep, c, bad, t0, t1 = _run_until_stop(pal, what)
@@ -2079,10 +2082,11 @@ def _mesh_pal(shape, tmp):
     return out
 
 
-def _mesh_rank(shape, tmp):
+def _mesh_rank(shape, tmp, on_pal=None):
     """One gloo rank of phase_mesh (b): every check on the (data, model)
     mesh ``shape``, all ranks sharing this card, then ``PAL`` on it
-    (``_mesh_pal``, result dir ``tmp``).  Returns numbers only."""
+    (``_mesh_pal``, result dir ``tmp``, ``on_pal``).  Returns numbers
+    only."""
     from repro_torch.launch.mesh import make_scaleout_mesh
 
     platform.set_reference_precision()
@@ -2099,8 +2103,459 @@ def _mesh_rank(shape, tmp):
         out["fleet"] = _mesh_fleet(mesh)
     out["attn_worst"], out["attn_launches"], out["kv_range"] = \
         _mesh_attention(mesh)
-    out["pal"] = _mesh_pal(shape, tmp)
+    out["pal"] = _mesh_pal(shape, tmp, on_pal)
     return out
+
+
+# ---------------------------------------------------------------------------
+# 3g. the capture soak: fresh 2-rank loops, every capture window recorded
+# ---------------------------------------------------------------------------
+
+SOAK_SPAWNS = 30                  # fresh 2x1 spawns: checks, then the loop
+SOAK_RECAPTURE_SPAWNS = 6         # 2x1 spawns recapturing every round ...
+SOAK_RECAPTURE_LOOPS = 10         # ... over this many loops each
+SOAK_ONE_BY_TWO = 4               # 1x2 spawns: checks, then the loop
+
+# capture sites by the file that calls graphs.capture
+_CAPTURE_SITES = (("committee_trainer", "trainer"), ("train_step", "lm_step"),
+                  ("acquisition", "engine"), ("serving/engine", "serve"),
+                  ("quickstart", "oracle"), ("lm_active_distill", "oracle"))
+
+
+def _outer_frame(depth):
+    """The first caller frame, ``depth`` frames up, outside torch, the
+    recorder and ``kernels/graphs.py``."""
+    f = sys._getframe(depth)
+    while f is not None:
+        name = f.f_code.co_filename.replace("\\", "/")
+        if not ("/torch/" in name or name.endswith("kernels/graphs.py")
+                or f.f_code.co_name.startswith("rec_")):
+            return f
+        f = f.f_back
+    return None
+
+
+class CaptureRecorder:
+    """Every CUDA-graph capture window of this process, and in every thread
+    the calls that could reach a capture from outside it, each logged with
+    the thread's name and a monotonic time: the cyclic collector's runs
+    (generation, objects collected, whether a window is open),
+    ``torch.cuda.synchronize``, ``empty_cache``, the pinned cache's
+    emptying, ``Stream``/``Event`` ``synchronize``/``query``, pinned
+    allocations, the mesh's staged gathers, oracle calls, and CUDA graph
+    and event destructions.  It wraps those functions from outside (the
+    package is not instrumented).  ``captures``/``failed`` count windows by
+    site; a failed capture prints (and keeps) the log of its window from
+    50 ms before it opened.  Every ``torch.cuda.Stream`` taken from the
+    pool is kept weakly with its maker; at each trainer capture the live
+    ones are read, and ``shared`` lists the live streams made since
+    ``mark_pal`` (a loop's, in a process that ran loops before it) that
+    share one CUDA stream handle.
+    ``in_window`` counts the logged calls made by another thread while a
+    window was open."""
+
+    def __init__(self):
+        import collections
+
+        self.log = collections.deque(maxlen=200_000)
+        self.captures = collections.Counter()
+        self.failed = collections.Counter()
+        self.in_window = collections.Counter()
+        self.failures = []
+        self.shared = {}
+        self.live_at_capture = {}
+        self._streams = []          # (weakref, handle, maker)
+        self._pal_from = 0          # the PAL run's first stream
+        self._open = {}             # thread ident -> (start, site)
+        self._lock = threading.Lock()
+        self._undo = []
+
+    def note(self, what, detail=""):
+        me = threading.get_ident()
+        if any(k != me for k in tuple(self._open)):
+            self.in_window[what] += 1
+        self.log.append((time.monotonic(), threading.current_thread().name,
+                         what, detail))
+
+    # ------------------------------------------------------------ install
+    def _patch(self, owner, name, wrapper):
+        had = name in vars(owner)
+        self._undo.append((owner, name, vars(owner).get(name), had))
+        setattr(owner, name, wrapper)
+
+    def _logged(self, owner, name, label, pinned_only=False):
+        orig = getattr(owner, name, None)
+        if orig is None:                # not in this build of torch
+            return
+        rec = self
+
+        def rec_call(*a, **kw):
+            if not pinned_only or kw.get("pin_memory"):
+                rec.note(label)
+            return orig(*a, **kw)
+
+        self._patch(owner, name, rec_call)
+
+    def install(self):
+        from repro_torch.kernels import graphs
+        from repro_torch.launch.mesh import Mesh
+
+        rec, G = self, torch.cuda.CUDAGraph
+        begin, end = G.capture_begin, G.capture_end
+
+        def rec_begin(graph, *a, **kw):
+            f = _outer_frame(1)
+            path = f.f_code.co_filename.replace("\\", "/") if f else "?"
+            site = next((s for k, s in _CAPTURE_SITES if k in path),
+                        Path(path).name)
+            t0 = time.monotonic()
+            rec._open[threading.get_ident()] = (t0, site)
+            rec.note("capture_begin", site)
+            if site == "trainer":
+                rec._read_streams()
+            try:
+                return begin(graph, *a, **kw)
+            except BaseException as e:
+                rec._open.pop(threading.get_ident(), None)
+                rec._failed(site, e, t0)
+                raise
+
+        def rec_end(graph, *a, **kw):
+            t0, site = rec._open.get(threading.get_ident(),
+                                     (time.monotonic(), "?"))
+            try:
+                out = end(graph, *a, **kw)
+            except BaseException as e:
+                rec.note("capture_failed", f"{site}: {e!r}"[:300])
+                rec._failed(site, e, t0)
+                raise
+            finally:
+                rec._open.pop(threading.get_ident(), None)
+            rec.note("capture_end", site)
+            with rec._lock:
+                rec.captures[site] += 1
+            return out
+
+        self._patch(G, "capture_begin", rec_begin)
+        self._patch(G, "capture_end", rec_end)
+        for owner, name in ((torch.cuda, "synchronize"),
+                            (torch.cuda, "empty_cache"),
+                            (torch._C, "_host_emptyCache")):
+            self._logged(owner, name, name)
+        for cls in (torch.cuda.Stream, torch.cuda.Event):
+            for name in ("synchronize", "query"):
+                self._logged(cls, name, f"{cls.__name__}.{name}")
+        for name in ("empty", "zeros"):
+            self._logged(torch, name, f"pinned {name}", pinned_only=True)
+        self._logged(torch.Tensor, "pin_memory", "pin_memory")
+        self._logged(Mesh, "_gather_axis", "staged_gather")
+        self._logged(graphs.PerShape, "__call__", "oracle_call")
+        for cls in (G, torch.cuda.Event):
+            self._patch(cls, "__del__", self._destructor(cls))
+        new = torch.cuda.Stream.__new__
+
+        def rec_new(cls, *a, **kw):
+            s = new(cls, *a, **kw)
+            if "stream_id" in kw:       # a wrapper of a stream made before
+                return s
+            f = _outer_frame(1)
+            maker = (f"{Path(f.f_code.co_filename).name}:{f.f_lineno} "
+                     f"{f.f_code.co_name}" if f else "?")
+            rec._streams.append((_weak(s), s.cuda_stream, maker))
+            return s
+
+        self._patch(torch.cuda.Stream, "__new__", staticmethod(rec_new))
+
+        def rec_gc(phase, info):
+            rec.note(f"gc {phase}", f"generation {info['generation']} "
+                     f"collected {info.get('collected', '-')} window "
+                     f"{bool(rec._open)}")
+
+        gc.callbacks.append(rec_gc)
+        self._undo.append((gc.callbacks, rec_gc, None, None))
+        return self
+
+    def _destructor(self, cls):
+        orig, rec = getattr(cls, "__del__", None), self
+        label = f"{cls.__name__}.__del__"
+
+        def rec_del(obj):
+            rec.note(label)
+            if orig is not None:
+                orig(obj)
+
+        return rec_del
+
+    def remove(self):
+        for owner, name, prev, had in reversed(self._undo):
+            if owner is gc.callbacks:
+                gc.callbacks.remove(name)
+            elif had:
+                setattr(owner, name, prev)
+            else:
+                delattr(owner, name)
+        self._undo.clear()
+
+    # ------------------------------------------------------------ reading
+    def mark_pal(self):
+        """The streams made from now on are the PAL run's."""
+        self._pal_from = len(self._streams)
+
+    def _read_streams(self):
+        live, run = {}, {}
+        for i, (ref, handle, maker) in enumerate(self._streams):
+            if ref is not None and ref() is not None:
+                live.setdefault(handle, []).append(maker)
+                if i >= self._pal_from:
+                    run.setdefault(handle, []).append(maker)
+        self.live_at_capture = {hex(h): m for h, m in live.items()}
+        for h, makers in run.items():
+            if len(makers) > 1:
+                self.shared[hex(h)] = makers
+
+    def _failed(self, site, err, t0):
+        with self._lock:
+            self.failed[site] += 1
+        lines = [f"{t - t0:+.6f} s {thread}: {what} {detail}"
+                 for t, thread, what, detail in list(self.log)
+                 if t >= t0 - 0.05]
+        text = (f"FAILED CAPTURE ({site}) in thread "
+                f"{threading.current_thread().name}: {err!r}\n  "
+                + "\n  ".join(lines[-400:]))
+        self.failures.append(text)
+        print(text, file=sys.stderr, flush=True)
+
+    def summary(self):
+        gcs = [d for _, _, w, d in self.log
+               if w == "gc start" and d.endswith("True")]
+        return {"captures": dict(self.captures),
+                "failed": dict(self.failed), "failures": self.failures,
+                "in_window": dict(self.in_window), "gc_in_window": len(gcs),
+                "streams_at_trainer_capture": self.live_at_capture,
+                "shared_streams": self.shared}
+
+
+def _weak(obj):
+    import weakref
+
+    try:
+        return weakref.ref(obj)
+    except TypeError:
+        return None
+
+
+def _recapture_every_round(pal, forced):
+    """Wrap the leader's trainer's ``train`` (from outside) so that every
+    round drops the step graph first and recaptures it; ``forced[0]``
+    counts the graphs dropped.  The graph is freed under the capture lock,
+    so never while another thread captures."""
+    from repro_torch.core import dispatch
+
+    tr = dispatch.local(pal.committee_trainer)
+    train = tr.train
+
+    def train_recapturing(*a, **kw):
+        with platform.capture_lock:
+            if tr._graph is not None:
+                tr._graph = None
+                forced[0] += 1
+        return train(*a, **kw)
+
+    tr.train = train_recapturing
+
+
+def _soak_rank(shape, tmp, recapture, checks, loops=1):
+    """One gloo rank of a soak spawn, under a ``CaptureRecorder``: the
+    checks of phase_mesh (b) then ``PAL`` (``_mesh_rank``), or the loop
+    alone (``checks`` False), then ``loops - 1`` more loops in the same
+    process; with ``recapture`` the leader's trainer recaptures every
+    round.  A failure is returned, not raised, so both ranks report their
+    windows."""
+    import faulthandler
+    import os
+
+    faulthandler.enable()           # a crash prints every thread's stack
+    rec = CaptureRecorder().install()
+    forced, before = [0], []
+
+    def on_pal(pal):
+        if not before:
+            before.append(dict(rec.captures))
+        if recapture and pal.leader:
+            _recapture_every_round(pal, forced)
+
+    out = {"rank": int(torch.distributed.get_rank()), "shape": shape,
+           "recapture": recapture, "checks": checks, "loops": loops}
+    dirs = [os.path.join(tmp, f"loop{i}") for i in range(loops)]
+    try:
+        for d in dirs:
+            os.makedirs(d, exist_ok=True)
+        if checks:
+            out["pal"] = _mesh_rank(shape, dirs[0], on_pal)["pal"]
+        else:
+            platform.set_reference_precision()
+            out["pal"] = _mesh_pal(shape, dirs[0], on_pal)
+        out["more"] = []
+        for d in dirs[1:]:
+            rec.mark_pal()
+            out["more"].append(_mesh_pal(shape, d, on_pal))
+    except Exception as e:      # noqa: BLE001 — returned with the windows
+        out["error"] = f"{e!r}"[:4000]
+    out.update(rec.summary(), forced=forced[0])
+    base = before[0] if before else {}
+    out["pal_captures"] = {k: v - base.get(k, 0)
+                           for k, v in rec.captures.items()}
+    return out
+
+
+def _soak_spawn(shape, recapture, checks, loops=1):
+    """One fresh 2-rank spawn of ``_soak_rank``; returns both ranks'
+    results (the leader's first) and the spawn's wall seconds."""
+    import tempfile
+
+    from repro_torch.launch import distributed
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            outs = distributed.launch_local(2, _soak_rank, shape, tmp,
+                                            recapture, checks, loops,
+                                            device="cuda:0", timeout=900)
+        except RuntimeError as e:
+            outs = [{"rank": r, "shape": shape, "recapture": recapture,
+                     "checks": checks, "error": f"spawn: {e!r}"[:4000],
+                     "captures": {}, "failed": {}, "failures": [],
+                     "in_window": {}, "gc_in_window": 0, "forced": 0,
+                     "pal_captures": {},
+                     "shared_streams": {}, "streams_at_trainer_capture": {}}
+                    for r in range(2)]
+    return sorted(outs, key=lambda o: o["rank"]), time.perf_counter() - t0
+
+
+def _soak_line(i, outs, wall, smi):
+    lead = outs[0]
+    shape, p = lead["shape"], lead.get("pal") or {}
+    errors = " | ".join(o["error"][:300] for o in outs if "error" in o)
+    failed = sum(sum(o["failed"].values()) for o in outs)
+    pc = lead.get("pal_captures", {})
+    tc = pc.get("trainer", 0)
+    send = p.get("send_ms", {})
+    loops = lead.get("loops", 1)
+    return (f"soak {i} {shape[0]}x{shape[1]} "
+            f"{'recapture' if lead['recapture'] else 'natural'}"
+            f"{'' if lead['checks'] else ' (loop only)'}"
+            f"{f' x{loops} loops' if loops > 1 else ''}: leader trainer "
+            f"captures {tc} ({tc - lead['forced']} natural, "
+            f"{lead['forced']} forced) in the loop, engine graphs "
+            f"{pc.get('engine', 0)}, oracle graphs {pc.get('oracle', 0)} "
+            f"(the process: {lead['captures']}); failed captures {failed}; "
+            f"labels/s {p.get('labels_per_s', float('nan')):.4f}, send ms "
+            f"engine {send.get('engine', float('nan')):.4f} trainer "
+            f"{send.get('trainer', float('nan')):.4f}; collector runs in a "
+            f"window {sum(o['gc_in_window'] for o in outs)}; calls in "
+            f"another thread's window {lead['in_window']}; shared streams "
+            f"{sum(len(o['shared_streams']) for o in outs)}; "
+            f"{'ERROR ' + errors if errors else 'ok'}; {wall:.2f} s [{smi}]")
+
+
+def _soak_short(smi):
+    """The soak's short form in phase_mesh (b): one more 2x1 loop (no
+    checks) in which the leader's trainer recaptures every round, under a
+    ``CaptureRecorder``.  Fails on any failed capture, a failed rank, two
+    live streams on one CUDA stream, or no recapture at all."""
+    outs, wall = _soak_spawn((2, 1), True, False)
+    print(_soak_line("short", outs, wall, smi))
+    if any("error" in o or o["failed"] or o["shared_streams"]
+           for o in outs) or outs[0]["forced"] == 0:
+        raise AssertionError(
+            "mesh (b) recapture loop: "
+            + " | ".join(o.get("error", "")[:2000] + "".join(o["failures"])
+                         for o in outs)
+            + f" forced {outs[0]['forced']}, shared "
+            f"{[o['shared_streams'] for o in outs]}")
+    lead = outs[0]
+    return {"trainer_captures": lead["pal_captures"].get("trainer", 0),
+            "forced": lead["forced"], "failed": 0, "wall_s": wall,
+            "labels_per_s": lead["pal"]["labels_per_s"]}
+
+
+def soak(natural=SOAK_SPAWNS, recapture=SOAK_RECAPTURE_SPAWNS,
+         one_by_two=SOAK_ONE_BY_TWO, recapture_loops=SOAK_RECAPTURE_LOOPS,
+         out=None, smi=None):
+    """The capture soak: fresh ``launch_local(2, ...)`` spawns on this
+    card, each running phase_mesh (b)'s sequence (the checks, then the
+    quickstart loop) under a ``CaptureRecorder`` in both ranks: ``natural``
+    on 2x1, ``recapture`` on 2x1 with the leader's trainer recapturing
+    every round over ``recapture_loops`` loops in the spawn (a loop makes
+    4-11 rounds), ``one_by_two`` on 1x2, interleaved.  Prints one line a
+    spawn and the totals, writes every spawn's results (failed windows'
+    logs included) to ``out`` (JSON) when given, and raises at the end if
+    any capture failed, any spawn failed, or two live streams shared one
+    CUDA stream.  A rank that runs ten loops in one process has crashed
+    with a segfault in some spawns (ROADMAP.md section C lists it as an open
+    fault); such a spawn counts as failed, so at its defaults the soak
+    does not pass yet.  To run it alone on the card: ``PYTHONPATH=src
+    python -c "import chip_smoke as c; c.soak(out='soak.json')"``."""
+    smi = smi or platform.nvidia_smi()
+    _build.build_all()
+    plan = ([((2, 1), False)] * natural + [((2, 1), True)] * recapture
+            + [((1, 2), False)] * one_by_two)
+    # interleave the kinds so that each spreads over the whole run
+    plan = [x for _, x in sorted(
+        (i / max(plan.count(k), 1) + 1e-9 * j, k)
+        for j, k in enumerate(dict.fromkeys(plan))
+        for i in range(plan.count(k)))]
+    rows, t0 = [], time.perf_counter()
+    for i, (shape, rc) in enumerate(plan):
+        outs, wall = _soak_spawn(shape, rc, True, recapture_loops if rc else 1)
+        rows.append({"outs": outs, "wall_s": wall})
+        print(_soak_line(i, outs, wall, smi), flush=True)
+    total = _soak_totals(rows)
+    print(f"soak totals: {json.dumps(total)} in "
+          f"{time.perf_counter() - t0:.2f} s [{smi}]", flush=True)
+    if out:
+        Path(out).parent.mkdir(parents=True, exist_ok=True)
+        Path(out).write_text(json.dumps({"smi": smi, "totals": total,
+                                         "spawns": rows}, default=str))
+    if total["failed_captures"] or total["failed_spawns"] or \
+            total["shared_streams"]:
+        raise AssertionError(f"soak: {total}")
+    return total
+
+
+def _soak_totals(rows):
+    t = {"spawns": {}, "trainer_captures": {"natural": 0, "forced": 0},
+         "failed_captures": 0, "failed_spawns": 0, "shared_streams": 0,
+         "labels_per_s": {}, "send_ms": {}, "gc_in_window": 0,
+         "in_window": {}}
+    for r in rows:
+        lead = r["outs"][0]
+        kind = (f"{lead['shape'][0]}x{lead['shape'][1]} "
+                f"{'recapture' if lead['recapture'] else 'natural'}")
+        t["spawns"][kind] = t["spawns"].get(kind, 0) + 1
+        tc = lead.get("pal_captures", {}).get("trainer", 0)
+        t["trainer_captures"]["natural"] += tc - lead["forced"]
+        t["trainer_captures"]["forced"] += lead["forced"]
+        t["failed_captures"] += sum(sum(o["failed"].values())
+                                    for o in r["outs"])
+        t["failed_spawns"] += any("error" in o for o in r["outs"])
+        t["shared_streams"] += sum(len(o["shared_streams"])
+                                   for o in r["outs"])
+        for o in r["outs"]:
+            t["gc_in_window"] += o["gc_in_window"]
+            for k, v in o["in_window"].items():
+                t["in_window"][k] = t["in_window"].get(k, 0) + v
+        p = lead.get("pal")
+        if p:
+            t["labels_per_s"].setdefault(kind, []).append(p["labels_per_s"])
+            t["send_ms"].setdefault(kind, []).append(p["send_ms"])
+    for k, v in t["labels_per_s"].items():
+        t["labels_per_s"][k] = {"median": float(np.median(v)),
+                                "min": min(v), "max": max(v)}
+    for k, v in t["send_ms"].items():
+        t["send_ms"][k] = {lane: float(np.median([s[lane] for s in v]))
+                           for lane in ("engine", "trainer")}
+    return t
 
 
 def _mesh_flash_times(smi):
@@ -2284,11 +2739,13 @@ def phase_mesh(smi):
     and fp32 against the one-rank kernel and the plain version, and each
     rank's launch counts; then on each mesh ``PAL`` through the quickstart
     loop, cut as in (a) (``_mesh_pal``: both ranks one stop token and the
-    same dispatches, captures and handoffs); then the CLI's ``DIST_OK 2 2
-    28.0``.  Prints a 64-row dispatch's host ms on 1x1 and 2x1 beside the
-    unsharded engine's, the 2-rank loops' numbers beside the one-rank
-    loop's, and the partials/combine entries' device ms beside the split
-    path's."""
+    same dispatches, captures and handoffs); then one more 2x1 loop in
+    which the leader's trainer recaptures every round, under a
+    ``CaptureRecorder`` (``_soak_short``: 0 failed captures); then the
+    CLI's ``DIST_OK 2 2 28.0``.  Prints a 64-row dispatch's host ms on 1x1
+    and 2x1 beside the unsharded engine's, the 2-rank loops' numbers
+    beside the one-rank loop's, and the partials/combine entries' device
+    ms beside the split path's."""
     import tempfile
 
     from repro_torch.launch import distributed
@@ -2354,6 +2811,7 @@ def phase_mesh(smi):
             b[shape] = distributed.launch_local(2, _mesh_rank, shape, tmp,
                                                 device="cuda:0", timeout=600)
         _same_pal_run(shape, [o["pal"] for o in b[shape]])
+    recap = _soak_short(smi)
     cli = _dist_cli_smoke()
     for shape, outs in b.items():
         for o in outs:
@@ -2377,6 +2835,7 @@ def phase_mesh(smi):
     times = _mesh_flash_times(smi)
     attn = [o for outs in b.values() for o in outs]
     return {"a": a_eng, "pal": pal_stats, "b": b, "times": times,
+            "recapture": recap,
             "partials_launches": sum(o["attn_launches"][0] for o in attn),
             "combine_launches": sum(o["attn_launches"][1] for o in attn),
             "cuq_launches": a_eng["launches"] + sum(

@@ -58,8 +58,7 @@ from repro_torch.core.committee import (
     tree_leaves, tree_map, tree_paths, update,
 )
 from repro_torch.kernels import committee_uq as cuq_kernel
-from repro_torch.kernels import ops, ref
-from repro_torch.launch import platform
+from repro_torch.kernels import graphs, ops, ref
 from repro_torch.launch.platform import DeviceLike, resolve_device
 
 log = logging.getLogger(__name__)
@@ -480,20 +479,16 @@ class _Staged:
                 staged += out
         return staged
 
-    def capture(self, stream) -> None:
-        """Capture every stage as a CUDA graph on ``stream`` (the caller
-        warmed the steps up and holds the capture lock); the collectives
-        are not run."""
-        graphs = []
-        for kind, fn in self.steps:
-            g = None
-            if kind == "stage":
-                g = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(g, stream=stream,
-                                      capture_error_mode="thread_local"):
-                    fn()
-            graphs.append(g)
-        self.graphs = graphs
+    def capture(self, stream, warmup: Callable[[], Any]) -> List[Any]:
+        """Run ``warmup``, then capture every stage as a CUDA graph on
+        ``stream`` (``graphs.capture``); the collectives are not run.
+        Returns the kernels' launches one replay makes."""
+        got = graphs.capture([fn for kind, fn in self.steps
+                              if kind == "stage"], stream, warmup=warmup)
+        stage_graphs = iter(got.graphs)
+        self.graphs = [next(stage_graphs) if kind == "stage" else None
+                       for kind, _ in self.steps]
+        return got.launches
 
     def replay(self) -> int:
         staged = 0
@@ -503,6 +498,11 @@ class _Staged:
             else:
                 staged += fn()
         return staged
+
+
+def _cuq_launches(launches: List[Any]) -> int:
+    """``committee_uq``'s count in ``graphs.capture``'s launches."""
+    return launches[graphs.KERNELS.index(cuq_kernel)]
 
 
 def _chain(f: Callable, g: Callable) -> Callable:
@@ -933,27 +933,28 @@ class FusedEngine(UQEngine):
         stream is current).  The warm-up loads the kernel library,
         initialises cuBLAS and fills the rules' device caches (LSH
         projection, k table), none of which may happen under capture.
-        Both run under the process-wide capture lock: one capture at a
-        time (a committee trainer may capture in another thread), and the
-        kernel's capture count is read around it."""
-        with platform.capture_lock:
+        Both run in ``graphs.capture``: one capture at a time (a committee
+        trainer may capture in another thread), and the kernel's capture
+        count is read around it."""
+        def warmup():
             for _ in range(2):
                 self._run_program(b)
-            before = cuq_kernel.captured
-            if b.staged is not None:            # a sharded bucket's stages
-                b.staged.capture(self._stream)
-                graph, new_state = b.staged, b.env["new_state"]
-            else:
-                graph = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(graph, stream=self._stream,
-                                      capture_error_mode="thread_local"):
-                    _, new_state = self.program(
-                        self._cparams, b.x, b.n_valid, b.stream,
-                        self.rule_state, out=b.packed)
-            b.launches = cuq_kernel.captured - before
-            b.graph, b.new_state = graph, new_state
-            with self._counter_lock:
-                self.trace_counts[b.nb] = self.trace_counts.get(b.nb, 0) + 1
+
+        if self._sharded(b.nb):                 # a sharded bucket's stages
+            if b.staged is None:
+                b.staged, b.env = self._score_steps(b)
+            launches = b.staged.capture(self._stream, warmup)
+            graph, new_state = b.staged, b.env["new_state"]
+        else:
+            (graph,), ((_, new_state),), launches = graphs.capture(
+                [lambda: self.program(self._cparams, b.x, b.n_valid,
+                                      b.stream, self.rule_state,
+                                      out=b.packed)],
+                self._stream, warmup=warmup)
+        b.launches = _cuq_launches(launches)
+        b.graph, b.new_state = graph, new_state
+        with self._counter_lock:
+            self.trace_counts[b.nb] = self.trace_counts.get(b.nb, 0) + 1
 
     def _dispatch(self, b: _Bucket, advance: bool) -> np.ndarray:
         """Run the bucket's program on the staged inputs; returns a host
@@ -1211,27 +1212,29 @@ class FusedEngine(UQEngine):
         """``_capture`` for a ``score_after`` program.  Its warm-up runs
         advance the carry in place, so the carry is saved before them and
         restored after (capture itself runs nothing)."""
-        with platform.capture_lock:
+        def warmup():
             saved = [t.clone() for t in sb.carry]
             for _ in range(2):
                 self._run_step(sb, step_fn, react_fn, carry)
             torch._foreach_copy_(list(sb.carry), saved)
-            before = cuq_kernel.captured
-            if sb.staged is not None:           # a sharded bucket's stages
-                sb.staged.capture(self._stream)
-                graph, new_state = sb.staged, sb.env["new_state"]
-            else:
-                graph = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(graph, stream=self._stream,
-                                      capture_error_mode="thread_local"):
-                    new_state = self.step_program(
-                        step_fn, react_fn, carry, sb.n_valid, sb.stream,
-                        self.rule_state, sb)
-            sb.launches = cuq_kernel.captured - before
-            sb.graph, sb.new_state = graph, new_state
-            with self._counter_lock:
-                self.step_trace_counts[key] = \
-                    self.step_trace_counts.get(key, 0) + 1
+
+        if self._sharded(sb.nb):                # a sharded bucket's stages
+            if sb.staged is None:
+                sb.staged, sb.env = self._step_steps(sb, step_fn, react_fn,
+                                                     carry)
+            launches = sb.staged.capture(self._stream, warmup)
+            graph, new_state = sb.staged, sb.env["new_state"]
+        else:
+            (graph,), (new_state,), launches = graphs.capture(
+                [lambda: self.step_program(step_fn, react_fn, carry,
+                                           sb.n_valid, sb.stream,
+                                           self.rule_state, sb)],
+                self._stream, warmup=warmup)
+        sb.launches = _cuq_launches(launches)
+        sb.graph, sb.new_state = graph, new_state
+        with self._counter_lock:
+            self.step_trace_counts[key] = \
+                self.step_trace_counts.get(key, 0) + 1
 
     def score_after(self, step_fn: Callable, carry: Any, n: int, nb: int,
                     *, react_fn: Optional[Callable] = None,
@@ -1318,6 +1321,12 @@ class FusedEngine(UQEngine):
             sb.event.record(self._stream)
         sb.event.synchronize()
         return sb.host_sel[:n_sel].numpy().copy()
+
+    def synchronize(self) -> None:
+        """Wait for the work queued on the engine's stream (nothing on the
+        CPU)."""
+        if self._stream is not None:
+            self._stream.synchronize()
 
     # -------------------------------------------------------------- weights
     def _on_stream(self, fn: Callable[[], Any]) -> Any:

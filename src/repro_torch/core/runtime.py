@@ -810,8 +810,9 @@ class PAL:
             self._close_lanes()
         # the loops' CUDA work (graph replays on the engine's and the
         # trainer's streams) finishes before anyone frees the graphs
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for owner in (self.engine, self.committee_trainer):
+            if hasattr(owner, "synchronize"):
+                owner.synchronize()
 
     def _close_lanes(self):
         """Leader: a last fleet snapshot for ``report()``, then the stop

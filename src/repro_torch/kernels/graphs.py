@@ -1,18 +1,45 @@
-"""CUDA-graph capture of a program that launches the port's kernels, with
-the kernels' launch counters kept true.
+"""CUDA-graph capture for the whole port, with the kernels' launch counters
+kept true.
 
-``CapturedProgram(fn, stream)`` runs ``fn`` (or ``warmup``) twice on
-``stream`` as the warm-up (the kernel libraries load, cuBLAS initialises
-and any constant a model caches is built: none of that may happen under
-capture), then captures ``fn`` as one CUDA graph on ``stream``, all under
-``platform.capture_lock`` (one capture at a time in the process: the
-committee engine and trainer take the same lock).  Around the capture it
-reads each kernel wrapper's ``captured`` count, so it knows the launches
-one replay makes; ``replay()`` replays the graph on the current stream and
-adds those launches to the wrappers' counters with their
+``capture(stages, stream, warmup=...)`` is the one place the port opens a
+CUDA-graph capture: every capture site (the committee trainer's step, the
+LM training step, the committee engine's buckets and ``score_after``
+programs, a sharded bucket's stages, ``CapturedProgram`` for the LM
+serving engine and the oracles) goes through it.  Under
+``platform.capture_lock`` (one capture at a time in the process, its
+warm-up included) it runs the site's ``warmup`` (the kernel libraries
+load, cuBLAS initialises and any constant a model caches is built: none of
+that may happen under capture), then captures each stage as one CUDA
+graph on ``stream`` in ``thread_local`` mode (``torch.cuda.graph`` empties
+the allocator's caches first, so the warm-ups' temporaries go back to the
+card before a graph's pool takes its own).  Around the captures it reads
+each kernel wrapper's ``captured`` count, so the caller knows the launches
+one replay makes.  A capture that fails raises; there is no retry and no
+eager fallback.
+
+The cyclic collector runs in whichever thread crosses its threshold, the
+capturing one included, and a cycle it frees can hold CUDA graphs (a
+dropped engine's, a finished run's).  Destroying a graph in the capturing
+thread while its capture is open is refused (``CUDAGraph`` only warns,
+"operation not permitted when stream is capturing") and invalidates the
+capture.  So ``capture`` keeps the collector off while its graphs are
+captured and restores its prior state after them, on error too.  Every
+capture of the port goes through it under the one lock, so no collection
+runs in any thread while any window is open; the garbage waits for the
+next collection after the window.
+
+A device-wide synchronize made by another thread while a capture is open
+invalidates that capture (the synchronize fails with
+``cudaErrorStreamCaptureUnsupported``, the capture with
+``cudaErrorStreamCaptureInvalidated``; ``thread_local`` mode does not
+shield it), so the port makes none: a caller waits for its own stream or
+event, which leaves another thread's capture alone.
+
+``CapturedProgram(fn, stream)`` is one such graph with two runs of ``fn``
+(or ``warmup``) as the warm-up; ``replay()`` replays the graph on the
+current stream and adds its launches to the wrappers' counters with their
 ``count_replays``.  ``out`` is what ``fn`` returned under capture: tensors
-the graph rewrites at every replay.  A capture that fails raises; there
-is no eager fallback.
+the graph rewrites at every replay.
 
 ``PerShape(fn, device)`` runs ``fn`` of one device tensor as one
 ``CapturedProgram`` per input shape, on a stream of its own (an oracle
@@ -20,8 +47,10 @@ worker's: the legacy default stream cannot be captured).
 """
 from __future__ import annotations
 
+import contextlib
 import copy
-from typing import Any, Callable, Optional
+import gc
+from typing import Any, Callable, List, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -42,6 +71,47 @@ def _launches(after, before):
             for a, b in zip(after, before)]
 
 
+class Captured(NamedTuple):
+    """What ``capture`` made: one graph and one output per stage, and the
+    kernels' launches one replay of all the graphs makes (``_launches``)."""
+    graphs: List[Any]
+    outs: List[Any]
+    launches: List[Any]
+
+
+def capture(stages: Sequence[Callable[[], Any]], stream: torch.cuda.Stream,
+            *, warmup: Callable[[], Any], pool=None) -> Captured:
+    """Run ``warmup()`` once, then capture each of ``stages`` as a CUDA
+    graph on ``stream``, in order, all under ``platform.capture_lock`` with
+    ``stream`` current (see the module docstring).  ``pool``: a
+    ``torch.cuda.graph_pool_handle()`` the graphs share."""
+    with platform.capture_lock, torch.cuda.stream(stream):
+        warmup()
+        before = _captured()
+        graphs, outs = [], []
+        with _collector_paused():
+            for fn in stages:
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph, pool=pool, stream=stream,
+                                      capture_error_mode="thread_local"):
+                    outs.append(fn())
+                graphs.append(graph)
+        return Captured(graphs, outs, _launches(_captured(), before))
+
+
+@contextlib.contextmanager
+def _collector_paused():
+    """The cyclic collector off until the block ends; its prior state back
+    after, on error too."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
+
+
 class CapturedProgram:
     """``fn`` captured as a CUDA graph (see the module docstring).
     ``pool``: a ``torch.cuda.graph_pool_handle()`` shared with other
@@ -50,18 +120,13 @@ class CapturedProgram:
     def __init__(self, fn: Callable[[], Any], stream: torch.cuda.Stream, *,
                  pool=None, warmup: Optional[Callable[[], Any]] = None):
         warm = fn if warmup is None else warmup
-        with platform.capture_lock, torch.cuda.stream(stream):
+
+        def twice():
             for _ in range(2):
                 warm()
-            # the warm-ups' temporaries go back to the card before the
-            # graph's pool takes its own
-            torch.cuda.empty_cache()
-            before = _captured()
-            self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph, pool=pool, stream=stream,
-                                  capture_error_mode="thread_local"):
-                self.out = fn()
-            self.launches = _launches(_captured(), before)
+
+        (self.graph,), (self.out,), self.launches = capture(
+            [fn], stream, warmup=twice, pool=pool)
         self.replays = 0
 
     def replay(self):

@@ -42,7 +42,8 @@ log = logging.getLogger(__name__)
 
 DeviceLike = Union[str, torch.device, None]
 
-# One CUDA-graph capture at a time in the process, its warm-up included.
+# One CUDA-graph capture at a time in the process, its warm-up included
+# (``kernels.graphs.capture`` takes it for every capture of the port).
 # The acquisition engine's bucket captures and the committee trainer's step
 # capture run in different threads of one PAL run; holding this lock keeps
 # one thread's first-use work (the kernel library's load, cuBLAS

@@ -178,8 +178,8 @@ def train(arch: str = "llama3.2-1b", preset: str = "smoke", *,
             ckpt.wait()
     finally:
         it.close()
-    if cuda:
-        torch.cuda.synchronize(dev)
+    if cuda:    # the step's stream joins the caller's after every step
+        torch.cuda.current_stream(dev).synchronize()
     seconds = time.time() - t0
     step_ms = [a.elapsed_time(b) for a, b in zip(marks[::2], marks[1::2])]
     step_start_ms = [marks[0].elapsed_time(a) for a in marks[::2]]

@@ -33,7 +33,7 @@ import torch
 
 from repro_torch.core import acquisition as acq
 from repro_torch.core import committee as cmte
-from repro_torch.kernels.graphs import CapturedProgram
+from repro_torch.kernels import graphs
 from repro_torch.launch.platform import DeviceLike, resolve_device
 from repro_torch.models import common as cm
 from repro_torch.models import model_zoo
@@ -138,16 +138,11 @@ class CommitteeServer:
         return uq.mean, uq
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 @dataclasses.dataclass
 class _Prefill:
     """One prefill shape of a batch: its input buffers and its graph."""
     inputs: Dict[str, torch.Tensor]
-    graph: Optional[CapturedProgram] = None
+    graph: Optional[graphs.CapturedProgram] = None
 
 
 @dataclasses.dataclass
@@ -161,7 +156,7 @@ class _Slot:
     index: torch.Tensor
     seq: torch.Tensor
     prefills: Dict[Any, _Prefill] = dataclasses.field(default_factory=dict)
-    decode: Optional[CapturedProgram] = None
+    decode: Optional[graphs.CapturedProgram] = None
 
 
 class ServeEngine:
@@ -259,6 +254,11 @@ class ServeEngine:
             self._emit(slot, logits)
         return logits
 
+    def _sync(self) -> None:
+        """Wait for the engine's stream (its graphs and copies run there)."""
+        if self._stream is not None:
+            self._stream.synchronize()
+
     def _run(self, graph, program) -> torch.Tensor:
         """One program: a replay of its graph on the card, else eagerly.
         Returns its logits."""
@@ -269,9 +269,9 @@ class ServeEngine:
             logits = program()
         return logits
 
-    def _capture(self, fn, warmup=None) -> CapturedProgram:
-        graph = CapturedProgram(fn, self._stream, pool=self._pool,
-                                warmup=warmup)
+    def _capture(self, fn, warmup=None) -> graphs.CapturedProgram:
+        graph = graphs.CapturedProgram(fn, self._stream, pool=self._pool,
+                                       warmup=warmup)
         self.captures += 1
         return graph
 
@@ -335,13 +335,13 @@ class ServeEngine:
                 self._ensure_graphs(slot, entry, start, max_new_tokens > 1)
             greedy = self._greedy()
 
-            _sync(self.device)
+            self._sync()
             t0 = time.perf_counter()
             logits = self._run(entry.graph, lambda: self._prefill_program(
                 slot, entry.inputs, start))
             if not greedy:
                 self._emit(slot, logits)
-            _sync(self.device)
+            self._sync()
             t_prefill = time.perf_counter() - t0
 
             t1 = time.perf_counter()
@@ -350,7 +350,7 @@ class ServeEngine:
                                    lambda: self._decode_program(slot))
                 if not greedy:
                     self._emit(slot, logits)
-            _sync(self.device)
+            self._sync()
             t_decode = time.perf_counter() - t1
             new = slot.seq[:, start:start + max_new_tokens].cpu()
         if cuda:

@@ -65,7 +65,7 @@ from repro_torch.checkpoint.pytree_ckpt import (
 from repro_torch.configs.base import TrainConfig
 from repro_torch.core.committee import committee_size, member
 from repro_torch.data.replay import ReplayTrainingBuffer
-from repro_torch.launch import platform
+from repro_torch.kernels import graphs
 from repro_torch.launch.platform import DeviceLike, resolve_device
 from repro_torch.models.common import torch_dtype
 from repro_torch.optim.adamw import AdamWState, QTensor, resolve_moments
@@ -366,6 +366,12 @@ class CommitteeTrainer:
             return contextlib.nullcontext()
         return torch.cuda.stream(self._stream)
 
+    def synchronize(self) -> None:
+        """Wait for the work queued on the trainer's stream (nothing on the
+        CPU)."""
+        if self._stream is not None:
+            self._stream.synchronize()
+
     # ------------------------------------------------------------- program
     def _body(self, cstate, x, y, size, step_seq):
         """The pure part of a step: draw, gather, the vmapped member step
@@ -406,17 +412,16 @@ class CommitteeTrainer:
 
     def _capture(self) -> None:
         """Warm up the pure body twice (kernel and cuBLAS initialisation
-        may not happen under capture), then capture the step program, on
-        the trainer's stream (current here), under the process-wide
-        capture lock (an engine in another thread may be capturing)."""
-        with platform.capture_lock:
+        may not happen under capture), then capture the step program on
+        the trainer's stream, through ``graphs.capture`` (an engine in
+        another thread may be capturing)."""
+        def warmup():
             for _ in range(2):
                 self._body(self.cstate, self.replay.x, self.replay.y,
                            self.replay.size_dev, self._seq_dev)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, stream=self._stream,
-                                  capture_error_mode="thread_local"):
-                metrics = self._program()
+
+        (graph,), (metrics,), _ = graphs.capture(
+            [self._program], self._stream, warmup=warmup)
         self._graph, self._graph_metrics = graph, metrics
         self._graph_ring = self.replay.generation
         self.captures += 1

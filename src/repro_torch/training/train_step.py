@@ -38,7 +38,7 @@ from torch.func import grad_and_value
 
 from repro_torch.checkpoint.pytree_ckpt import leaf_from_host, leaf_to_host
 from repro_torch.configs.base import TrainConfig
-from repro_torch.launch import platform
+from repro_torch.kernels import graphs
 from repro_torch.launch.platform import DeviceLike, resolve_device
 from repro_torch.optim.adamw import (
     AdamWConfig, AdamWState, QTensor, adamw_init, adamw_update,
@@ -225,7 +225,7 @@ class CapturedTrainStep:
     shapes, dtypes) is copied into static buffers, the pure step runs twice
     as a warm-up (kernel and cuBLAS initialisation, and any host-built
     constant a model caches, may not happen under capture), and the step
-    is captured on the step's own stream under ``platform.capture_lock``;
+    is captured on the step's own stream (``kernels.graphs.capture``);
     every later batch of that shape is one copy into the buffers and one
     ``graph.replay()``.  ``capture=False`` runs the same program eagerly;
     on the CPU it always runs eagerly.
@@ -263,16 +263,12 @@ class CapturedTrainStep:
         return metrics
 
     def _capture(self, bufs) -> _Graph:
-        with platform.capture_lock:
+        def warmup():
             for _ in range(2):
                 self._step(self.state, bufs)
-            # the warm-ups' activations go back to the card before the
-            # graph's private pool takes its own
-            torch.cuda.empty_cache()
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, stream=self._stream,
-                                  capture_error_mode="thread_local"):
-                metrics = self._program(bufs)
+
+        (graph,), (metrics,), _ = graphs.capture(
+            [lambda: self._program(bufs)], self._stream, warmup=warmup)
         self.captures += 1
         return _Graph(graph, bufs, metrics)
 
