@@ -202,8 +202,11 @@ Phases (each raises on a failed check; the script exits non-zero):
    rank ``committee_uq`` launches == dispatches + 2 x captures, 0 handoff
    host bytes; labels/s, exchange it/s with the trainer busy and idle,
    retrains, control-send ms a lane call and collective host bytes beside
-   (a)'s one-rank run); the CLI's ``DIST_OK 2 2 28.0``; dispatch and
-   kernel timings;
+   (a)'s one-rank run); one more 2x1 loop recapturing every round under
+   the capture recorder; the graph churn in a process of its own (one
+   thread capturing, one dropping what it captured, one replaying: no
+   crash, no failed capture); the CLI's ``DIST_OK 2 2 28.0``; dispatch
+   and kernel timings;
 19. the planners (``phase_planner``, last): (a) ``python -m
    repro_torch.launch.dryrun`` on llama3.2-1b ``decode_32k`` under the
    16 x 16 production mesh (a trace on fake CUDA tensors) and
@@ -2071,7 +2074,9 @@ def _mesh_pal(shape, tmp, on_pal=None):
                              for k, v in lanes.items()},
            "decides": lanes["trainer"]["decides"],
            "decide_ms": lanes["trainer"]["decide_s"] * 1e3
-           / max(lanes["trainer"]["decides"], 1)}
+           / max(lanes["trainer"]["decides"], 1),
+           "trainer_captures": dispatch.local(pal.committee_trainer).captures,
+           "unjoined_threads": bad["runtime.unjoined_threads"]}
     if pal.leader:
         busy, idle, *_ = clock.split(t0, t1)
         out.update(labels=rep["labeled_total"],
@@ -2079,7 +2084,25 @@ def _mesh_pal(shape, tmp, on_pal=None):
                    retrains=c.get("train.retrains", 0),
                    it_busy=busy, it_idle=idle)
     del pal
+    out["live"] = _live_counts()
     return out
+
+
+def _live_counts():
+    """What this process holds after a loop: its live process groups, its
+    Python threads, its OS threads (gloo's included) and the releases of
+    graphs and pinned buffers that wait in ``kernels.graphs`` to be
+    freed."""
+    import os
+
+    from torch.distributed import distributed_c10d as c10d
+
+    from repro_torch.kernels import graphs
+
+    return {"groups": len(c10d._world.pg_map),
+            "threads": threading.active_count(),
+            "os_threads": len(os.listdir("/proc/self/task")),
+            "graphs_pending": graphs.pending()}
 
 
 def _mesh_rank(shape, tmp, on_pal=None):
@@ -2364,28 +2387,30 @@ def _recapture_every_round(pal, forced):
     tr.train = train_recapturing
 
 
-def _soak_rank(shape, tmp, recapture, checks, loops=1):
-    """One gloo rank of a soak spawn, under a ``CaptureRecorder``: the
-    checks of phase_mesh (b) then ``PAL`` (``_mesh_rank``), or the loop
-    alone (``checks`` False), then ``loops - 1`` more loops in the same
-    process; with ``recapture`` the leader's trainer recaptures every
-    round.  A failure is returned, not raised, so both ranks report their
-    windows."""
+def _soak_rank(shape, tmp, recapture, checks, loops=1, recorder=True):
+    """One gloo rank of a soak spawn: the checks of phase_mesh (b) then
+    ``PAL`` (``_mesh_rank``), or the loop alone (``checks`` False), then
+    ``loops - 1`` more loops in the same process; with ``recapture`` the
+    leader's trainer recaptures every round; with ``recorder`` under a
+    ``CaptureRecorder`` (without it, captures are counted by their owners
+    and a failed one is known by its error).  A failure is returned, not
+    raised, so both ranks report their windows."""
     import faulthandler
     import os
 
     faulthandler.enable()           # a crash prints every thread's stack
-    rec = CaptureRecorder().install()
+    rec = CaptureRecorder().install() if recorder else None
     forced, before = [0], []
 
     def on_pal(pal):
         if not before:
-            before.append(dict(rec.captures))
+            before.append(dict(rec.captures) if rec else {})
         if recapture and pal.leader:
             _recapture_every_round(pal, forced)
 
     out = {"rank": int(torch.distributed.get_rank()), "shape": shape,
-           "recapture": recapture, "checks": checks, "loops": loops}
+           "recapture": recapture, "checks": checks, "loops": loops,
+           "recorder": recorder}
     dirs = [os.path.join(tmp, f"loop{i}") for i in range(loops)]
     try:
         for d in dirs:
@@ -2397,18 +2422,33 @@ def _soak_rank(shape, tmp, recapture, checks, loops=1):
             out["pal"] = _mesh_pal(shape, dirs[0], on_pal)
         out["more"] = []
         for d in dirs[1:]:
-            rec.mark_pal()
+            if rec:
+                rec.mark_pal()
             out["more"].append(_mesh_pal(shape, d, on_pal))
     except Exception as e:      # noqa: BLE001 — returned with the windows
         out["error"] = f"{e!r}"[:4000]
-    out.update(rec.summary(), forced=forced[0])
-    base = before[0] if before else {}
-    out["pal_captures"] = {k: v - base.get(k, 0)
-                           for k, v in rec.captures.items()}
+    if rec:
+        out.update(rec.summary())
+        base = before[0] if before else {}
+        out["pal_captures"] = {k: v - base.get(k, 0)
+                               for k, v in rec.captures.items()}
+    else:
+        done = ([out["pal"]] if "pal" in out else []) + out.get("more", [])
+        bad = "StreamCapture" in out.get("error", "")
+        out.update(_NO_RECORDER, failed={"site unknown": 1} if bad else {},
+                   pal_captures={"trainer": sum(p["trainer_captures"]
+                                                for p in done),
+                                 "engine": sum(p["captures"] for p in done)})
+    out["forced"] = forced[0]
     return out
 
 
-def _soak_spawn(shape, recapture, checks, loops=1):
+_NO_RECORDER = {"captures": {}, "failed": {}, "failures": [],
+                "in_window": {}, "gc_in_window": 0,
+                "streams_at_trainer_capture": {}, "shared_streams": {}}
+
+
+def _soak_spawn(shape, recapture, checks, loops=1, recorder=True):
     """One fresh 2-rank spawn of ``_soak_rank``; returns both ranks'
     results (the leader's first) and the spawn's wall seconds."""
     import tempfile
@@ -2420,14 +2460,13 @@ def _soak_spawn(shape, recapture, checks, loops=1):
         try:
             outs = distributed.launch_local(2, _soak_rank, shape, tmp,
                                             recapture, checks, loops,
-                                            device="cuda:0", timeout=900)
+                                            recorder, device="cuda:0",
+                                            timeout=900)
         except RuntimeError as e:
-            outs = [{"rank": r, "shape": shape, "recapture": recapture,
-                     "checks": checks, "error": f"spawn: {e!r}"[:4000],
-                     "captures": {}, "failed": {}, "failures": [],
-                     "in_window": {}, "gc_in_window": 0, "forced": 0,
-                     "pal_captures": {},
-                     "shared_streams": {}, "streams_at_trainer_capture": {}}
+            outs = [dict(_NO_RECORDER, rank=r, shape=shape,
+                         recapture=recapture, checks=checks, loops=loops,
+                         recorder=recorder, error=f"spawn: {e!r}"[:4000],
+                         forced=0, pal_captures={})
                     for r in range(2)]
     return sorted(outs, key=lambda o: o["rank"]), time.perf_counter() - t0
 
@@ -2441,10 +2480,12 @@ def _soak_line(i, outs, wall, smi):
     tc = pc.get("trainer", 0)
     send = p.get("send_ms", {})
     loops = lead.get("loops", 1)
+    live = (lead.get("more") or [p])[-1].get("live")
     return (f"soak {i} {shape[0]}x{shape[1]} "
             f"{'recapture' if lead['recapture'] else 'natural'}"
             f"{'' if lead['checks'] else ' (loop only)'}"
-            f"{f' x{loops} loops' if loops > 1 else ''}: leader trainer "
+            f"{f' x{loops} loops' if loops > 1 else ''}, recorder "
+            f"{'on' if lead['recorder'] else 'off'}: leader trainer "
             f"captures {tc} ({tc - lead['forced']} natural, "
             f"{lead['forced']} forced) in the loop, engine graphs "
             f"{pc.get('engine', 0)}, oracle graphs {pc.get('oracle', 0)} "
@@ -2454,7 +2495,8 @@ def _soak_line(i, outs, wall, smi):
             f"{send.get('trainer', float('nan')):.4f}; collector runs in a "
             f"window {sum(o['gc_in_window'] for o in outs)}; calls in "
             f"another thread's window {lead['in_window']}; shared streams "
-            f"{sum(len(o['shared_streams']) for o in outs)}; "
+            f"{sum(len(o['shared_streams']) for o in outs)}; after the "
+            f"last loop {live}; "
             f"{'ERROR ' + errors if errors else 'ok'}; {wall:.2f} s [{smi}]")
 
 
@@ -2479,6 +2521,147 @@ def _soak_short(smi):
             "labels_per_s": lead["pal"]["labels_per_s"]}
 
 
+CHURN_S = 25.0          # seconds of the graph churn (phase_mesh (b))
+
+
+def graph_churn(seconds=CHURN_S):
+    """Four threads on the port's capture path for ``seconds``, as a
+    process that runs loop after loop has them: one captures a small
+    program through ``graphs.capture`` again and again on stream S (a live
+    loop's trainer recapturing); one drops the last reference to what the
+    first captured; one builds a committee engine on S between those
+    captures, scores one batch through it (its bucket graph captured, its
+    pinned twins copied through on S), then drops it and collects (a
+    finished loop's engine, freed by the collector while a live owner
+    captures on its stream: torch's pool hands out 32 streams per device
+    in turn); one replays four graphs captured before on another stream.
+    torch 2.11 keeps every CUDA graph in one set with no lock
+    (``CUDAGeneratorState::registered_graphs_``), which ``capture_begin``
+    fills without the GIL and a graph's destructor empties, and its pinned
+    host allocator records an event on S for each freed block that was
+    copied on S; a port that frees either in the dropping thread beside
+    the capture dies within seconds (a failed torch check in
+    ``unregister_graph``, a CUDA error or a segfault).  Returns the
+    counts; the replays' sums are checked, and an error in a thread is
+    returned in ``errors``.  Run it in a process of its own
+    (``_graph_churn_step``)."""
+    from repro_torch.kernels import graphs
+
+    _build.build_all()
+    dev = torch.device("cuda")
+    x, y = (torch.zeros(1024, device=dev) for _ in range(2))
+    cap_s, rep_s = torch.cuda.Stream(dev), torch.cuda.Stream(dev)
+    for s in (cap_s, rep_s):
+        s.wait_stream(torch.cuda.current_stream(dev))
+    kept = graphs.capture([lambda: y.add_(1.0)] * 4, rep_s,
+                          warmup=lambda: None).graphs
+    cparams, rows = train_profile.committee(), train_profile.geometries(64, 3)
+    made, errors = [], []
+    n = {"captures": 0, "drops": 0, "engines": 0, "replays": 0}
+    stop, gate = threading.Event(), threading.Lock()
+
+    def guarded(fn):
+        def run():
+            try:
+                fn()
+            except BaseException as e:      # noqa: BLE001 — returned
+                errors.append(f"{threading.current_thread().name}: {e!r}")
+                stop.set()
+        return run
+
+    def capturer():
+        while not stop.is_set():
+            with gate:
+                made.append(graphs.capture([lambda: x.add_(1.0)], cap_s,
+                                           warmup=lambda: None))
+            n["captures"] += 1
+
+    def dropper():
+        while not stop.is_set():
+            try:
+                got = made.pop(0)
+            except IndexError:
+                time.sleep(0)
+                continue
+            del got
+            n["drops"] += 1
+
+    def owner():
+        while not stop.is_set():
+            with gate:      # its work on S never falls in a capture on S
+                eng = acq.FusedEngine(train_profile.member_forces, cparams,
+                                      0.5, device=dev)
+                eng._stream = cap_s         # the pool's stream, handed on
+                cap_s.wait_stream(torch.cuda.current_stream(dev))
+                eng.score(rows)
+            del eng
+            gc.collect()
+            n["engines"] += 1
+
+    def replayer():
+        with torch.cuda.stream(rep_s):
+            while not stop.is_set():
+                for g in kept:
+                    g.replay()
+                n["replays"] += 1
+                rep_s.synchronize()
+
+    threads = [threading.Thread(target=guarded(f), name=f.__name__)
+               for f in (capturer, dropper, owner, replayer)]
+    for t in threads:
+        t.start()
+    stop.wait(seconds)
+    stop.set()
+    for t in threads:
+        t.join()
+    rep_s.synchronize()
+    if float(y[0]) != 4.0 * n["replays"] or float(x.abs().max()) != 0.0:
+        errors.append(f"replayed sums: y {float(y[0])} for {n['replays']} "
+                      f"rounds of 4, x {float(x.abs().max())}")
+    del made[:]
+    return dict(n, errors=errors)
+
+
+def _graph_churn_child(seconds, results):
+    import faulthandler
+
+    faulthandler.enable()
+    results.put(graph_churn(seconds))
+
+
+def _graph_churn_step(smi, seconds=CHURN_S):
+    """phase_mesh (b)'s reproducer of two torch races behind the ten-loop
+    segfault: ``graph_churn`` in a spawned process, so a crash is a failed
+    step.  Fails on a crash, an error in a thread or a failed capture; at
+    most ``seconds`` + 35 s."""
+    import multiprocessing as mp
+    import queue as queue_mod
+
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    t0 = time.perf_counter()
+    proc = ctx.Process(target=_graph_churn_child, args=(seconds, results))
+    proc.start()
+    got = None
+    while got is None and time.perf_counter() - t0 < seconds + 30:
+        try:
+            got = results.get(timeout=1.0)
+        except queue_mod.Empty:
+            if not proc.is_alive():
+                break
+    proc.join(5)
+    if proc.is_alive():
+        proc.kill()
+        proc.join()
+    wall = time.perf_counter() - t0
+    print(f"graph churn ({seconds:.0f} s, a process of its own): "
+          f"{got}, exit code {proc.exitcode}, {wall:.2f} s [{smi}]")
+    if got is None or proc.exitcode != 0 or got["errors"]:
+        raise AssertionError(f"graph churn: exit code {proc.exitcode}, "
+                             f"{got}")
+    return dict(got, wall_s=wall)
+
+
 def soak(natural=SOAK_SPAWNS, recapture=SOAK_RECAPTURE_SPAWNS,
          one_by_two=SOAK_ONE_BY_TWO, recapture_loops=SOAK_RECAPTURE_LOOPS,
          out=None, smi=None):
@@ -2490,12 +2673,12 @@ def soak(natural=SOAK_SPAWNS, recapture=SOAK_RECAPTURE_SPAWNS,
     4-11 rounds), ``one_by_two`` on 1x2, interleaved.  Prints one line a
     spawn and the totals, writes every spawn's results (failed windows'
     logs included) to ``out`` (JSON) when given, and raises at the end if
-    any capture failed, any spawn failed, or two live streams shared one
-    CUDA stream.  A rank that runs ten loops in one process has crashed
-    with a segfault in some spawns (ROADMAP.md section C lists it as an open
-    fault); such a spawn counts as failed, so at its defaults the soak
-    does not pass yet.  To run it alone on the card: ``PYTHONPATH=src
-    python -c "import chip_smoke as c; c.soak(out='soak.json')"``."""
+    any capture failed, any spawn failed (a rank that crashed included),
+    or two live streams shared one CUDA stream.  A rank that runs ten
+    loops in one process still segfaults in about one spawn in twelve
+    (ROADMAP.md section C, open).  To run it alone on the card:
+    ``PYTHONPATH=src python -c "import chip_smoke as c;
+    c.soak(out='soak.json')"``."""
     smi = smi or platform.nvidia_smi()
     _build.build_all()
     plan = ([((2, 1), False)] * natural + [((2, 1), True)] * recapture
@@ -2521,6 +2704,51 @@ def soak(natural=SOAK_SPAWNS, recapture=SOAK_RECAPTURE_SPAWNS,
             total["shared_streams"]:
         raise AssertionError(f"soak: {total}")
     return total
+
+
+def soak_forms(rounds=2, loops=SOAK_RECAPTURE_LOOPS, out=None, smi=None):
+    """Ten-loop 2x1 spawns (``loops`` loops a process, phase_mesh (b)'s
+    checks in the first) in four forms, ``rounds`` of each, interleaved:
+    the leader's trainer recapturing every round or not, each with and
+    without the ``CaptureRecorder``.  Prints a line a spawn and one a form
+    (spawns, crashed spawns, other failed spawns, failed captures) and
+    writes the spawns to ``out`` (JSON) when given.  It measures and
+    raises nothing: it tells the harness's share in a fault from the
+    program's."""
+    smi = smi or platform.nvidia_smi()
+    _build.build_all()
+    forms = [(rc, rec) for rc in (True, False) for rec in (True, False)]
+    table = {f: {"spawns": 0, "crashed": 0, "failed": 0,
+                 "failed_captures": 0} for f in forms}
+    rows = []
+    for i in range(rounds):
+        for rc, rec in forms:
+            outs, wall = _soak_spawn((2, 1), rc, True, loops, rec)
+            rows.append({"outs": outs, "wall_s": wall})
+            print(_soak_line(f"form {i}", outs, wall, smi), flush=True)
+            t = table[(rc, rec)]
+            err = " ".join(o["error"] for o in outs if "error" in o)
+            t["spawns"] += 1
+            t["crashed"] += _crashed(err)
+            t["failed"] += bool(err) and not _crashed(err)
+            t["failed_captures"] += sum(sum(o["failed"].values())
+                                        for o in outs)
+    for (rc, rec), t in table.items():
+        print(f"soak form {'recapture' if rc else 'natural'} x{loops} loops, "
+              f"recorder {'on' if rec else 'off'}: {json.dumps(t)} [{smi}]",
+              flush=True)
+    if out:
+        Path(out).parent.mkdir(parents=True, exist_ok=True)
+        Path(out).write_text(json.dumps(
+            {"smi": smi, "forms": {f"{rc} {rec}": t
+                                   for (rc, rec), t in table.items()},
+             "spawns": rows}, default=str))
+    return table
+
+
+def _crashed(error):
+    """Whether a spawn's error says a rank died of a signal."""
+    return "exited with code -" in error
 
 
 def _soak_totals(rows):
@@ -2742,10 +2970,11 @@ def phase_mesh(smi):
     same dispatches, captures and handoffs); then one more 2x1 loop in
     which the leader's trainer recaptures every round, under a
     ``CaptureRecorder`` (``_soak_short``: 0 failed captures); then the
-    CLI's ``DIST_OK 2 2 28.0``.  Prints a 64-row dispatch's host ms on 1x1
-    and 2x1 beside the unsharded engine's, the 2-rank loops' numbers
-    beside the one-rank loop's, and the partials/combine entries' device
-    ms beside the split path's."""
+    graph churn in a process of its own (``_graph_churn_step``: 0
+    crashes, 0 errors); then the CLI's ``DIST_OK 2 2 28.0``.  Prints a
+    64-row dispatch's host ms on 1x1 and 2x1 beside the unsharded
+    engine's, the 2-rank loops' numbers beside the one-rank loop's, and
+    the partials/combine entries' device ms beside the split path's."""
     import tempfile
 
     from repro_torch.launch import distributed
@@ -2812,6 +3041,7 @@ def phase_mesh(smi):
                                                 device="cuda:0", timeout=600)
         _same_pal_run(shape, [o["pal"] for o in b[shape]])
     recap = _soak_short(smi)
+    churn = _graph_churn_step(smi)
     cli = _dist_cli_smoke()
     for shape, outs in b.items():
         for o in outs:
@@ -2835,7 +3065,7 @@ def phase_mesh(smi):
     times = _mesh_flash_times(smi)
     attn = [o for outs in b.values() for o in outs]
     return {"a": a_eng, "pal": pal_stats, "b": b, "times": times,
-            "recapture": recap,
+            "recapture": recap, "churn": churn,
             "partials_launches": sum(o["attn_launches"][0] for o in attn),
             "combine_launches": sum(o["attn_launches"][1] for o in attn),
             "cuq_launches": a_eng["launches"] + sum(

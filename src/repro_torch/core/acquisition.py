@@ -380,7 +380,9 @@ class _Bucket:
     ``host_out`` its pinned host twin.  On the card with capture on,
     ``graph`` is the captured program, ``new_state`` its rule-state
     outputs and ``launches`` the ``committee_uq`` launches one replay
-    makes."""
+    makes.  Dropped, it hands all of it to ``graphs.release``: the pinned
+    twins carried copies on the engine's stream, so they are freed only
+    where no capture runs."""
 
     def __init__(self, nb: int, in_dim: int, device: torch.device):
         self.nb, self.in_dim = nb, in_dim
@@ -406,6 +408,9 @@ class _Bucket:
         self.event = torch.cuda.Event() if cuda else None
         self.staged: Optional[_Staged] = None      # a sharded bucket's
 
+    def __del__(self):
+        graphs.release(vars(self))
+
     def set_output(self, packed: torch.Tensor) -> None:
         """Keep the program's packed output buffer (and its host twin)."""
         self.packed = packed
@@ -423,7 +428,9 @@ class _StepBucket:
     the front, ``n_sel`` their count; ``host_n``/``host_sel`` are pinned
     twins on the card (the same tensors on the CPU).  ``carry`` is the
     carried tree the program reads and writes in place (a captured graph
-    keeps its addresses), ``graph`` the captured program on the card."""
+    keeps its addresses), ``graph`` the captured program on the card.
+    Dropped, it hands all of it to ``graphs.release``, as ``_Bucket``
+    does."""
 
     def __init__(self, nb: int, device: torch.device):
         self.nb = nb
@@ -447,6 +454,9 @@ class _StepBucket:
         self.launches = 0
         self.event = torch.cuda.Event() if cuda else None
         self.staged: Optional[_Staged] = None      # a sharded bucket's
+
+    def __del__(self):
+        graphs.release(vars(self))
 
 
 class _Staged:

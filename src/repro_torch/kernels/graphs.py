@@ -35,6 +35,26 @@ invalidates that capture (the synchronize fails with
 shield it), so the port makes none: a caller waits for its own stream or
 event, which leaves another thread's capture alone.
 
+Two frees break the process when another thread makes them beside a
+capture, and both happen when a finished owner is freed (by the
+collector, in whatever thread it runs) while a live one captures.  torch
+2.11's CUDA generator state keeps every graph in one
+``std::unordered_set`` with no lock (``registered_graphs_``,
+``ATen/cuda/CUDAGeneratorImpl.h``), which ``capture_begin`` (run without
+the GIL) inserts into and a graph's destructor erases from.  And its
+pinned host allocator records an event on every stream a freed block was
+copied on (``CachingHostAllocatorImpl::free``,
+``ATen/core/CachingHostAllocator.h``), also on a stream that another
+thread is capturing: torch's pool hands out 32 streams per device in
+turn, so a finished owner's stream is in time a live owner's.  So the
+port destroys its graphs and frees the pinned buffers its engines copy
+through only under the capture lock: every graph it captures is a
+``Graph``, and a ``Graph`` or an engine's bucket that is dropped hands
+what it held to ``release``, whose list is emptied under
+``platform.capture_lock``, at once when the lock is free, else by
+``capture`` before it opens its next window or after it closes it.
+``pending()`` counts what waits.
+
 ``CapturedProgram(fn, stream)`` is one such graph with two runs of ``fn``
 (or ``warmup``) as the warm-up; ``replay()`` replays the graph on the
 current stream and adds its launches to the wrappers' counters with their
@@ -71,10 +91,62 @@ def _launches(after, before):
             for a, b in zip(after, before)]
 
 
+_doomed: List[Any] = []      # what dropped owners held, to be freed
+
+
+def release(held: dict) -> None:
+    """Free what an owner held (its ``vars``: emptied here) under the
+    capture lock: at once if this thread can take it, else when its
+    holder is done.  Call it from the owner's ``__del__``."""
+    _doomed.append(dict(held))
+    held.clear()
+    _destroy_doomed(blocking=False)
+
+
+class Graph:
+    """One captured CUDA graph of the port.  ``replay()`` replays it on
+    the current stream.  Dropped, it leaves its CUDA graph to be destroyed
+    under the capture lock (see the module docstring)."""
+
+    def __init__(self, cuda_graph):
+        self.cuda_graph = cuda_graph
+
+    def replay(self) -> None:
+        self.cuda_graph.replay()
+
+    def __del__(self):
+        release(vars(self))
+
+
+def _destroy_doomed(blocking: bool = True) -> None:
+    """Free what ``_doomed`` holds if this thread can take the capture
+    lock (without waiting unless ``blocking``); else its holder frees
+    it."""
+    if not _doomed or not platform.capture_lock.acquire(blocking=blocking):
+        return
+    try:
+        _drain()
+    finally:
+        platform.capture_lock.release()
+
+
+def _drain() -> None:
+    """Free what ``_doomed`` holds (the caller holds the capture lock and
+    no window is open)."""
+    while _doomed:
+        _doomed.pop()
+
+
+def pending() -> int:
+    """The releases not freed yet."""
+    return len(_doomed)
+
+
 class Captured(NamedTuple):
-    """What ``capture`` made: one graph and one output per stage, and the
-    kernels' launches one replay of all the graphs makes (``_launches``)."""
-    graphs: List[Any]
+    """What ``capture`` made: one ``Graph`` and one output per stage, and
+    the kernels' launches one replay of all the graphs makes
+    (``_launches``)."""
+    graphs: List[Graph]
     outs: List[Any]
     launches: List[Any]
 
@@ -84,19 +156,26 @@ def capture(stages: Sequence[Callable[[], Any]], stream: torch.cuda.Stream,
     """Run ``warmup()`` once, then capture each of ``stages`` as a CUDA
     graph on ``stream``, in order, all under ``platform.capture_lock`` with
     ``stream`` current (see the module docstring).  ``pool``: a
-    ``torch.cuda.graph_pool_handle()`` the graphs share."""
+    ``torch.cuda.graph_pool_handle()`` the graphs share.  What was
+    released before is freed first, and what is released meanwhile after
+    the last window."""
     with platform.capture_lock, torch.cuda.stream(stream):
-        warmup()
-        before = _captured()
-        graphs, outs = [], []
-        with _collector_paused():
-            for fn in stages:
-                graph = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(graph, pool=pool, stream=stream,
-                                      capture_error_mode="thread_local"):
-                    outs.append(fn())
-                graphs.append(graph)
-        return Captured(graphs, outs, _launches(_captured(), before))
+        try:
+            _drain()
+            warmup()
+            before = _captured()
+            graphs, outs = [], []
+            with _collector_paused():
+                for fn in stages:
+                    graph = Graph(torch.cuda.CUDAGraph())
+                    graphs.append(graph)
+                    with torch.cuda.graph(graph.cuda_graph, pool=pool,
+                                          stream=stream,
+                                          capture_error_mode="thread_local"):
+                        outs.append(fn())
+            return Captured(graphs, outs, _launches(_captured(), before))
+        finally:
+            _drain()
 
 
 @contextlib.contextmanager

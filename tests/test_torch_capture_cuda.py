@@ -5,18 +5,27 @@ the port makes none, and each owner waits for its own stream instead.
 Destroying a CUDA graph in the capturing thread inside its window
 invalidates the capture too, and the cyclic collector does that when it
 frees a cycle holding graphs there: ``graphs.capture`` keeps the collector
-off in the window.  Each case puts its call into the committee trainer's
-own capture (``CommitteeTrainer._capture``) and holds the captured step
-against the eager one bit for bit.  Every test needs a CUDA card (capture has no CPU
-mode), so each is marked ``cuda`` and skips without one.  This file
-imports no JAX:
+off in the window.  Each of those cases puts its call into the committee
+trainer's own capture (``CommitteeTrainer._capture``) and holds the
+captured step against the eager one bit for bit.  Destroying a CUDA graph
+in one thread while another is inside ``capture_begin`` corrupts memory
+(torch 2.11's generator state keeps the graphs in a set with no lock):
+the port destroys its graphs only under the capture lock, held here by
+``chip_smoke.graph_churn`` in a process of its own.  Every test needs a
+CUDA card (capture has no CPU mode), so each is marked ``cuda`` and skips
+without one.  This file imports no JAX:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_capture_cuda.py
 """
 import gc
+import json
+import os
+import subprocess
+import sys
 import threading
 import time
 import weakref
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -201,3 +210,30 @@ def test_trainer_capture_survives_the_collector_in_its_window(cuda_device,
     _check_against_eager(tr)
     gc.collect()
     assert cycles and cycles[0]() is None
+
+
+@pytest.mark.cuda
+def test_graph_churn_drops_beside_captures_and_replays(cuda_device):
+    """``chip_smoke.graph_churn`` in a child process for 20 s: one thread
+    captures through ``graphs.capture`` again and again on a stream,
+    another drops what it captured, a third builds committee engines on
+    that stream between the captures and drops them, a fourth replays
+    other graphs.  When a dropped graph was destroyed, or a dropped
+    engine's pinned buffers freed, in the dropping thread, the process
+    died within seconds (torch's check in ``unregister_graph``, a CUDA
+    error or a segfault).  Now the child exits 0 with thousands of
+    captures and drops, tens of engines, every replay's sum right and no
+    error in any thread."""
+    root = Path(__file__).resolve().parents[1]
+    code = ("import json, chip_smoke as c; "
+            "print('CHURN', json.dumps(c.graph_churn(20.0)))")
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    run = subprocess.run([sys.executable, "-X", "faulthandler", "-c", code],
+                         cwd=root, env=env, capture_output=True, text=True,
+                         timeout=240)
+    assert run.returncode == 0, run.stderr[-4000:]
+    line = [x for x in run.stdout.splitlines() if x.startswith("CHURN ")]
+    got = json.loads(line[-1][len("CHURN "):])
+    assert not got["errors"], got
+    assert got["captures"] > 1000 and got["drops"] > 1000, got
+    assert got["engines"] > 10 and got["replays"] > 100, got
