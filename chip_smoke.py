@@ -2219,7 +2219,12 @@ class CaptureRecorder:
 
         self._patch(owner, name, rec_call)
 
-    def install(self):
+    def install(self, skip=()):
+        """Wrap what the class docstring lists; ``skip`` leaves out
+        families of wrappers: ``"calls"`` (the logged calls), ``"del"``
+        (graph and event destructors), ``"streams"`` (``Stream.__new__``:
+        no shared-stream check then), ``"gc"`` (the collector's
+        callbacks).  Capture windows are always recorded."""
         from repro_torch.kernels import graphs
         from repro_torch.launch.mesh import Mesh
 
@@ -2261,6 +2266,24 @@ class CaptureRecorder:
 
         self._patch(G, "capture_begin", rec_begin)
         self._patch(G, "capture_end", rec_end)
+        if "calls" not in skip:
+            self._log_calls(graphs, Mesh)
+        if "del" not in skip:
+            for cls in (G, torch.cuda.Event):
+                self._patch(cls, "__del__", self._destructor(cls))
+        if "streams" not in skip:
+            self._record_streams()
+        if "gc" not in skip:
+            def rec_gc(phase, info):
+                rec.note(f"gc {phase}", f"generation {info['generation']} "
+                         f"collected {info.get('collected', '-')} window "
+                         f"{bool(rec._open)}")
+
+            gc.callbacks.append(rec_gc)
+            self._undo.append((gc.callbacks, rec_gc, None, None))
+        return self
+
+    def _log_calls(self, graphs, Mesh):
         for owner, name in ((torch.cuda, "synchronize"),
                             (torch.cuda, "empty_cache"),
                             (torch._C, "_host_emptyCache")):
@@ -2273,9 +2296,9 @@ class CaptureRecorder:
         self._logged(torch.Tensor, "pin_memory", "pin_memory")
         self._logged(Mesh, "_gather_axis", "staged_gather")
         self._logged(graphs.PerShape, "__call__", "oracle_call")
-        for cls in (G, torch.cuda.Event):
-            self._patch(cls, "__del__", self._destructor(cls))
-        new = torch.cuda.Stream.__new__
+
+    def _record_streams(self):
+        rec, new = self, torch.cuda.Stream.__new__
 
         def rec_new(cls, *a, **kw):
             s = new(cls, *a, **kw)
@@ -2288,15 +2311,6 @@ class CaptureRecorder:
             return s
 
         self._patch(torch.cuda.Stream, "__new__", staticmethod(rec_new))
-
-        def rec_gc(phase, info):
-            rec.note(f"gc {phase}", f"generation {info['generation']} "
-                     f"collected {info.get('collected', '-')} window "
-                     f"{bool(rec._open)}")
-
-        gc.callbacks.append(rec_gc)
-        self._undo.append((gc.callbacks, rec_gc, None, None))
-        return self
 
     def _destructor(self, cls):
         orig, rec = getattr(cls, "__del__", None), self
@@ -2387,19 +2401,116 @@ def _recapture_every_round(pal, forced):
     tr.train = train_recapturing
 
 
-def _soak_rank(shape, tmp, recapture, checks, loops=1, recorder=True):
+class _SoakLog:
+    """A soak rank's files under ``log_dir``: ``rank{r}.faults`` holds
+    faulthandler's stacks of every thread, written when this rank crashes
+    and, by a watchdog thread, when the other rank's process has ended
+    without writing its ``rank{r}.done`` (a crash there); a line of
+    ``rank{r}.loops.jsonl`` follows every finished loop (its ``live``)."""
+
+    def __init__(self, log_dir, rank):
+        import faulthandler
+        import os
+
+        self.dir, self.rank = Path(log_dir), rank
+        self.dir.mkdir(parents=True, exist_ok=True)
+        self.faults = open(self.dir / f"rank{rank}.faults", "w")
+        faulthandler.enable(file=self.faults)
+        (self.dir / f"rank{rank}.pid").write_text(str(os.getpid()))
+        threading.Thread(target=self._watch, name="soak-watchdog",
+                         daemon=True).start()
+
+    def _peer_ended(self, peer):
+        pid = self.dir / f"rank{peer}.pid"
+        if not pid.exists() or (self.dir / f"rank{peer}.done").exists():
+            return False
+        try:
+            stat = Path(f"/proc/{int(pid.read_text())}/stat").read_text()
+        except (OSError, ValueError):
+            return True
+        return stat.rsplit(")", 1)[1].split()[0] in ("Z", "X")
+
+    def _watch(self):
+        import faulthandler
+
+        while not self._peer_ended(1 - self.rank):
+            time.sleep(0.2)
+        self.faults.write(f"rank {1 - self.rank} ended without a result; "
+                          f"rank {self.rank}'s threads:\n")
+        self.faults.flush()
+        faulthandler.dump_traceback(file=self.faults, all_threads=True)
+        self.faults.flush()
+
+    def loop(self, i, pal_out, freed=None):
+        with open(self.dir / f"rank{self.rank}.loops.jsonl", "a") as f:
+            f.write(json.dumps({"loop": i, "live": pal_out.get("live"),
+                                "freed": freed, "t": time.time()}) + "\n")
+
+    def done(self, error=None):
+        """The rank's end: its error (if any) in ``rank{r}.done``, which
+        a crashed rank's result never carries."""
+        (self.dir / f"rank{self.rank}.done").write_text(error or "")
+
+
+def _collect_between(collector):
+    """With ``collector="between"``: collect now, and return the 25 most
+    common types of what the collection freed (None otherwise)."""
+    if collector != "between":
+        return None
+    import collections
+
+    gc.set_debug(gc.DEBUG_SAVEALL)
+    try:
+        gc.collect()
+        freed = collections.Counter(type(o).__qualname__ for o in gc.garbage)
+    finally:
+        gc.set_debug(0)
+        gc.garbage.clear()
+    gc.collect()
+    return freed.most_common(25)
+
+
+def _soak_progress(log_dir):
+    """What a spawn's ``_SoakLog`` files hold: per rank the loops it
+    finished (with the last one's ``live``) and its stacks, if any."""
+    d, got = Path(log_dir), {}
+    for r in range(2):
+        lines = []
+        f = d / f"rank{r}.loops.jsonl"
+        if f.exists():
+            lines = [json.loads(x) for x in f.read_text().splitlines() if x]
+        faults, done = d / f"rank{r}.faults", d / f"rank{r}.done"
+        got[f"rank{r}"] = {
+            "loops_done": len(lines),
+            "live": [x["live"] for x in lines],
+            "faults": faults.read_text()[-30000:] if faults.exists() else "",
+            "error": done.read_text()[-4000:] if done.exists() else None}
+    return got
+
+
+def _soak_rank(shape, tmp, recapture, checks, loops=1, recorder=True,
+               log_dir=None, collector="auto"):
     """One gloo rank of a soak spawn: the checks of phase_mesh (b) then
     ``PAL`` (``_mesh_rank``), or the loop alone (``checks`` False), then
     ``loops - 1`` more loops in the same process; with ``recapture`` the
     leader's trainer recaptures every round; with ``recorder`` under a
     ``CaptureRecorder`` (without it, captures are counted by their owners
-    and a failed one is known by its error).  A failure is returned, not
-    raised, so both ranks report their windows."""
+    and a failed one is known by its error); with ``log_dir`` it keeps a
+    ``_SoakLog`` there.  ``collector="between"`` keeps the cyclic
+    collector off inside each loop and collects after it, in this thread
+    with the loop's lanes closed (each loop's line then holds the types
+    that collection freed).  A failure is returned, not raised, so both
+    ranks report their windows."""
     import faulthandler
     import os
 
-    faulthandler.enable()           # a crash prints every thread's stack
-    rec = CaptureRecorder().install() if recorder else None
+    rank = int(torch.distributed.get_rank())
+    log = _SoakLog(log_dir, rank) if log_dir else None
+    if log is None:
+        faulthandler.enable()       # a crash prints every thread's stack
+    rec = CaptureRecorder().install(
+        recorder if isinstance(recorder, (tuple, list)) else ()) \
+        if recorder else None
     forced, before = [0], []
 
     def on_pal(pal):
@@ -2415,18 +2526,26 @@ def _soak_rank(shape, tmp, recapture, checks, loops=1, recorder=True):
     try:
         for d in dirs:
             os.makedirs(d, exist_ok=True)
+        if collector == "between":
+            gc.disable()
         if checks:
             out["pal"] = _mesh_rank(shape, dirs[0], on_pal)["pal"]
         else:
             platform.set_reference_precision()
             out["pal"] = _mesh_pal(shape, dirs[0], on_pal)
+        if log:
+            log.loop(0, out["pal"], _collect_between(collector))
         out["more"] = []
-        for d in dirs[1:]:
+        for i, d in enumerate(dirs[1:], 1):
             if rec:
                 rec.mark_pal()
             out["more"].append(_mesh_pal(shape, d, on_pal))
+            if log:
+                log.loop(i, out["more"][-1], _collect_between(collector))
     except Exception as e:      # noqa: BLE001 — returned with the windows
         out["error"] = f"{e!r}"[:4000]
+    if log:
+        log.done(out.get("error"))
     if rec:
         out.update(rec.summary())
         base = before[0] if before else {}
@@ -2448,7 +2567,8 @@ _NO_RECORDER = {"captures": {}, "failed": {}, "failures": [],
                 "streams_at_trainer_capture": {}, "shared_streams": {}}
 
 
-def _soak_spawn(shape, recapture, checks, loops=1, recorder=True):
+def _soak_spawn(shape, recapture, checks, loops=1, recorder=True,
+                log_dir=None, collector="auto"):
     """One fresh 2-rank spawn of ``_soak_rank``; returns both ranks'
     results (the leader's first) and the spawn's wall seconds."""
     import tempfile
@@ -2460,8 +2580,8 @@ def _soak_spawn(shape, recapture, checks, loops=1, recorder=True):
         try:
             outs = distributed.launch_local(2, _soak_rank, shape, tmp,
                                             recapture, checks, loops,
-                                            recorder, device="cuda:0",
-                                            timeout=900)
+                                            recorder, log_dir, collector,
+                                            device="cuda:0", timeout=900)
         except RuntimeError as e:
             outs = [dict(_NO_RECORDER, rank=r, shape=shape,
                          recapture=recapture, checks=checks, loops=loops,
@@ -2485,7 +2605,7 @@ def _soak_line(i, outs, wall, smi):
             f"{'recapture' if lead['recapture'] else 'natural'}"
             f"{'' if lead['checks'] else ' (loop only)'}"
             f"{f' x{loops} loops' if loops > 1 else ''}, recorder "
-            f"{'on' if lead['recorder'] else 'off'}: leader trainer "
+            f"{_recorder_text(lead['recorder'])}: leader trainer "
             f"captures {tc} ({tc - lead['forced']} natural, "
             f"{lead['forced']} forced) in the loop, engine graphs "
             f"{pc.get('engine', 0)}, oracle graphs {pc.get('oracle', 0)} "
@@ -2500,21 +2620,47 @@ def _soak_line(i, outs, wall, smi):
             f"{'ERROR ' + errors if errors else 'ok'}; {wall:.2f} s [{smi}]")
 
 
+SOAK_SHORT_LOOPS = 3              # loops in phase_mesh (b)'s soak spawn
+LIVE_THREAD_MARGIN = 2            # OS threads a later loop may add (as the
+                                  # CPU test's THREAD_MARGIN)
+
+
+def _recorder_text(recorder):
+    """``_soak_rank``'s ``recorder``: False, True, or the families it
+    leaves out."""
+    if isinstance(recorder, (tuple, list)):
+        return "on without " + "+".join(recorder)
+    return "on" if recorder else "off"
+
+
 def _soak_short(smi):
-    """The soak's short form in phase_mesh (b): one more 2x1 loop (no
-    checks) in which the leader's trainer recaptures every round, under a
-    ``CaptureRecorder``.  Fails on any failed capture, a failed rank, two
-    live streams on one CUDA stream, or no recapture at all."""
-    outs, wall = _soak_spawn((2, 1), True, False)
+    """The soak's short form in phase_mesh (b): a 2x1 spawn of
+    ``SOAK_SHORT_LOOPS`` loops (no checks) in which the leader's trainer
+    recaptures every round, under a ``CaptureRecorder``.  Fails on any
+    failed capture, a failed rank, two live streams on one CUDA stream, no
+    recapture at all, or a rank whose process groups after a later loop
+    differ from those after the first, or whose OS threads exceed them by
+    more than ``LIVE_THREAD_MARGIN`` (a finished loop leaves nothing
+    behind)."""
+    outs, wall = _soak_spawn((2, 1), True, False, SOAK_SHORT_LOOPS)
     print(_soak_line("short", outs, wall, smi))
+    lives = [[p.get("live") for p in [o.get("pal", {})] + o.get("more", [])]
+             for o in outs]
+    print(f"soak short: live after each loop, by rank {lives}")
+    def flat(live):
+        return len(live) == SOAK_SHORT_LOOPS and None not in live and all(
+            x["groups"] == live[0]["groups"] and 0 <= x["os_threads"]
+            - live[0]["os_threads"] <= LIVE_THREAD_MARGIN for x in live)
+
+    grown = [r for r, live in enumerate(lives) if not flat(live)]
     if any("error" in o or o["failed"] or o["shared_streams"]
-           for o in outs) or outs[0]["forced"] == 0:
+           for o in outs) or outs[0]["forced"] == 0 or grown:
         raise AssertionError(
             "mesh (b) recapture loop: "
             + " | ".join(o.get("error", "")[:2000] + "".join(o["failures"])
                          for o in outs)
             + f" forced {outs[0]['forced']}, shared "
-            f"{[o['shared_streams'] for o in outs]}")
+            f"{[o['shared_streams'] for o in outs]}, live {lives}")
     lead = outs[0]
     return {"trainer_captures": lead["pal_captures"].get("trainer", 0),
             "forced": lead["forced"], "failed": 0, "wall_s": wall,
@@ -2674,9 +2820,19 @@ def soak(natural=SOAK_SPAWNS, recapture=SOAK_RECAPTURE_SPAWNS,
     spawn and the totals, writes every spawn's results (failed windows'
     logs included) to ``out`` (JSON) when given, and raises at the end if
     any capture failed, any spawn failed (a rank that crashed included),
-    or two live streams shared one CUDA stream.  A rank that runs ten
-    loops in one process still segfaults in about one spawn in twelve
-    (ROADMAP.md section C, open).  To run it alone on the card:
+    or two live streams shared one CUDA stream.  With ``out``, each spawn
+    keeps a ``_SoakLog`` in a folder named after it (every rank's stacks
+    at a crash, ``live`` after every loop), and the JSON is rewritten after
+    every spawn.  A rank that runs loop after loop in one process still
+    segfaults now and then under this recorder (ROADMAP.md section C,
+    open): 2 crashes in about 240 thirty-loop recapturing loops with
+    each loop's groups left alive, none in 57 with them destroyed;
+    staging the sharded buckets' gathers through buffers they keep
+    raised it (19 crashes in 446 loops), so the gathers stage per call;
+    forms without the recorder, or without any one family of its
+    wrappers (``soak_forms``), crashed in none of 360 loops (PERF.md
+    section 6).
+    To run it alone on the card:
     ``PYTHONPATH=src python -c "import chip_smoke as c;
     c.soak(out='soak.json')"``."""
     smi = smi or platform.nvidia_smi()
@@ -2690,23 +2846,39 @@ def soak(natural=SOAK_SPAWNS, recapture=SOAK_RECAPTURE_SPAWNS,
         for i in range(plan.count(k)))]
     rows, t0 = [], time.perf_counter()
     for i, (shape, rc) in enumerate(plan):
-        outs, wall = _soak_spawn(shape, rc, True, recapture_loops if rc else 1)
+        logs = str(Path(out).with_suffix("") / f"spawn{i}") if out else None
+        outs, wall = _soak_spawn(shape, rc, True, recapture_loops if rc else 1,
+                                 log_dir=logs)
         rows.append({"outs": outs, "wall_s": wall})
         print(_soak_line(i, outs, wall, smi), flush=True)
+        if logs:
+            rows[-1]["progress"] = got = _soak_progress(logs)
+            err = " ".join(o.get("error", "") for o in outs)
+            if _crashed(err):
+                done = [g["loops_done"] for g in got.values()]
+                last = [(g["live"] or [None])[-1] for g in got.values()]
+                print(f"soak {i} crashed: loops finished {done}, live after "
+                      f"the last {last}", flush=True)
+            _write_soak(out, smi, _soak_totals(rows), rows)
     total = _soak_totals(rows)
     print(f"soak totals: {json.dumps(total)} in "
           f"{time.perf_counter() - t0:.2f} s [{smi}]", flush=True)
     if out:
-        Path(out).parent.mkdir(parents=True, exist_ok=True)
-        Path(out).write_text(json.dumps({"smi": smi, "totals": total,
-                                         "spawns": rows}, default=str))
+        _write_soak(out, smi, total, rows)
     if total["failed_captures"] or total["failed_spawns"] or \
             total["shared_streams"]:
         raise AssertionError(f"soak: {total}")
     return total
 
 
-def soak_forms(rounds=2, loops=SOAK_RECAPTURE_LOOPS, out=None, smi=None):
+def _write_soak(out, smi, total, rows):
+    Path(out).parent.mkdir(parents=True, exist_ok=True)
+    Path(out).write_text(json.dumps({"smi": smi, "totals": total,
+                                     "spawns": rows}, default=str))
+
+
+def soak_forms(rounds=2, loops=SOAK_RECAPTURE_LOOPS, out=None, smi=None,
+               forms=None):
     """Ten-loop 2x1 spawns (``loops`` loops a process, phase_mesh (b)'s
     checks in the first) in four forms, ``rounds`` of each, interleaved:
     the leader's trainer recapturing every round or not, each with and
@@ -2714,34 +2886,41 @@ def soak_forms(rounds=2, loops=SOAK_RECAPTURE_LOOPS, out=None, smi=None):
     (spawns, crashed spawns, other failed spawns, failed captures) and
     writes the spawns to ``out`` (JSON) when given.  It measures and
     raises nothing: it tells the harness's share in a fault from the
-    program's."""
+    program's.  ``forms``: (recapture, recorder, collector) triples
+    instead (``collector`` as ``_soak_rank`` takes it)."""
     smi = smi or platform.nvidia_smi()
     _build.build_all()
-    forms = [(rc, rec) for rc in (True, False) for rec in (True, False)]
-    table = {f: {"spawns": 0, "crashed": 0, "failed": 0,
-                 "failed_captures": 0} for f in forms}
+    forms = forms or [(rc, rec, "auto") for rc in (True, False)
+                      for rec in (True, False)]
+    names = [f"{'recapture' if rc else 'natural'} x{loops} loops, recorder "
+             f"{_recorder_text(rec)}, collector {col}"
+             for rc, rec, col in forms]
+    table = {n: {"spawns": 0, "crashed": 0, "failed": 0,
+                 "failed_captures": 0} for n in names}
     rows = []
     for i in range(rounds):
-        for rc, rec in forms:
-            outs, wall = _soak_spawn((2, 1), rc, True, loops, rec)
-            rows.append({"outs": outs, "wall_s": wall})
-            print(_soak_line(f"form {i}", outs, wall, smi), flush=True)
-            t = table[(rc, rec)]
+        for j, (rc, rec, col) in enumerate(forms):
+            logs = (str(Path(out).with_suffix("") / f"round{i}_form{j}")
+                    if out else None)
+            outs, wall = _soak_spawn((2, 1), rc, True, loops, rec, logs, col)
+            rows.append({"outs": outs, "wall_s": wall, "collector": col})
+            if logs:
+                rows[-1]["progress"] = _soak_progress(logs)
+            print(_soak_line(f"form {i}", outs, wall, smi)
+                  + f" collector {col}", flush=True)
+            t = table[names[j]]
             err = " ".join(o["error"] for o in outs if "error" in o)
             t["spawns"] += 1
             t["crashed"] += _crashed(err)
             t["failed"] += bool(err) and not _crashed(err)
             t["failed_captures"] += sum(sum(o["failed"].values())
                                         for o in outs)
-    for (rc, rec), t in table.items():
-        print(f"soak form {'recapture' if rc else 'natural'} x{loops} loops, "
-              f"recorder {'on' if rec else 'off'}: {json.dumps(t)} [{smi}]",
-              flush=True)
+    for name, t in table.items():
+        print(f"soak form {name}: {json.dumps(t)} [{smi}]", flush=True)
     if out:
         Path(out).parent.mkdir(parents=True, exist_ok=True)
         Path(out).write_text(json.dumps(
-            {"smi": smi, "forms": {f"{rc} {rec}": t
-                                   for (rc, rec), t in table.items()},
+            {"smi": smi, "forms": table,
              "spawns": rows}, default=str))
     return table
 

@@ -32,7 +32,10 @@ control messages, the twin's collectives and a handoff.  An idle leader
 sends a keep-alive every ``TIMEOUT_S / 4``.  A call that raises on any
 rank breaks that rank's lane (``on_error``): its later calls raise, and a
 peer waiting on it fails within the timeout.  The leader's ``close``
-sends the stop token, which a follower hands to ``on_stop``.
+sends the stop token, which a follower hands to ``on_stop``.  Then
+``close`` destroys the lane's groups on every rank (``release``), once
+the lane's thread has ended, so a process that runs loop after loop keeps
+no group or gloo thread of a finished one.
 """
 from __future__ import annotations
 
@@ -98,6 +101,7 @@ class Lane:
         self._lock = threading.Lock()
         self._error: Optional[LaneError] = None
         self._closed = False
+        self._stopped = False      # the stop token went through
         self._thread: Optional[threading.Thread] = None
         # the leader's control cost: host seconds sending each call (the
         # first apart too: it waits for a follower's start), and the
@@ -221,6 +225,7 @@ class Lane:
                     continue
                 if c.stop is not None:
                     self._send(("stop", c.stop))
+                    self._stopped = True
                     c.future.set_result(None)
                     return
                 t0 = time.perf_counter()
@@ -242,7 +247,7 @@ class Lane:
                 if msg[0] == "ping":
                     continue
                 if msg[0] == "stop":
-                    self._closed = True
+                    self._closed = self._stopped = True
                     self._on_stop(msg[1])
                     return
                 _, name, method, args, kwargs = msg
@@ -254,6 +259,8 @@ class Lane:
     def _fail(self, e: BaseException, c: Optional[_Call]) -> None:
         err = LaneError(f"lane {self.name} on rank {dist.get_rank()}: "
                         f"{e!r}\n{traceback.format_exc()}")
+        # the text is kept; the frames' locals (a group, buffers) are not
+        traceback.clear_frames(e.__traceback__)
         err.__cause__ = e
         with self._lock:
             self._error = err
@@ -267,20 +274,47 @@ class Lane:
         for p in pending:
             p.future.set_exception(err)
 
-    def close(self, token: Any) -> None:
+    def close(self, token: Any) -> bool:
         """Leader: send ``token`` as the lane's last message (after the
         calls queued before it) and join the thread.  Follower: join the
         thread (it ends at the leader's stop or a failure).  Both wait at
         most ``TIMEOUT_S``; a broken or closed lane sends nothing, and a
-        lane never started returns at once."""
-        if self._thread is None:
-            return
-        if self.leader and self._error is None:
+        lane never started joins nothing.  Then ``release``, whose result
+        it returns."""
+        if self._thread is not None:
+            if self.leader and self._error is None:
+                try:
+                    self._put(_Call(stop=token))
+                except LaneError:
+                    pass                       # closed or broken already
+            self._thread.join(TIMEOUT_S)
+        return self.release()
+
+    def release(self) -> bool:
+        """Destroy the lane's process groups on this rank: the control
+        group, then its mesh twin's (``Mesh.release``), in the order they
+        were made.  When the stop token went through, the ranks first meet
+        on the control group, so no rank closes a socket its peer still
+        reads; a broken or never started lane destroys them at once (a
+        peer still waiting on one fails then).  While the lane's thread
+        still runs (a call that outlived ``close``'s join), nothing is
+        destroyed: the thread may be blocked in a group.  Returns whether
+        the groups are gone; a later call, once the thread has ended,
+        destroys them."""
+        if self.group is None:
+            return True
+        if self._thread is not None and self._thread.is_alive():
+            return False
+        group, self.group = self.group, None   # its gloo threads go with it
+        if self._stopped and self._error is None:
             try:
-                self._put(_Call(stop=token))
-            except LaneError:
-                pass                           # closed or broken already
-        self._thread.join(TIMEOUT_S)
+                dist.all_reduce(torch.zeros(1), group=group)
+            except RuntimeError:
+                pass                # the peer is gone: nothing to wait for
+        if dist.is_initialized():
+            dist.destroy_process_group(group)
+        self.mesh.release()
+        return True
 
 
 class Proxy:

@@ -817,7 +817,9 @@ class PAL:
     def _close_lanes(self):
         """Leader: a last fleet snapshot for ``report()``, then the stop
         token as each lane's last message.  Every rank then joins its
-        lanes (a follower's end at the leader's token)."""
+        lanes (a follower's end at the leader's token) and destroys their
+        groups; a lane whose thread outlived the join keeps them
+        (``runtime.unreleased_lanes``)."""
         el, tl = self._engine_lane, self._trainer_lane
         if el is None:
             return
@@ -829,7 +831,8 @@ class PAL:
                 pass                        # the lane's error is the run's
         token = self.stop_token or StopToken("runtime", "shutdown")
         for lane in (el, tl):
-            lane.close(token)
+            if not lane.close(token):
+                self.monitor.incr("runtime.unreleased_lanes")
 
     def _stop_threads(self):
         if self.serve_queue is not None:

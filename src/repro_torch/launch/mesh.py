@@ -18,7 +18,7 @@ each, ``launch/distributed.py``) under the reference's axis names —
     callers count them;
   * ``twin``: the same grid over process groups of its own, for a second
     thread's collectives (gloo is not safe with two threads issuing
-    collectives on one group).
+    collectives on one group); ``release`` destroys them.
 
 Functions, not module constants: importing this module creates no
 process-group state.
@@ -56,7 +56,8 @@ class Mesh:
 
     def __init__(self, ranks, axis_names: Sequence[str], *,
                  device_mesh=None, abstract: bool = False,
-                 groups: Optional[Dict[str, object]] = None):
+                 groups: Optional[Dict[str, object]] = None,
+                 owned: Sequence[object] = ()):
         self.ranks = np.asarray(ranks, dtype=np.int64)
         self.axis_names = tuple(axis_names)
         if self.ranks.ndim != len(self.axis_names):
@@ -68,6 +69,7 @@ class Mesh:
         self.device_mesh = device_mesh
         self.abstract = abstract
         self._groups = dict(groups or {})   # axis -> this rank's group
+        self._owned = list(owned)           # what ``release`` destroys
 
     @property
     def size(self) -> int:
@@ -109,16 +111,28 @@ class Mesh:
         every axis of size > 1.  Every rank of the process group must call
         it in the same order (``new_group`` is collective)."""
         rank, _ = _world()
-        groups = {}
+        groups, made = {}, []
         for d, axis in enumerate(self.axis_names):
             n = self.shape[axis]
             if n < 2:
                 continue
             for line in np.moveaxis(self.ranks, d, -1).reshape(-1, n):
                 g = dist.new_group([int(r) for r in line], timeout=timeout)
+                made.append(g)
                 if rank in line:
                     groups[axis] = g
-        return Mesh(self.ranks, self.axis_names, groups=groups)
+        return Mesh(self.ranks, self.axis_names, groups=groups, owned=made)
+
+    def release(self) -> None:
+        """Destroy the process groups ``twin`` made for this mesh, in the
+        order it made them (every rank of the process group calls it); a
+        mesh that ``twin`` did not make owns none.  Its collectives raise
+        afterwards; a second call does nothing."""
+        owned, self._owned = self._owned, []
+        self._groups.clear()
+        if dist.is_available() and dist.is_initialized():
+            for g in owned:
+                dist.destroy_process_group(g)
 
     def _group(self, axis: str):
         if axis in self._groups:

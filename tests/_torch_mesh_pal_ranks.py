@@ -463,6 +463,138 @@ def resume(shape, tmp):
     return out
 
 
+def _live():
+    """The process groups and OS threads (gloo's included) this process
+    holds."""
+    from torch.distributed import distributed_c10d as c10d
+
+    return {"groups": len(c10d._world.pg_map),
+            "os_threads": len(os.listdir("/proc/self/task"))}
+
+
+def _short_loop(pal):
+    """(g) One short loop: on the leader ``N_EXCHANGE`` exchange rounds,
+    a labelled block, a round interrupted at ``INTERRUPT_AT`` and the
+    handoff (both lanes), then ``shutdown``; a follower waits for its
+    stop.  Returns the stop token a follower received (the leader's:
+    None), the labelled count and what this rank's engine computed."""
+    rec = Record(pal)
+    token = None
+    if pal.leader:
+        try:
+            for _ in range(N_EXCHANGE):
+                assert pal.exchange.step() is None
+            _labelled_block(pal)
+            _round_and_handoff(pal)
+        finally:
+            pal.shutdown()
+    else:
+        token = _follow(pal)
+    return {"token": token, "labelled": pal.train_buffer.total_labeled,
+            "scores": [s[2] for s in rec.scores]}
+
+
+def _primed_live(shape):
+    """The counts before the first loop, once what every loop shares
+    exists: the mesh's DeviceMesh (``make_scaleout_mesh`` caches it for
+    the process) and the CPU's thread pool."""
+    from repro_torch.launch.mesh import make_scaleout_mesh
+
+    make_scaleout_mesh(*shape)
+    torch.ones(64, 64) @ torch.ones(64, 64)
+    return _live()
+
+
+def loops_in_one_process(shape, tmp, loops):
+    """(g) ``loops`` short loops one after another in this process, each
+    a new ``PAL`` in a result dir of its own.  Returns the counts before
+    the first and after each (``_live``), and each loop's
+    ``_short_loop``."""
+    out = {"before": _primed_live(shape), "after": [], "loops": []}
+    for i in range(loops):
+        pal = make_pal(os.path.join(tmp, f"loop{i}"), shape)
+        out["loops"].append(_short_loop(pal))
+        del pal
+        out["after"].append(_live())
+    return out
+
+
+def fault_then_loop(shape, tmp, timeout_s):
+    """(h) A loop whose follower fault breaks the lanes (``follower_fault``,
+    lane timeout ``timeout_s``), then a short loop.  Returns the counts
+    before, after the broken loop and after the short one, the broken
+    loop's ``follower_fault`` result and the short loop's."""
+    before = _primed_live(shape)
+    broken = follower_fault(shape, os.path.join(tmp, "broken"), timeout_s)
+    after_broken = _live()
+    loop = _short_loop(make_pal(os.path.join(tmp, "after"), shape))
+    return {"before": before, "after": [after_broken, _live()],
+            "broken": broken, "loop": loop}
+
+
+class _Slow:
+    """A lane object whose ``wait`` sleeps: a call that outlives the
+    lane's join."""
+
+    def __init__(self):
+        self.entered = threading.Event()
+
+    def wait(self, seconds):
+        self.entered.set()
+        time.sleep(seconds)
+        return int(torch.distributed.get_rank())
+
+
+def straggler_lane(shape, tmp, call_s, timeout_s):
+    """(i) A lane of ``shape``'s mesh whose one call sleeps ``call_s``
+    seconds, closed while that call runs with ``TIMEOUT_S`` patched to
+    ``timeout_s`` (shorter): ``close`` must return with the thread alive
+    and the groups kept, the call and the stop token must then go through
+    on those groups, and a later ``release`` must destroy them.  Returns
+    the counts before the lane, with it, after ``close`` and after the
+    later ``release``, both releases' results, whether the lane still
+    held its control group at ``close``, and what the lane reported."""
+    from torch.distributed import distributed_c10d as c10d
+
+    from repro_torch.launch.mesh import make_scaleout_mesh
+
+    before = _primed_live(shape)
+    stops, errors, results = [], [], []
+    lane = dispatch.Lane("straggler", make_scaleout_mesh(*shape), "cpu",
+                         on_stop=stops.append,
+                         on_error=lambda e: errors.append(str(e)))
+    slow = _Slow()
+    lane.register("slow", slow)
+    lane.start()
+    with_lane = _live()
+    if lane.leader:
+        caller = threading.Thread(
+            target=lambda: results.append(lane.call("slow", "wait", call_s)))
+        caller.start()
+    assert slow.entered.wait(30.0)
+    saved = dispatch.TIMEOUT_S
+    dispatch.TIMEOUT_S = timeout_s
+    try:
+        t0 = time.perf_counter()
+        released = lane.close(("test", "straggler"))
+        close_s = time.perf_counter() - t0
+        alive = lane._thread.is_alive()
+        kept = lane.group in c10d._world.pg_map
+        after_close = _live()
+        lane._thread.join(4 * call_s)
+        if lane.leader:
+            caller.join(4 * call_s)
+        released_later = lane.release()
+    finally:
+        dispatch.TIMEOUT_S = saved
+    return {"before": before, "with_lane": with_lane,
+            "after_close": after_close, "after": [_live()],
+            "released": released, "released_later": released_later,
+            "alive_at_close": alive, "group_kept": kept,
+            "close_s": close_s, "stops": stops, "errors": errors,
+            "results": results}
+
+
 def main(argv) -> int:
     """One rank of a two-process ``PAL`` launched from its config alone
     (``dist_coordinator``, ``dist_processes``, ``dist_process_id``, then

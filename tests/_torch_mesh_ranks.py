@@ -219,6 +219,44 @@ def attention_cases(mesh, w):
     return out
 
 
+def twin_release_cases(mesh):
+    """``Mesh.all_gather`` of a few tensors (float32, int32, bool: each
+    rank's own) over each set of axes, on ``mesh`` and on a twin of it
+    (groups of its own, as a lane's); then the twin's ``release``, twice.
+    Returns, per case, both meshes' results and staged bytes, the process
+    groups before the twin, with it and after each ``release``, and the
+    error a gather on the released twin raised."""
+    from torch.distributed import distributed_c10d as c10d
+
+    rank = int(torch.distributed.get_rank())
+    gen = torch.Generator().manual_seed(7 + rank)
+    tensors = {"f32": torch.randn(4, 3, generator=gen),
+               "i32": torch.randint(-9, 9, (2, 2, 2), generator=gen,
+                                    dtype=torch.int32),
+               "bool": torch.rand(5, generator=gen) > 0.5}
+    groups = [len(c10d._world.pg_map)]
+    twin = mesh.twin()
+    groups.append(len(c10d._world.pg_map))
+    out = {}
+    for axes in (("data",), ("model",), ("data", "model")):
+        for name, t in tensors.items():
+            ref, nb = mesh.all_gather(t, axes)
+            got, nb_twin = twin.all_gather(t, axes)
+            out[(axes, name)] = {"mesh": ref.numpy(), "twin": got.numpy(),
+                                 "bytes": [nb, nb_twin]}
+    twin.release()
+    groups.append(len(c10d._world.pg_map))
+    twin.release()
+    groups.append(len(c10d._world.pg_map))
+    try:
+        twin.all_gather(tensors["f32"], tuple(
+            a for a in ("data", "model") if twin.shape[a] > 1))
+        err = None
+    except RuntimeError as e:
+        err = str(e)
+    return {"gathers": out, "groups": groups, "released_error": err}
+
+
 def cases(shape, w):
     """Every case on ``make_scaleout_mesh(*shape)`` (None: no mesh)."""
     mesh = make_scaleout_mesh(*shape) if shape is not None else None
@@ -231,6 +269,7 @@ def cases(shape, w):
     if mesh is not None:
         out.update(k3_cases(mesh))
         out.update(attention_cases(mesh, w))
+        out["twin"] = twin_release_cases(mesh)
         out["resolved"] = {name: dict(acq.resolve_mesh(
             PALRunConfig(uq_mesh=name)).shape)
             for name in ("scaleout", f"{shape[0]}x{shape[1]}")}

@@ -269,6 +269,27 @@ def test_k3_committee_on_2way_mesh_warns_and_matches(name, ranks, w):
         _assert_uq_close(out["k3"], want)
 
 
+@pytest.mark.parametrize("name", list(SHAPES))
+def test_twin_gathers_match_and_release_restores_groups(name, ranks):
+    """A twin of the mesh (process groups of its own, one per axis line
+    of size > 1, as a lane makes) gathers the mesh's bits with the same
+    staged bytes over every set of axes, float32, int32 and bool; its
+    ``release`` destroys exactly the groups it made (a rank holds one
+    per axis of size > 1: its own line's), a second ``release`` does
+    nothing, and a gather on the released twin raises."""
+    lines = sum(1 for n in SHAPES[name] if n > 1)
+    for o in ranks(name):
+        t = o["twin"]
+        for case, r in t["gathers"].items():
+            np.testing.assert_array_equal(r["mesh"], r["twin"],
+                                          err_msg=str(case))
+            assert r["bytes"][0] == r["bytes"][1], case
+        before, with_twin, released, again = t["groups"]
+        assert with_twin - before == lines
+        assert released == again == before
+        assert t["released_error"] is not None
+
+
 def test_resolve_mesh_grid_form():
     """Without a process group the world is this process: '1x1' and
     'host' are 1x1 meshes; a grid larger than the world raises, as does a

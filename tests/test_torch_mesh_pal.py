@@ -32,6 +32,11 @@ mesh is one spawn of ranks (``launch/distributed.launch_local``, a
 * (e) a follower that waits before its ``run()`` misses none of the
   leader's calls (its lanes start at ``run()``), and (f) one shut down
   without ``run()`` ends both ranks within the lane's timeout;
+* (g) three short loops in one process, on 2x1 and 1x2, and (h) a loop
+  broken by a follower fault then a short one: after each, every rank
+  holds the process groups and OS threads it held before the first (the
+  lanes destroy their groups at ``close``); and (i) a lane call that
+  outlives ``close``'s join keeps its groups until its thread ends;
 * and two processes that join from the config alone
   (``initialize_from_config``) and run ``PAL(uq_mesh='2x1')``.
 """
@@ -62,6 +67,10 @@ PARAM_TOL = dict(rtol=1e-5, atol=1e-6)               # the committee axis
 POS_ATOL = 5e-5          # tests/test_torch_fleet.py's, fleet positions
 FAULT_TIMEOUT_S = 5.0
 FOLLOWER_DELAY_S = 2.0
+LOOPS = 3
+THREAD_MARGIN = 2        # OS threads a rank may hold above its count before
+STRAGGLER_S = 3.0        # a lane call's seconds, beyond the patched timeout
+STRAGGLER_TIMEOUT_S = 0.5
 
 
 def _spawn(tmp_path_factory, name, fn, shape, *args):
@@ -428,6 +437,77 @@ def test_a_follower_shut_down_without_run_ends_both_ranks(
         lead["error"]
     for o in outs:
         assert o["seconds"] < 3 * FAULT_TIMEOUT_S
+
+
+def _assert_back_to_before(o):
+    """Each count after a loop: the process groups exactly as before the
+    first loop, the OS threads (gloo's: three a group) within
+    ``THREAD_MARGIN``."""
+    for after in o["after"]:
+        assert after["groups"] == o["before"]["groups"], o
+        assert 0 <= after["os_threads"] - o["before"]["os_threads"] <= \
+            THREAD_MARGIN, o
+
+
+@pytest.mark.parametrize("name", list(SHAPES))
+def test_loop_after_loop_leaves_no_group_or_thread(name, tmp_path_factory):
+    """Three short loops (exchange rounds, a labelled block, a trainer
+    round, the handoff: both lanes) in one process on every rank: after
+    each, the rank holds the process groups it held before the first and
+    its OS threads within ``THREAD_MARGIN`` (each loop's lanes made four
+    groups, with three gloo threads each); the third loop's stop token,
+    labelled count and scores are the first's."""
+    outs = _spawn(tmp_path_factory, f"loops_{name}", M.loops_in_one_process,
+                  SHAPES[name], LOOPS)
+    for o in outs:
+        assert len(o["after"]) == LOOPS
+        _assert_back_to_before(o)
+        first, last = o["loops"][0], o["loops"][-1]
+        assert first["token"] == last["token"]
+        assert first["labelled"] == last["labelled"]
+        assert len(first["scores"]) == len(last["scores"]) > 0
+        for a, b in zip(first["scores"], last["scores"]):
+            _assert_equal(a, b)
+    assert outs[0]["loops"][0]["labelled"] == M.RETRAIN
+    assert outs[1]["loops"][0]["token"] == ("runtime", "shutdown")
+
+
+def test_a_broken_loop_releases_its_groups(tmp_path_factory):
+    """A follower fault breaks both ranks' lanes (as in
+    ``test_a_follower_fault_ends_both_ranks``): their groups are released
+    all the same, within the lane's timeout, and a short loop after it
+    runs and leaves nothing behind either."""
+    outs = _spawn(tmp_path_factory, "broken_loop", M.fault_then_loop,
+                  (2, 1), FAULT_TIMEOUT_S)
+    for o in outs:
+        assert o["broken"]["error"] is not None
+        assert o["broken"]["seconds"] < 3 * FAULT_TIMEOUT_S
+        _assert_back_to_before(o)
+    assert outs[0]["loop"]["labelled"] == M.RETRAIN
+    assert "injected follower fault" in outs[1]["broken"]["error"]
+    assert outs[1]["loop"]["token"] == ("runtime", "shutdown")
+
+
+def test_a_lane_call_outliving_close_keeps_its_groups(tmp_path_factory):
+    """A lane call of ``STRAGGLER_S`` seconds, closed on both ranks with
+    ``TIMEOUT_S`` patched to ``STRAGGLER_TIMEOUT_S``: ``close`` returns
+    False after its join, the thread still in the call, every group still
+    held (destroying one under a thread blocked in it, or sending the
+    thread's next message on no group, is what it must not do); the call
+    then ends, the stop token reaches the follower on the lane's own
+    group, and a later ``release`` destroys the groups."""
+    outs = _spawn(tmp_path_factory, "straggler", M.straggler_lane, (2, 1),
+                  STRAGGLER_S, STRAGGLER_TIMEOUT_S)
+    for o in outs:
+        assert o["errors"] == [], o
+        assert o["alive_at_close"] and o["group_kept"], o
+        assert o["released"] is False and o["released_later"] is True, o
+        assert o["close_s"] < STRAGGLER_S, o
+        assert o["after_close"]["groups"] == o["with_lane"]["groups"] > \
+            o["before"]["groups"], o
+        _assert_back_to_before(o)
+    assert outs[0]["results"] == [0] and outs[0]["stops"] == []
+    assert outs[1]["stops"] == [("test", "straggler")]
 
 
 def test_resume_on_the_model_axis_continues_bit_for_bit(tmp_path_factory):
