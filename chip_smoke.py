@@ -234,6 +234,7 @@ import ctypes
 import gc
 import io
 import json
+import re
 import sys
 import threading
 import time
@@ -2170,8 +2171,11 @@ class CaptureRecorder:
     package is not instrumented).  ``captures``/``failed`` count windows by
     site; a failed capture prints (and keeps) the log of its window from
     50 ms before it opened.  Every ``torch.cuda.Stream`` taken from the
-    pool is kept weakly with its maker; at each trainer capture the live
-    ones are read, and ``shared`` lists the live streams made since
+    pool is recorded with its handle and maker, and a finalizer wrapped on
+    ``Stream`` marks it dead (no weak reference: torch 2.11's CUDA stream
+    leaves its weak references pointing at freed memory, and dereferencing
+    one increments whatever object reuses it); at each trainer capture the
+    live ones are read, and ``shared`` lists the live streams made since
     ``mark_pal`` (a loop's, in a process that ran loops before it) that
     share one CUDA stream handle.
     ``in_window`` counts the logged calls made by another thread while a
@@ -2187,7 +2191,8 @@ class CaptureRecorder:
         self.failures = []
         self.shared = {}
         self.live_at_capture = {}
-        self._streams = []          # (weakref, handle, maker)
+        self._streams = []          # [handle, maker, alive]
+        self._alive = {}            # id of a live recorded stream -> entry
         self._pal_from = 0          # the PAL run's first stream
         self._open = {}             # thread ident -> (start, site)
         self._lock = threading.Lock()
@@ -2222,9 +2227,9 @@ class CaptureRecorder:
     def install(self, skip=()):
         """Wrap what the class docstring lists; ``skip`` leaves out
         families of wrappers: ``"calls"`` (the logged calls), ``"del"``
-        (graph and event destructors), ``"streams"`` (``Stream.__new__``:
-        no shared-stream check then), ``"gc"`` (the collector's
-        callbacks).  Capture windows are always recorded."""
+        (graph and event destructors), ``"streams"`` (``Stream.__new__``
+        and ``Stream.__del__``: no shared-stream check then), ``"gc"`` (the
+        collector's callbacks).  Capture windows are always recorded."""
         from repro_torch.kernels import graphs
         from repro_torch.launch.mesh import Mesh
 
@@ -2299,6 +2304,7 @@ class CaptureRecorder:
 
     def _record_streams(self):
         rec, new = self, torch.cuda.Stream.__new__
+        old_del = getattr(torch.cuda.Stream, "__del__", None)
 
         def rec_new(cls, *a, **kw):
             s = new(cls, *a, **kw)
@@ -2307,10 +2313,20 @@ class CaptureRecorder:
             f = _outer_frame(1)
             maker = (f"{Path(f.f_code.co_filename).name}:{f.f_lineno} "
                      f"{f.f_code.co_name}" if f else "?")
-            rec._streams.append((_weak(s), s.cuda_stream, maker))
+            entry = [s.cuda_stream, maker, True]
+            rec._streams.append(entry)
+            rec._alive[id(s)] = entry
             return s
 
+        def rec_stream_del(s):
+            entry = rec._alive.pop(id(s), None)
+            if entry is not None:
+                entry[2] = False
+            if old_del is not None:
+                old_del(s)
+
         self._patch(torch.cuda.Stream, "__new__", staticmethod(rec_new))
+        self._patch(torch.cuda.Stream, "__del__", rec_stream_del)
 
     def _destructor(self, cls):
         orig, rec = getattr(cls, "__del__", None), self
@@ -2338,10 +2354,17 @@ class CaptureRecorder:
         """The streams made from now on are the PAL run's."""
         self._pal_from = len(self._streams)
 
+    def pal_streams(self):
+        """The pool streams made since ``mark_pal``: handle -> makers."""
+        made = {}
+        for handle, maker, _ in self._streams[self._pal_from:]:
+            made.setdefault(hex(handle), []).append(maker)
+        return made
+
     def _read_streams(self):
         live, run = {}, {}
-        for i, (ref, handle, maker) in enumerate(self._streams):
-            if ref is not None and ref() is not None:
+        for i, (handle, maker, alive) in enumerate(self._streams):
+            if alive:
                 live.setdefault(handle, []).append(maker)
                 if i >= self._pal_from:
                     run.setdefault(handle, []).append(maker)
@@ -2372,15 +2395,6 @@ class CaptureRecorder:
                 "shared_streams": self.shared}
 
 
-def _weak(obj):
-    import weakref
-
-    try:
-        return weakref.ref(obj)
-    except TypeError:
-        return None
-
-
 def _recapture_every_round(pal, forced):
     """Wrap the leader's trainer's ``train`` (from outside) so that every
     round drops the step graph first and recaptures it; ``forced[0]``
@@ -2401,12 +2415,366 @@ def _recapture_every_round(pal, forced):
     tr.train = train_recapturing
 
 
+# The native crash trace: a signal handler in C, built with the host C
+# compiler into build/ at first use and loaded with ctypes (the harness's
+# own; no module of the port loads it).  It writes with write(2) only, then
+# puts the previous action back and returns (a fault re-runs its
+# instruction, a sent signal is raised again), so faulthandler still
+# prints every Python thread and the process still dies by its signal.
+_CRASH_TRACE_C = r"""
+#define _GNU_SOURCE
+#include <dlfcn.h>
+#include <errno.h>
+#include <execinfo.h>
+#include <fcntl.h>
+#include <pthread.h>
+#include <signal.h>
+#include <stdint.h>
+#include <string.h>
+#include <ucontext.h>
+#include <unistd.h>
+
+static const int SIGNALS[] = {SIGSEGV, SIGBUS, SIGILL, SIGFPE, SIGABRT};
+static const char *NAMES[] = {"SIGSEGV", "SIGBUS", "SIGILL", "SIGFPE",
+                              "SIGABRT"};
+#define N_SIGNALS 5
+static struct sigaction previous[N_SIGNALS];
+static volatile sig_atomic_t out_fd = 2, installed = 0, writing = 0;
+
+static void put(const char *s) {
+  ssize_t r = write(out_fd, s, strlen(s));
+  (void)r;
+}
+
+static void put_hex(uintptr_t v, int width) {
+  char digits[2 * sizeof(uintptr_t)], text[2 * sizeof(uintptr_t) + 3];
+  int n = 0, i = 2;
+  do {
+    digits[n++] = "0123456789abcdef"[v & 15];
+    v >>= 4;
+  } while (v);
+  while (n < width) digits[n++] = '0';
+  text[0] = '0';
+  text[1] = 'x';
+  while (n) text[i++] = digits[--n];
+  text[i] = 0;
+  put(text);
+}
+
+static void put_dec(long v) {
+  char digits[24], text[26];
+  unsigned long u = v < 0 ? -(unsigned long)v : (unsigned long)v;
+  int n = 0, i = 0;
+  do {
+    digits[n++] = '0' + u % 10;
+    u /= 10;
+  } while (u);
+  if (v < 0) text[i++] = '-';
+  while (n) text[i++] = digits[--n];
+  text[i] = 0;
+  put(text);
+}
+
+static uintptr_t parse_hex(const char **p) {
+  uintptr_t v = 0;
+  for (;; (*p)++) {
+    char c = **p;
+    if (c >= '0' && c <= '9') v = v * 16 + (c - '0');
+    else if (c >= 'a' && c <= 'f') v = v * 16 + (c - 'a' + 10);
+    else return v;
+  }
+}
+
+/* the lines of /proc/self/maps whose range holds a or b */
+static void put_maps(uintptr_t a, uintptr_t b) {
+  char buf[4096], line[1024];
+  size_t len = 0;
+  ssize_t got;
+  int fd = open("/proc/self/maps", O_RDONLY | O_CLOEXEC);
+  if (fd < 0) return;
+  while ((got = read(fd, buf, sizeof buf)) > 0) {
+    for (ssize_t i = 0; i < got; i++) {
+      if (buf[i] != '\n') {
+        if (len < sizeof line - 1) line[len++] = buf[i];
+        continue;
+      }
+      line[len] = 0;
+      len = 0;
+      const char *p = line;
+      uintptr_t lo = parse_hex(&p), hi;
+      if (*p++ != '-') continue;
+      hi = parse_hex(&p);
+      if ((a >= lo && a < hi) || (b >= lo && b < hi)) {
+        put("  maps ");
+        put(line);
+        put("\n");
+      }
+    }
+  }
+  close(fd);
+}
+
+static uintptr_t fault_pc(void *context) {
+  ucontext_t *uc = context;
+#if defined(__x86_64__)
+  return (uintptr_t)uc->uc_mcontext.gregs[REG_RIP];
+#elif defined(__aarch64__)
+  return (uintptr_t)uc->uc_mcontext.pc;
+#else
+  (void)uc;
+  return 0;
+#endif
+}
+
+/* "  #<i> <pc> <library>+<offset> [<symbol>+<offset>]" */
+static void put_frame(const char *tag, long i, uintptr_t pc) {
+  Dl_info info;
+  put("  #");
+  if (tag) put(tag);
+  else put_dec(i);
+  put(" ");
+  put_hex(pc, 0);
+  if (dladdr((void *)pc, &info) && info.dli_fname) {
+    put(" ");
+    put(info.dli_fname[0] ? info.dli_fname : "?");
+    put("+");
+    put_hex(pc - (uintptr_t)info.dli_fbase, 0);
+    if (info.dli_sname) {
+      put(" ");
+      put(info.dli_sname);
+      put("+");
+      put_hex(pc - (uintptr_t)info.dli_saddr, 0);
+    }
+  } else {
+    put(" ?+0x0");
+  }
+  put("\n");
+}
+
+/* Memory read through a pipe: a bad address fails with EFAULT there
+   instead of faulting in the handler. */
+static int probe[2] = {-1, -1};
+
+static ssize_t safe_read(uintptr_t at, void *into, size_t n) {
+  char drain[512];
+  while (read(probe[0], drain, sizeof drain) > 0) {}
+  if (probe[0] < 0 || write(probe[1], (const void *)at, n) != (ssize_t)n)
+    return -1;
+  return read(probe[0], into, n);
+}
+
+/* the type name of a Python object at v, if v looks like one */
+static void put_type_name(uintptr_t v) {
+  uintptr_t head[2], type, name_at;
+  char name[48];
+  if (safe_read(v, head, sizeof head) != sizeof head) return;
+  type = head[1];
+  if (safe_read(type + 24, &name_at, sizeof name_at) != sizeof name_at)
+    return;
+  if (safe_read(name_at, name, sizeof name) != sizeof name) return;
+  for (int i = 0; i < (int)sizeof name; i++) {
+    if (name[i] == 0) {
+      if (i == 0) return;
+      put(" (a Python object? type ");
+      put(name);
+      put(", refcount ");
+      put_dec((long)head[0]);
+      put(")");
+      return;
+    }
+    if (name[i] < 32 || name[i] > 126) return;
+  }
+}
+
+/* the general registers, and 32 words around each that points into
+   readable memory */
+static void put_registers(void *context) {
+#if defined(__x86_64__)
+  static const char *names[] = {"r8", "r9", "r10", "r11", "r12", "r13",
+                                "r14", "r15", "rdi", "rsi", "rbp", "rbx",
+                                "rdx", "rax", "rcx", "rsp", "rip"};
+  ucontext_t *uc = context;
+  put("  registers:");
+  for (int r = 0; r < 17; r++) {
+    put(" ");
+    put(names[r]);
+    put("=");
+    put_hex((uintptr_t)uc->uc_mcontext.gregs[r], 0);
+  }
+  put("\n");
+  for (int r = 0; r < 16; r++) {
+    uintptr_t v = (uintptr_t)uc->uc_mcontext.gregs[r], words[32];
+    uintptr_t at = (v & ~(uintptr_t)7) - 64;
+    if (v < 0x10000 || safe_read(at, words, sizeof words) != sizeof words)
+      continue;
+    put("  memory at ");
+    put(names[r]);
+    put(" ");
+    put_hex(v, 0);
+    put_type_name(v);
+    for (int i = 0; i < 32; i++) {
+      if (i % 4 == 0) {
+        put("\n    ");
+        put_hex(at + 8 * i, 0);
+        put(":");
+      }
+      put(" ");
+      put_hex(words[i], 16);
+    }
+    put("\n");
+  }
+#else
+  (void)context;
+#endif
+}
+
+static void on_fatal(int sig, siginfo_t *si, void *context) {
+  int saved = errno, k = 0;
+  while (k < N_SIGNALS && SIGNALS[k] != sig) k++;
+  if (k < N_SIGNALS && !__sync_lock_test_and_set(&writing, 1)) {
+    void *frames[64];
+    uintptr_t pc = fault_pc(context);
+    put("Native crash: ");
+    put(NAMES[k]);
+    put(" (signal ");
+    put_dec(sig);
+    put(") si_code ");
+    put_dec(si->si_code);
+    put(" si_addr ");
+    put_hex((uintptr_t)si->si_addr, 0);
+    put(" pc ");
+    put_hex(pc, 0);
+    put("\nThread ");
+    put_hex((uintptr_t)pthread_self(), 2 * sizeof(void *));
+    put(" (native frames, most recent call first):\n");
+    put_frame("pc", 0, pc);
+    int n = backtrace(frames, 64);
+    for (int i = 0; i < n; i++) put_frame(0, i, (uintptr_t)frames[i]);
+    put("  backtrace_symbols_fd:\n");
+    backtrace_symbols_fd(frames, n, out_fd);
+    put_maps((uintptr_t)si->si_addr, pc);
+    put_registers(context);
+    put("End of native frames\n");
+  }
+  if (k < N_SIGNALS) sigaction(sig, &previous[k], 0);
+  errno = saved;
+  if (si->si_code <= 0) raise(sig);  /* sent (kill, abort): send it on */
+}
+
+/* Install over the current actions (faulthandler's): write to fd. */
+int crash_trace_install(int fd) {
+  struct sigaction sa;
+  void *frames[2];
+  out_fd = fd;
+  if (installed) return 0;
+  backtrace(frames, 2);  /* libgcc is loaded now, not in the handler */
+  if (pipe2(probe, O_NONBLOCK | O_CLOEXEC) != 0) probe[0] = probe[1] = -1;
+  memset(&sa, 0, sizeof sa);
+  sa.sa_sigaction = on_fatal;
+  sigemptyset(&sa.sa_mask);
+  sa.sa_flags = SA_SIGINFO | SA_NODEFER | SA_ONSTACK;
+  for (int k = 0; k < N_SIGNALS; k++)
+    if (sigaction(SIGNALS[k], &sa, &previous[k]) != 0) return -1;
+  installed = 1;
+  return 0;
+}
+"""
+
+
+def crash_trace_library():
+    """The crash trace's shared library, built from ``_CRASH_TRACE_C``
+    with the host C compiler into ``build/`` at first use (its name holds
+    the source's hash) and loaded with ``ctypes``.  Raises
+    ``RuntimeError`` where no C compiler exists."""
+    import hashlib
+    import os
+    import shutil
+    import subprocess
+
+    tag = hashlib.sha256(_CRASH_TRACE_C.encode()).hexdigest()[:12]
+    out = Path(__file__).resolve().parent / "build"
+    so = out / f"crash_trace_{tag}.so"
+    if not so.exists():
+        cc = shutil.which("cc") or shutil.which("gcc")
+        if cc is None:
+            raise RuntimeError("crash trace: no C compiler (cc, gcc)")
+        out.mkdir(parents=True, exist_ok=True)
+        src = out / f"crash_trace_{tag}.{os.getpid()}.c"
+        tmp = src.with_suffix(".so")
+        src.write_text(_CRASH_TRACE_C)
+        got = subprocess.run([cc, "-O1", "-g", "-fPIC", "-shared", "-o",
+                              str(tmp), str(src), "-ldl"],
+                             capture_output=True, text=True)
+        src.unlink()
+        if got.returncode:
+            raise RuntimeError(f"crash trace: {cc} failed:\n{got.stderr}")
+        os.replace(tmp, so)     # ranks that build at once each rename
+    return ctypes.CDLL(str(so))
+
+
+def install_crash_trace(fd):
+    """Write a native crash record (signal, ``si_code``, ``si_addr``, the
+    faulting thread's id in faulthandler's form, its native frames with
+    library and offset, the ``/proc/self/maps`` lines of the address and
+    the PC) to file descriptor ``fd`` on SIGSEGV, SIGBUS, SIGILL, SIGFPE
+    and SIGABRT.  Install it after ``faulthandler.enable``: the previous
+    action runs after the record."""
+    if crash_trace_library().crash_trace_install(int(fd)) != 0:
+        raise OSError(ctypes.get_errno(), "crash trace: sigaction failed")
+
+
+_NATIVE_FRAME = re.compile(r"^  #(pc|\d+) (0x[0-9a-f]+) (\S+)\+(0x[0-9a-f]+)"
+                           r"(?: (\S+)\+0x[0-9a-f]+)?$")
+
+
+def native_frames(text, top=8):
+    """The last native crash record in ``text`` (a faults file): its
+    first line and its ``top`` frames from the faulting PC outward, each
+    ``library+offset function file:line`` (``addr2line -f -C``; where the
+    library carries no line table, the exported symbol ``dladdr`` named,
+    else ``addr2line``'s nearest symbol)."""
+    import shutil
+    import subprocess
+
+    start = text.rfind("Native crash: ")
+    if start < 0:
+        return None
+    lines = text[start:].splitlines()
+    frames = [m.groups() for m in map(_NATIVE_FRAME.match, lines) if m]
+    pc = frames[0][1] if frames and frames[0][0] == "pc" else None
+    rest = frames[1:]
+    hit = next((i for i, f in enumerate(rest) if f[1] == pc), None)
+    # from the faulting PC on; each later one a return address (less 1)
+    chain = [(frames[0], 0)] if pc else []
+    chain += [(f, 1) for f in rest[hit + 1 if hit is not None else 0:]]
+    out, tool = [], shutil.which("addr2line")
+    demangle = shutil.which("c++filt")
+    for (_, _, lib, off, sym), back in chain[:top]:
+        if sym and sym.startswith("_Z") and demangle:
+            sym = subprocess.run([demangle, sym], capture_output=True,
+                                 text=True).stdout.strip() or sym
+        where = sym or "?"
+        if tool and lib != "?":
+            got = subprocess.run(
+                [tool, "-f", "-C", "-e", lib, hex(int(off, 16) - back)],
+                capture_output=True, text=True)
+            fn, line = (got.stdout.splitlines() + ["", ""])[:2]
+            if got.returncode == 0 and line and not line.startswith("??"):
+                where = f"{fn} {line}"
+            elif not sym and fn and fn != "??":
+                where = f"{fn} (nearest symbol)"
+        out.append(f"{Path(lib).name}+{off} {where}")
+    return {"crash": lines[0], "frames": out}
+
+
 class _SoakLog:
     """A soak rank's files under ``log_dir``: ``rank{r}.faults`` holds
     faulthandler's stacks of every thread, written when this rank crashes
     and, by a watchdog thread, when the other rank's process has ended
-    without writing its ``rank{r}.done`` (a crash there); a line of
-    ``rank{r}.loops.jsonl`` follows every finished loop (its ``live``)."""
+    without writing its ``rank{r}.done`` (a crash there), after the native
+    crash trace's record of the crash (``install_crash_trace``); a line of
+    ``rank{r}.loops.jsonl`` follows every finished loop (its ``live`` and
+    the pool streams made in it, by handle)."""
 
     def __init__(self, log_dir, rank):
         import faulthandler
@@ -2416,6 +2784,7 @@ class _SoakLog:
         self.dir.mkdir(parents=True, exist_ok=True)
         self.faults = open(self.dir / f"rank{rank}.faults", "w")
         faulthandler.enable(file=self.faults)
+        install_crash_trace(self.faults.fileno())
         (self.dir / f"rank{rank}.pid").write_text(str(os.getpid()))
         threading.Thread(target=self._watch, name="soak-watchdog",
                          daemon=True).start()
@@ -2441,10 +2810,11 @@ class _SoakLog:
         faulthandler.dump_traceback(file=self.faults, all_threads=True)
         self.faults.flush()
 
-    def loop(self, i, pal_out, freed=None):
+    def loop(self, i, pal_out, freed=None, streams=None):
         with open(self.dir / f"rank{self.rank}.loops.jsonl", "a") as f:
             f.write(json.dumps({"loop": i, "live": pal_out.get("live"),
-                                "freed": freed, "t": time.time()}) + "\n")
+                                "freed": freed, "streams": streams,
+                                "t": time.time()}) + "\n")
 
     def done(self, error=None):
         """The rank's end: its error (if any) in ``rank{r}.done``, which
@@ -2472,7 +2842,8 @@ def _collect_between(collector):
 
 def _soak_progress(log_dir):
     """What a spawn's ``_SoakLog`` files hold: per rank the loops it
-    finished (with the last one's ``live``) and its stacks, if any."""
+    finished (each one's ``live`` and pool streams), its native crash
+    frames (``native_frames``) and its stacks, if any."""
     d, got = Path(log_dir), {}
     for r in range(2):
         lines = []
@@ -2480,10 +2851,13 @@ def _soak_progress(log_dir):
         if f.exists():
             lines = [json.loads(x) for x in f.read_text().splitlines() if x]
         faults, done = d / f"rank{r}.faults", d / f"rank{r}.done"
+        text = faults.read_text() if faults.exists() else ""
         got[f"rank{r}"] = {
             "loops_done": len(lines),
             "live": [x["live"] for x in lines],
-            "faults": faults.read_text()[-30000:] if faults.exists() else "",
+            "streams": [x.get("streams") for x in lines],
+            "native": native_frames(text),
+            "faults": text[-30000:],
             "error": done.read_text()[-4000:] if done.exists() else None}
     return got
 
@@ -2508,6 +2882,7 @@ def _soak_rank(shape, tmp, recapture, checks, loops=1, recorder=True,
     log = _SoakLog(log_dir, rank) if log_dir else None
     if log is None:
         faulthandler.enable()       # a crash prints every thread's stack
+        install_crash_trace(2)      # ... after its native frames
     rec = CaptureRecorder().install(
         recorder if isinstance(recorder, (tuple, list)) else ()) \
         if recorder else None
@@ -2534,14 +2909,16 @@ def _soak_rank(shape, tmp, recapture, checks, loops=1, recorder=True,
             platform.set_reference_precision()
             out["pal"] = _mesh_pal(shape, dirs[0], on_pal)
         if log:
-            log.loop(0, out["pal"], _collect_between(collector))
+            log.loop(0, out["pal"], _collect_between(collector),
+                     rec and rec.pal_streams())
         out["more"] = []
         for i, d in enumerate(dirs[1:], 1):
             if rec:
                 rec.mark_pal()
             out["more"].append(_mesh_pal(shape, d, on_pal))
             if log:
-                log.loop(i, out["more"][-1], _collect_between(collector))
+                log.loop(i, out["more"][-1], _collect_between(collector),
+                         rec and rec.pal_streams())
     except Exception as e:      # noqa: BLE001 — returned with the windows
         out["error"] = f"{e!r}"[:4000]
     if log:
@@ -2575,6 +2952,7 @@ def _soak_spawn(shape, recapture, checks, loops=1, recorder=True,
 
     from repro_torch.launch import distributed
 
+    crash_trace_library()           # built once, before the ranks load it
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         try:
@@ -2772,13 +3150,14 @@ def _graph_churn_child(seconds, results):
     import faulthandler
 
     faulthandler.enable()
+    install_crash_trace(2)
     results.put(graph_churn(seconds))
 
 
 def _graph_churn_step(smi, seconds=CHURN_S):
-    """phase_mesh (b)'s reproducer of two torch races behind the ten-loop
-    segfault: ``graph_churn`` in a spawned process, so a crash is a failed
-    step.  Fails on a crash, an error in a thread or a failed capture; at
+    """phase_mesh (b)'s reproducer of two torch races that kill a process
+    freeing a finished owner beside a capture: ``graph_churn`` in a
+    spawned process, so a crash is a failed step.  Fails on a crash, an error in a thread or a failed capture; at
     most ``seconds`` + 35 s."""
     import multiprocessing as mp
     import queue as queue_mod
@@ -2823,15 +3202,14 @@ def soak(natural=SOAK_SPAWNS, recapture=SOAK_RECAPTURE_SPAWNS,
     or two live streams shared one CUDA stream.  With ``out``, each spawn
     keeps a ``_SoakLog`` in a folder named after it (every rank's stacks
     at a crash, ``live`` after every loop), and the JSON is rewritten after
-    every spawn.  A rank that runs loop after loop in one process still
-    segfaults now and then under this recorder (ROADMAP.md section C,
-    open): 2 crashes in about 240 thirty-loop recapturing loops with
-    each loop's groups left alive, none in 57 with them destroyed;
-    staging the sharded buckets' gathers through buffers they keep
-    raised it (19 crashes in 446 loops), so the gathers stage per call;
-    forms without the recorder, or without any one family of its
-    wrappers (``soak_forms``), crashed in none of 360 loops (PERF.md
-    section 6).
+    every spawn.  Each rank runs under ``faulthandler`` and the native
+    crash trace (``install_crash_trace``): a crashed spawn's line prints
+    the top native frames of the rank that died.  Ranks that ran loop
+    after loop once segfaulted under this recorder: it kept a weak
+    reference to every pool stream, which torch 2.11 leaves pointing at
+    the freed wrapper, and each trainer capture's read incremented the
+    word of whatever object reused that memory (PERF.md section 6); the
+    recorder now marks a stream dead by a finalizer instead.
     To run it alone on the card:
     ``PYTHONPATH=src python -c "import chip_smoke as c;
     c.soak(out='soak.json')"``."""
@@ -2859,6 +3237,12 @@ def soak(natural=SOAK_SPAWNS, recapture=SOAK_RECAPTURE_SPAWNS,
                 last = [(g["live"] or [None])[-1] for g in got.values()]
                 print(f"soak {i} crashed: loops finished {done}, live after "
                       f"the last {last}", flush=True)
+                for r, g in got.items():
+                    if g["native"]:
+                        print(f"soak {i} {r} native: {g['native']['crash']}"
+                              + "".join(f"\n  {f}"
+                                        for f in g["native"]["frames"]),
+                              flush=True)
             _write_soak(out, smi, _soak_totals(rows), rows)
     total = _soak_totals(rows)
     print(f"soak totals: {json.dumps(total)} in "

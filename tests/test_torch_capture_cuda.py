@@ -11,7 +11,12 @@ captured step against the eager one bit for bit.  Destroying a CUDA graph
 in one thread while another is inside ``capture_begin`` corrupts memory
 (torch 2.11's generator state keeps the graphs in a set with no lock):
 the port destroys its graphs only under the capture lock, held here by
-``chip_smoke.graph_churn`` in a process of its own.  Every test needs a
+``chip_smoke.graph_churn`` in a process of its own.  torch 2.11's CUDA
+stream leaves its weak references pointing at the freed wrapper, so a
+reference read after the memory is reused increments a word of whatever
+object took it (the capture soak's recorder once did, at every trainer
+capture): the recorder takes none, held by a stream churn in a process
+of its own.  Every test needs a
 CUDA card (capture has no CPU mode), so each is marked ``cuda`` and skips
 without one.  This file imports no JAX:
 
@@ -237,3 +242,57 @@ def test_graph_churn_drops_beside_captures_and_replays(cuda_device):
     assert not got["errors"], got
     assert got["captures"] > 1000 and got["drops"] > 1000, got
     assert got["engines"] > 10 and got["replays"] > 100, got
+
+
+# A child process: pool streams recorded by a ``CaptureRecorder`` (its
+# stream family alone), dropped, their memory taken by lists of fresh
+# objects in the size classes around a stream wrapper's, then the
+# recorder's trainer-capture read made again and again.  Prints what the
+# recorder saw live and how many list items changed, then exits at once
+# (a changed item would crash the lists' teardown).
+STREAM_CHURN = """
+import gc, json, os
+import torch
+import chip_smoke as c
+
+rec = c.CaptureRecorder().install(skip=("calls", "del", "gc"))
+made = [torch.cuda.Stream() for _ in range(96)]
+recorded = len(rec._streams)
+del made
+gc.collect()
+victims = [[object() for _ in range(n)] for n in range(4, 20)
+           for _ in range(48)]
+kept = [list(v) for v in victims]
+for _ in range(16):
+    rec._read_streams()
+changed = sum(a is not b for v, k in zip(victims, kept)
+              for a, b in zip(v, k))
+print("STREAMS", json.dumps({"recorded": recorded,
+                             "live": len(rec.live_at_capture),
+                             "changed": changed}), flush=True)
+os._exit(0)
+"""
+
+
+@pytest.mark.cuda
+def test_recorder_reads_no_freed_stream(cuda_device):
+    """96 pool streams made under the recorder's stream family, dropped,
+    their memory reused by lists of fresh objects, then 16 of the reads
+    the recorder makes at each trainer capture, in a child process: no
+    stream is live, no list item changed and the child exits 0.  A
+    recorder that kept a weak reference to each stream read 32 freed
+    streams live and changed 84 items: torch 2.11 does not clear a CUDA
+    stream's weak references when it frees it, so each read incremented
+    the word where the freed wrapper's reference count was (in the soak's
+    crashes, a pointer among a ``Mesh``'s attribute values)."""
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    run = subprocess.run([sys.executable, "-X", "faulthandler", "-c",
+                          STREAM_CHURN], cwd=root, env=env,
+                         capture_output=True, text=True, timeout=240)
+    lines = [x for x in run.stdout.splitlines() if x.startswith("STREAMS ")]
+    assert run.returncode == 0 and lines, (run.returncode,
+                                           run.stderr[-4000:])
+    got = json.loads(lines[-1][len("STREAMS "):])
+    assert got["recorded"] == 96, got
+    assert got["live"] == 0 and got["changed"] == 0, got
