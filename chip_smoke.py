@@ -165,6 +165,21 @@ Phases (each raises on a failed check; the script exits non-zero):
    2048) + 512 prompt tokens, 64 new ones, max_seq 832: 24 tiled + 63 x 24
    split, each held against the plain version; then 2 fp32 layers against
    the CPU;
+15b. the four archs served last, each through the same ``serve_family``
+   gates (exact launches by path, every attention call held against the
+   plain version on the model's own activations, captured against eager):
+   h2o-danube-3-4b uncut (head dim 120, sliding window 4096) on prompts of
+   4608 tokens, so the window cuts keys in the prefill and in every decode
+   step (24 tiled + 63 x 24 split; the per-call gate's plain version taken
+   by query rows of 512, ``attention_ref_rows``); minicpm-2b uncut (36 MHA
+   heads, tied embeddings, vocab 122753 padded to 122880; 40 + 63 x 40);
+   mistral-nemo-12b uncut (32 heads of 128 over d_model 5120; 40 + 63 x
+   40); the one-card cut of qwen3-moe-235b-a22b (4 of 94 layers, qk-norm,
+   128 experts top-8, 64 heads over 4 kv heads: G = 16 is past the split
+   kernel's 8 rows, so every decode launch is tiled through the
+   device-offset entry: 4 + 63 x 4 tiled, 0 split), each on 8 prompts of
+   512 tokens; 64 new tokens each; then each arch's fp32 2-layer cut at
+   full width on the card against the CPU;
 16. PAL at LM scale: the ``repro_torch.examples.lm_active_distill`` twin,
    as the reference configures it, stopped at 120 labelled sequences or
    after 60 s (it prints which): committee_uq launches == student-engine
@@ -221,7 +236,9 @@ Phases (each raises on a failed check; the script exits non-zero):
 
 The flash phase (4) also sweeps and times the new families' shapes (the
 Whisper encoder and cross-attention, InternVL's and qwen2-moe's prefill and
-decode).  Each phase prints its wall time.
+decode; the four archs of 15b: danube's windowed d120 prefill and decode,
+minicpm's 36-head MHA, nemo's, and qwen3-moe's G = 16 decode on the tiled
+path).  Each phase prints its wall time.
 
 The last lines are one ``{"kernels": [...]}`` object, the card's name and
 power limit from ``nvidia-smi``, and ``{"ok": true, "device": {...}}``.
@@ -3685,15 +3702,20 @@ def _check_fa(B, T, S, H, KV, D, dtype, gen, causal=True, window=None,
     return _max_err(got.float(), want.float(), tol, tol, tag)
 
 
-def fa_bound(B, T, H, KV, D, dtype, causal, kv_len):
+def fa_bound(B, T, H, KV, D, dtype, causal, kv_len, window=None):
     """Least time for the work, in ms: q, o and the visible K/V rows moved
-    once (per batch row, ``kv_len`` keys), against the scores and the AV
-    product over the visible keys (causal prefill: 2*B*H*T^2*D, half of
-    4*B*H*T^2*D), at the peak rate of the inputs' type."""
+    once (per batch row, ``kv_len`` keys; a decode row sees the last
+    ``window`` of them), against the scores and the AV product over the
+    visible keys (causal prefill: 2*B*H*T^2*D, half of 4*B*H*T^2*D, less
+    the (T - window)^2 / 2 pairs past a window), at the peak rate of the
+    inputs' type."""
     esize = torch.tensor([], dtype=dtype).element_size()
+    if window is not None and not causal:
+        kv_len = [min(n, window) for n in kv_len]
     keys = sum(kv_len)                            # summed over the batch
     nbytes = esize * (2 * B * T * H * D + 2 * keys * KV * D)
-    flops = (2 * B * H * T * T * D if causal else 4 * H * T * D * keys)
+    pairs = T * T / 2 - (max(T - window, 0) ** 2 / 2 if window else 0)
+    flops = (4 * B * H * pairs * D if causal else 4 * H * T * D * keys)
     peak = (roofline.PEAK_FLOPS if dtype == torch.bfloat16
             else roofline.PEAK_FP32_FLOPS)
     t_bytes, t_ops = nbytes / roofline.HBM_BW, flops / peak
@@ -3701,43 +3723,58 @@ def fa_bound(B, T, H, KV, D, dtype, causal, kv_len):
                                        else "operations")
 
 
-def _sdpa_inputs(q, k, v, kvl, causal):
+def _sdpa_inputs(q, k, v, kvl, causal, window=None, q_offset=0):
     """The same attention for ``scaled_dot_product_attention``: heads
-    second, K/V expanded to H heads, a boolean key mask for ``kv_len``."""
+    second, K/V expanded to H heads, a boolean key mask for ``kv_len``;
+    with a ``window``, the whole mask (``ref._mask``: causal, window,
+    ``q_offset``) as a boolean (B or 1, 1, T, S), and ``is_causal`` False.
+    Returns (q, k, v, mask, is_causal)."""
     G = q.shape[2] // k.shape[2]
     qs = q.transpose(1, 2).contiguous()
     ks = k.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
     vs = v.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+    T, S = q.shape[1], k.shape[1]
+    kpos = torch.arange(S, device=q.device)
     mask = None
+    if window is not None:
+        mask = ref._mask(T, S, q_offset, causal, window, q.device)
+        mask = mask if mask.dim() == 3 else mask[None]
+        if kvl is not None:
+            mask = mask & (kpos[None, :] < kvl[:, None])[:, None, :]
+        return qs, ks, vs, mask[:, None], False
     if kvl is not None:
-        S = k.shape[1]
-        mask = (torch.arange(S, device=q.device)[None, :]
-                < kvl[:, None])[:, None, None, :]
-    return qs, ks, vs, mask
+        mask = (kpos[None, :] < kvl[:, None])[:, None, None, :]
+    return qs, ks, vs, mask, causal
 
 
 def _time_fa(name, B, T, S, H, KV, D, dtype, gen, causal, q_offset, kv_len,
-             smi):
+             smi, window=None, plain=ref.attention_ref,
+             reps=(10, 10, 50, 20)):
     """``q_offset="device"``: the decode entry, each row's offset ``kv_len -
-    T`` a tensor on the card."""
+    T`` a tensor on the card.  ``plain``: the plain version timed (and held
+    against); ``reps``: calls a graph, its replays, eager calls and their
+    warm-up calls."""
     q, k, v, kvl = _fa_inputs(B, T, S, H, KV, D, dtype, gen, kv_len)
-    kw = dict(causal=causal, kv_len=kvl,
+    kw = dict(causal=causal, kv_len=kvl, window=window,
               q_offset=kvl - T if q_offset == "device" else q_offset)
-    qs, ks, vs, mask = _sdpa_inputs(q, k, v, kvl, causal)
+    qs, ks, vs, mask, is_causal = _sdpa_inputs(q, k, v, kvl, causal, window,
+                                               kw["q_offset"])
     kg, vg = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
     def library():
-        return sdpa(qs, ks, vs, attn_mask=mask, is_causal=causal)
+        return sdpa(qs, ks, vs, attn_mask=mask, is_causal=is_causal)
 
     def library_gqa():                  # K/V not expanded (torch >= 2.5)
-        return sdpa(qs, kg, vg, attn_mask=mask, is_causal=causal,
+        return sdpa(qs, kg, vg, attn_mask=mask, is_causal=is_causal,
                     enable_gqa=True)
 
     # the yardsticks must compute the same function
-    want = ref.attention_ref(q, k, v, **kw).float()
+    want = plain(q, k, v, **kw).float()
+    _max_err(ops.attention(q, k, v, **kw).float(), want, FA_TOL[dtype],
+             FA_TOL[dtype], f"{name}: the kernel")
     fns = {"ms": lambda: ops.attention(q, k, v, **kw),
-           "plain_ms": lambda: ref.attention_ref(q, k, v, **kw),
+           "plain_ms": lambda: plain(q, k, v, **kw),
            "library_ms": library, "library_gqa_ms": library_gqa}
     for key, f in (("library_ms", library), ("library_gqa_ms", library_gqa)):
         try:
@@ -3747,20 +3784,24 @@ def _time_fa(name, B, T, S, H, KV, D, dtype, gen, causal, q_offset, kv_len,
             continue
         _max_err(out.float(), want, FA_TOL[dtype], FA_TOL[dtype],
                  f"{name}: sdpa yardstick {key}")
-    t = {key: graph_ms(f, calls=10, replays=10) for key, f in fns.items()}
-    t.update({key.replace("ms", "eager_ms"): time_ms(f, iters=50)
+    calls, replays, iters, warmup = reps
+    t = {key: graph_ms(f, calls=calls, replays=replays)
+         for key, f in fns.items()}
+    t.update({key.replace("ms", "eager_ms"): time_ms(f, iters=iters,
+                                                     warmup=warmup)
               for key, f in fns.items()})
     t.setdefault("library_gqa_ms", None)
     keys = kv_len if kv_len is not None else [S] * B
     t["bound_ms"], t["bound_by"] = fa_bound(B, T, H, KV, D, dtype, causal,
-                                            keys)
+                                            keys, window)
     p = fa_kernel.plan(B, T, S, H, KV)
     t["path"], t["splits"] = p.path, p.splits
     gqa = ("not taken by this torch" if t["library_gqa_ms"] is None
            else f"{t['library_gqa_ms']:.6f} ms")
+    wnote = "" if window is None else f", window {window}"
     print(f"flash_attention {name} (B,T,S,H,KV,D)=({B},{T},{S},{H},{KV},{D}) "
-          f"{dtype}, {p.path} path ({p.splits} splits): device time per "
-          f"call (CUDA graph) kernel {t['ms']:.6f} ms, plain "
+          f"{dtype}{wnote}, {p.path} path ({p.splits} splits): device time "
+          f"per call (CUDA graph) kernel {t['ms']:.6f} ms, plain "
           f"{t['plain_ms']:.6f} ms, scaled_dot_product_attention "
           f"{t['library_ms']:.6f} ms (K/V expanded), {gqa} (enable_gqa); "
           f"eager per call kernel {t['eager_ms']:.6f} ms, plain "
@@ -3881,6 +3922,26 @@ def phase_flash(smi):
               kv_len=[208, 150], path="tiled")
         check(4, 1, 576, 16, 2, 128, dtype, causal=False, window=100,
               q_offset="device", kv_len=[1, 64, 300, 576], path="split")
+        # the four archs served last: danube's d120 prefill past its
+        # 4096-token window (B cut to 2: the plain version holds the
+        # scores whole) and its windowed decode; minicpm's 36-head MHA;
+        # nemo's; qwen3-moe's G = 16, whose one-token decode is 16 (t, g)
+        # rows a kv head and takes the tiled path, kv_len 0 and 1 included
+        check(2, 4608, 4608, 32, 8, 120, dtype, window=4096, path="tiled")
+        check(8, 1, 4672, 32, 8, 120, dtype, causal=False, window=4096,
+              q_offset="device", kv_len=list(range(4609, 4673, 8)),
+              path="split")
+        check(8, 512, 512, 36, 36, 64, dtype, path="tiled")
+        check(8, 1, 576, 36, 36, 64, dtype, causal=False, q_offset="device",
+              kv_len=list(range(513, 577, 8)), path="split")
+        check(8, 512, 512, 32, 8, 128, dtype, path="tiled")
+        check(8, 1, 576, 32, 8, 128, dtype, causal=False, q_offset="device",
+              kv_len=list(range(513, 577, 8)), path="split")
+        check(8, 512, 512, 64, 4, 128, dtype, path="tiled")
+        check(8, 1, 576, 64, 4, 128, dtype, causal=False, q_offset="device",
+              kv_len=list(range(513, 577, 8)), path="tiled")
+        check(4, 1, 576, 64, 4, 128, dtype, causal=False, q_offset="device",
+              kv_len=[0, 1, 300, 576], path="tiled")
         # sharp attention over large values that cancel, as a random-weight
         # LM's activations give (P must keep more than bf16's 8 bits)
         for D in (64, 128):
@@ -3952,6 +4013,31 @@ def phase_flash(smi):
                                      8, 128, bf16, gen, True, 0, None, smi),
         "moe_prefill": _time_fa("qwen2-moe prefill", 8, 512, 512, 16, 16,
                                 128, bf16, gen, True, 0, None, smi),
+        # the four archs served last (decodes through the device-offset
+        # entry, as the captured decode runs them); danube's prefill timed
+        # with fewer calls, its plain version by query rows of 512
+        "danube_prefill": _time_fa(
+            "danube prefill", 8, 4608, 4608, 32, 8, 120, bf16, gen, True, 0,
+            None, smi, window=4096, plain=attention_ref_rows,
+            reps=(2, 3, 3, 1)),
+        "danube_decode": _time_fa(
+            "danube decode", 8, 1, 4672, 32, 8, 120, bf16, gen, False,
+            "device", list(range(4609, 4673, 8)), smi, window=4096),
+        "minicpm_prefill": _time_fa("minicpm prefill", 8, 512, 512, 36, 36,
+                                    64, bf16, gen, True, 0, None, smi),
+        "minicpm_decode": _time_fa(
+            "minicpm decode", 8, 1, 576, 36, 36, 64, bf16, gen, False,
+            "device", list(range(513, 577, 8)), smi),
+        "nemo_prefill": _time_fa("nemo prefill", 8, 512, 512, 32, 8, 128,
+                                 bf16, gen, True, 0, None, smi),
+        "nemo_decode": _time_fa(
+            "nemo decode", 8, 1, 576, 32, 8, 128, bf16, gen, False,
+            "device", list(range(513, 577, 8)), smi),
+        "qwen3_prefill": _time_fa("qwen3-moe prefill", 8, 512, 512, 64, 4,
+                                  128, bf16, gen, True, 0, None, smi),
+        "qwen3_decode": _time_fa(
+            "qwen3-moe decode (G = 16, tiled)", 8, 1, 576, 64, 4, 128, bf16,
+            gen, False, "device", list(range(513, 577, 8)), smi),
     }
     timings["sass_mma"] = {kind: sorted(cs) for kind, cs in short.items()}
     return worst, timings
@@ -4017,6 +4103,19 @@ def _attention_f64(q, k, v, *, causal=True, window=None, q_offset=0,
     p = torch.softmax(s.masked_fill(~m, float("-inf")), -1).nan_to_num(0.0)
     out = torch.einsum("bkgts,bskd->btkgd", p, v.double())
     return out.reshape(B, T, H, D).to(v.dtype)
+
+
+GATE_ROWS = 512          # query rows of one plain call in the per-call gate
+
+
+def attention_ref_rows(q, k, v, *, rows=GATE_ROWS, fn=ref.attention_ref,
+                       q_offset=0, **kw):
+    """``fn`` (``ref.attention_ref``, fp32 P) on ``rows`` query rows at a
+    time, each slice at its own offset: the same function, with the scores
+    of ``rows`` queries in memory at once (danube's prefill call, (8, 4608,
+    4608) over 32 heads, would hold 21.7 GB of fp32 scores whole)."""
+    return torch.cat([fn(q[:, i:i + rows], k, v, q_offset=q_offset + i,
+                         **kw) for i in range(0, q.shape[1], rows)], dim=1)
 
 
 # each LM serving phase's captured-against-eager numbers, by phase label
@@ -4342,7 +4441,7 @@ def prefill_extras(cfg, B, seed):
     return serve.prefill_inputs(cfg, B, np.random.RandomState(seed))
 
 
-def phase_card_vs_cpu(name, cfg, kernels):
+def phase_card_vs_cpu(name, cfg, kernels, f64_control=None):
     """``cfg`` (an fp32 cut of ``name``): greedy prefill + 8 decode steps
     on the card against the CPU plain path, teacher-forced with the card's
     tokens (with ``prefill_extras``: frame or patch embeddings).
@@ -4361,12 +4460,16 @@ def phase_card_vs_cpu(name, cfg, kernels):
     1500 frames (scores of std ~66), so a change of rounding alone moves
     its fp32 logits by ~1e-3 of their max-abs, past the elementwise
     tolerance, and the card rounds its matmuls and its attention otherwise
-    than the CPU does."""
+    than the CPU does.  ``f64_control=True`` holds another arch so
+    (``serve_rest``: h2o-danube-3-4b and mistral-nemo-12b, whose 2-layer
+    random-weight scores have a std of about d_model / sqrt(H * KV), 240
+    and 320, and where rtol = atol = 1e-3 alone failed on the card)."""
     B, P, steps = 2, 128, 8
     n_prefix = cfg.vision_tokens if cfg.family == "vlm" else 0
     max_seq = n_prefix + P + steps + 1
     routed = cfg.family == "moe"
-    f64_control = cfg.family == "encdec"
+    if f64_control is None:
+        f64_control = cfg.family == "encdec"
     model = model_zoo.build_model(cfg, max_seq=max_seq)
     params = model.init(torch.Generator(device="cuda").manual_seed(SEED + 1),
                         device="cuda")
@@ -5131,6 +5234,10 @@ MOE_ARCH = "qwen2-moe-a2.7b"
 WHISPER_ARCH, WHISPER_PROMPT, WHISPER_MAX_SEQ = "whisper-small", 64, 448
 # internvl2-2b: 256 patch embeddings + 512 prompt tokens + 64 new ones
 INTERNVL_ARCH = "internvl2-2b"
+# the four archs served last: danube's prompt passes its 4096-token window
+DANUBE_ARCH, DANUBE_PROMPT = "h2o-danube-3-4b", 4608
+MINICPM_ARCH, NEMO_ARCH = "minicpm-2b", "mistral-nemo-12b"
+QWEN3_ARCH = "qwen3-moe-235b-a22b"
 
 
 def serve_family(label, cfg, prompt_len, max_seq, want_paths, smi):
@@ -5214,26 +5321,33 @@ def serve_family(label, cfg, prompt_len, max_seq, want_paths, smi):
     # activations, also through the kernel, held against the kernel's plain
     # version ``ref.attention_ref`` (the model's plain path takes the
     # reference's query-chunked form past 1024 queries, the Whisper
-    # encoder's 1500, which rounds P to the activation dtype before P.V)
+    # encoder's 1500 and danube's 4608, which rounds P to the activation
+    # dtype before P.V; there the gate takes ``ref.attention_ref`` by query
+    # rows, ``attention_ref_rows``)
     plain = model_zoo.build_model(cfg, impl="plain", max_seq=max_seq)
-    calls, chunked, worst = 0, 0, 0.0
+    calls, chunked, worst, cut = 0, 0, 0.0, 0
     plain_attention = ops.plain_attention
 
     def shadowed(q, k, v, **kw):
-        nonlocal calls, chunked, worst
+        nonlocal calls, chunked, worst, cut
         out = plain_attention(q, k, v, **kw)
         kw.pop("q_chunk", None)
+        window = kw.get("window")       # keys cut: the last query sees
+        if window is not None and \
+                int(kw.get("q_offset", 0)) + q.shape[1] > window:
+            cut += 1                     # fewer than all before it
         got = fa_kernel.flash_attention(q, k, v, device=q.device, **kw)
         want = out
         if q.shape[1] > 1024 and kw.get("kv_len") is None:
-            want = ref.attention_ref(q, k, v, **kw)
+            want = attention_ref_rows(q, k, v, **kw)
             chunked += 1
         tol = FA_TOL[q.dtype]
         try:
             err = _max_err(got.float(), want.float(), tol, tol,
                            f"{label}: attention call {calls}")
         except AssertionError as e:      # say how far each is from exact
-            f64 = _attention_f64(q, k, v, **kw).double()
+            f64 = attention_ref_rows(q, k, v, fn=_attention_f64,
+                                     **kw).double()
             raise AssertionError(
                 f"{e}; max |kernel - float64| "
                 f"{float((got.double() - f64).abs().max()):.3e}, max |plain "
@@ -5254,9 +5368,13 @@ def serve_family(label, cfg, prompt_len, max_seq, want_paths, smi):
                              f"not {launches}")
     p_scale = float(lp.abs().max())
     drift = float((lk - lp).abs().max()) / p_scale
-    print(f"{label}: the kernel == plain attention (ref.attention_ref; "
-          f"{chunked} of the calls the plain path chunked) on all {calls} "
-          f"attention calls of a teacher-forced plain run over the generated "
+    out["window_cut_calls"] = cut
+    cut_note = (f", {cut} of them with the window of {cfg.sliding_window} "
+                f"cutting keys" if cfg.sliding_window else "")
+    print(f"{label}: the kernel == plain attention (ref.attention_ref, by "
+          f"query rows of {GATE_ROWS} on the {chunked} calls the plain path "
+          f"chunked) on all {calls} attention calls{cut_note} of a "
+          f"teacher-forced plain run over the generated "
           f"tokens (the model's own bf16 activations; worst |err| "
           f"{worst:.4e} at rtol = atol = {FA_TOL[torch.bfloat16]}); "
           f"generate's tokens == "
@@ -5316,6 +5434,78 @@ def phase_internvl(smi):
     return serve_family(f"InternVL serving {INTERNVL_ARCH} uncut", cfg,
                         LM_PROMPT, cfg.vision_tokens + LM_PROMPT + LM_GEN,
                         (L, (LM_GEN - 1) * L), smi)
+
+
+def phase_danube(smi):
+    """h2o-danube-3-4b uncut on prompts of 4608 tokens, past its 4096-token
+    window: 24 tiled (the window cutting keys from query 4096 on) + 63 x
+    24 split (every step's window starting past key 0)."""
+    cfg = get_arch(DANUBE_ARCH).model
+    L = cfg.num_layers
+    out = serve_family(
+        f"Danube serving {DANUBE_ARCH} uncut (window "
+        f"{cfg.sliding_window})", cfg, DANUBE_PROMPT, DANUBE_PROMPT + LM_GEN,
+        (L, (LM_GEN - 1) * L), smi)
+    if out["window_cut_calls"] != out["launches"]:
+        raise AssertionError(f"danube: the window cut keys in "
+                             f"{out['window_cut_calls']} of the "
+                             f"{out['launches']} attention calls, not all")
+    return out
+
+
+def phase_minicpm(smi):
+    """minicpm-2b uncut (36 MHA heads, tied embeddings, vocab 122753
+    padded to 122880): 40 tiled + 63 x 40 split."""
+    cfg = get_arch(MINICPM_ARCH).model
+    L = cfg.num_layers
+    return serve_family(f"MiniCPM serving {MINICPM_ARCH} uncut", cfg,
+                        LM_PROMPT, LM_PROMPT + LM_GEN,
+                        (L, (LM_GEN - 1) * L), smi)
+
+
+def phase_nemo(smi):
+    """mistral-nemo-12b uncut (32 heads of 128 over d_model 5120): 40
+    tiled + 63 x 40 split."""
+    cfg = get_arch(NEMO_ARCH).model
+    L = cfg.num_layers
+    return serve_family(f"Nemo serving {NEMO_ARCH} uncut", cfg, LM_PROMPT,
+                        LM_PROMPT + LM_GEN, (L, (LM_GEN - 1) * L), smi)
+
+
+def phase_qwen3_moe(smi):
+    """qwen3-moe-235b-a22b at its one-card cut: 64 heads over 4 kv heads
+    (G = 16) put every decode step on the tiled path, 4 + 63 x 4 tiled and
+    none split."""
+    from repro_torch.configs import qwen3_moe_235b_a22b
+
+    cfg = get_arch(QWEN3_ARCH).model.replace(
+        **qwen3_moe_235b_a22b.ONE_CARD_CUT)
+    L = cfg.num_layers
+    return serve_family(
+        f"MoE serving {QWEN3_ARCH} one-card cut ({cfg.moe_num_experts} "
+        f"experts top-{cfg.moe_top_k}, qk-norm)", cfg, LM_PROMPT,
+        LM_PROMPT + LM_GEN, (L + (LM_GEN - 1) * L, 0), smi)
+
+
+def serve_rest(smi=None):
+    """Phase 15b: each of the four archs served last, then its fp32 2-layer
+    cut at full width against the CPU; {key: serving numbers}.  Alone on
+    the card (after building the kernels): ``PYTHONPATH=src python -c
+    "import chip_smoke as c; c.serve_rest()"``."""
+    if smi is None:
+        smi = _timed("describe and build", phase_describe)["nvidia_smi"]
+    rest = {}
+    for key, arch, phase, sharp in (
+            ("danube", DANUBE_ARCH, phase_danube, True),
+            ("minicpm", MINICPM_ARCH, phase_minicpm, False),
+            ("nemo", NEMO_ARCH, phase_nemo, True),
+            ("qwen3_moe", QWEN3_ARCH, phase_qwen3_moe, False)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        rest[key] = _timed(f"{key} serving", phase, smi)
+        _timed(f"{key} card vs CPU", phase_card_vs_cpu, arch,
+               two_layers(arch), (fa_kernel,), sharp)
+    return rest
 
 
 # ---------------------------------------------------------------------------
@@ -6204,6 +6394,7 @@ def main() -> int:
     internvl = _timed("internvl serving", phase_internvl, smi)
     _timed("internvl card vs CPU", phase_card_vs_cpu, INTERNVL_ARCH,
            two_layers(INTERNVL_ARCH), (fa_kernel,))
+    rest = serve_rest(smi)
     distill = _timed("lm distill", phase_distill, smi)
     gc.collect()
     torch.cuda.empty_cache()
@@ -6307,6 +6498,8 @@ def main() -> int:
         "moe_launches": moe["launches"],
         "whisper_launches": whisper["launches"],
         "internvl_launches": internvl["launches"],
+        **{f"{key}_{field}": out[field] for key, out in rest.items()
+           for field in ("launches", "paths")},
         "distill_launches": distill["fa_launches"],
         "distill_teacher_ms": distill["teacher_ms"],
         "distill_teacher_eager_ms": distill["teacher_eager_ms"],
@@ -6315,7 +6508,10 @@ def main() -> int:
         "serving_captured_vs_eager": SERVING,
         **{f"{key}_{field}": fa_t[key][field]
            for key in ("whisper_encoder", "whisper_cross_decode",
-                       "internvl_prefill", "moe_prefill")
+                       "internvl_prefill", "moe_prefill", "danube_prefill",
+                       "danube_decode", "minicpm_prefill", "minicpm_decode",
+                       "nemo_prefill", "nemo_decode", "qwen3_prefill",
+                       "qwen3_decode")
            for field in ("ms", "plain_ms", "bound_ms", "bound_by",
                          "library_ms", "library_gqa_ms")},
         "sass_mma": fa_t["sass_mma"]}, *({

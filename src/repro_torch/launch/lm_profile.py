@@ -9,9 +9,10 @@
 
 Builds ``--arch`` (default llama3.2-1b; any of the ten) at full width,
 with random weights from ``--seed``, behind ``ServeEngine``
-(jamba-1.5-large-398b and qwen2-moe-a2.7b as their one-card cuts,
-``ONE_CARD_CUT``, every width published; whisper-small and internvl2-2b
-with ``launch/serve.py``'s random frame / patch embeddings), and reports,
+(jamba-1.5-large-398b, qwen2-moe-a2.7b and qwen3-moe-235b-a22b as their
+one-card cuts, ``ONE_CARD_CUT``, every width published; whisper-small and
+internvl2-2b with ``launch/serve.py``'s random frame / patch embeddings),
+and reports,
 each line with the card's name and power limit:
 
 * one ``generate`` of ``--batch`` prompts of ``--prompt-len`` tokens and
@@ -44,7 +45,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_arch
-from repro_torch.configs import jamba1p5_large_398b, qwen2_moe_a2p7b
+from repro_torch.configs import (jamba1p5_large_398b, qwen2_moe_a2p7b,
+                                 qwen3_moe_235b_a22b)
 from repro_torch.launch import platform, serve
 from repro_torch.models import model_zoo
 from repro_torch.serving import ServeEngine
@@ -61,7 +63,8 @@ KERNEL_GROUPS = (("flash_attention", ("flash_tiled_kernel",
                  ("ssd", ("ssd_mma_kernel", "ssd_fp32_kernel")))
 # archs too large for one card, cut as their config files state
 ONE_CARD_CUTS = {"jamba-1.5-large-398b": jamba1p5_large_398b.ONE_CARD_CUT,
-                 "qwen2-moe-a2.7b": qwen2_moe_a2p7b.ONE_CARD_CUT}
+                 "qwen2-moe-a2.7b": qwen2_moe_a2p7b.ONE_CARD_CUT,
+                 "qwen3-moe-235b-a22b": qwen3_moe_235b_a22b.ONE_CARD_CUT}
 GROUPS = KERNEL_GROUPS + (
     ("matmul", ("nvjet", "gemm", "cutlass", "xmma", "sm90_")),)
 

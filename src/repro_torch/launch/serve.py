@@ -14,9 +14,9 @@ with ``--device``; the CUDA device by default, and an error without it).
 ``--preset full`` of the hybrid and MoE families raises at once: their
 parameters do not fit one card (jamba-1.5-large-398b 397.6 B,
 qwen2-moe-a2.7b 14.3 B, qwen3-moe-235b-a22b 235.1 B, at 6 bytes each).  The
-one-card cuts (``ONE_CARD_CUT`` in ``configs/jamba1p5_large_398b.py`` and
-``configs/qwen2_moe_a2p7b.py``) run through ``chip_smoke.py`` and
-``launch/lm_profile.py``.  whisper-small gets random frame
+one-card cuts (``ONE_CARD_CUT`` in ``configs/jamba1p5_large_398b.py``,
+``configs/qwen2_moe_a2p7b.py`` and ``configs/qwen3_moe_235b_a22b.py``) run
+through ``chip_smoke.py`` and ``launch/lm_profile.py``.  whisper-small gets random frame
 embeddings (B, encoder_seq, d_model) and internvl2-2b random patch
 embeddings (B, vision_tokens, d_model), as the reference's CLI gives
 them.

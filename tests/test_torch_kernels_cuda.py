@@ -1864,6 +1864,137 @@ def test_flash_attention_whisper_shapes_match_plain_version(
                                rtol=FA_TOL[dtype], atol=FA_TOL[dtype])
 
 
+# ---------------------------------------------------------------------------
+# the four archs served last: danube, minicpm, nemo, qwen3-moe
+# ---------------------------------------------------------------------------
+
+ZOO_REST_FA_CASES = {
+    # danube's d120 with a window that binds: T = S past it (the tiled
+    # prefill), and one token past it through the device-offset entry
+    "d120-window-prefill": ((2, 600, 600, 8, 2, 120), dict(
+        causal=True, window=256), "tiled"),
+    "d120-window-decode": ((4, 1, 600, 8, 2, 120), dict(
+        causal=False, window=256, kv_len=[257, 300, 599, 600]), "split"),
+    # qwen3-moe's G = 16: one decode token is 16 (t, g) rows a kv head,
+    # past the split kernel's 8, so the device-offset decode runs tiled
+    "g16-decode": ((4, 1, 576, 64, 4, 128), dict(
+        causal=False, kv_len=[0, 1, 300, 576]), "tiled"),
+    # minicpm's 36 MHA heads on the split path
+    "mha36-decode": ((4, 1, 576, 36, 36, 64), dict(
+        causal=False, kv_len=[1, 64, 300, 576]), "split"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(ZOO_REST_FA_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_flash_attention_zoo_rest_shapes_match_plain_version(
+        cuda_device, dtype, case):
+    """The four archs' new kernel cases, each on its path by the counts;
+    the decodes through ``flash_attention_decode`` (a tensor ``q_offset``,
+    each row at ``kv_len[b] - T``)."""
+    from repro_torch.kernels import flash_attention as kernel
+
+    (B, T, S, H, KV, D), kw, path = ZOO_REST_FA_CASES[case]
+    assert kernel.plan(B, T, S, H, KV).path == path
+    rng = np.random.RandomState(14)
+    q, k, v = (torch.from_numpy(rng.randn(*s).astype(np.float32)).to(
+        cuda_device, dtype) for s in ((B, T, H, D), (B, S, KV, D),
+                                      (B, S, KV, D)))
+    kw = dict(kw)
+    if "kv_len" in kw:
+        kw["kv_len"] = torch.tensor(kw["kv_len"], dtype=torch.int32,
+                                    device=cuda_device)
+        kw["q_offset"] = kw["kv_len"] - T
+    before = (kernel.launches_tiled, kernel.launches_split)
+    got = ops.attention(q, k, v, **kw)
+    step = (kernel.launches_tiled - before[0],
+            kernel.launches_split - before[1])
+    assert step == ((1, 0) if path == "tiled" else (0, 1))
+    want = ref.attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               rtol=FA_TOL[dtype], atol=FA_TOL[dtype])
+
+
+def _zoo_rest_model(arch, **kw):
+    """``arch`` at its small config (``_zoo_rest``), ``kw`` on top."""
+    from _zoo_rest import small
+    from repro_torch.configs import get_arch
+    from repro_torch.models import model_zoo
+
+    cfg = small(get_arch(arch).model, arch, **kw)
+    return cfg, model_zoo.build_model(cfg, max_seq=64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["h2o-danube-3-4b", "minicpm-2b",
+                                  "mistral-nemo-12b", "qwen3-moe-235b-a22b"])
+def test_zoo_rest_card_matches_cpu(cuda_device, arch):
+    """2 fp32 layers at the small config: prefill of 40 tokens (past
+    danube's window of 16) and 8 decode steps teacher-forced with the
+    card's greedy tokens, the card's kernel path against the CPU's plain
+    path on the same weights (rtol = atol = 1e-3, as chip_smoke's
+    card-vs-CPU phase)."""
+    from _zoo_rest import PROMPT, STEPS
+    from repro_torch.core.committee import tree_map
+
+    cfg, m = _zoo_rest_model(arch)
+    B = 2
+    params = m.init(torch.Generator(device=cuda_device).manual_seed(0),
+                    device=cuda_device)
+    params_c = tree_map(lambda t: t.cpu(), params)
+    tok = torch.from_numpy(np.random.RandomState(1).randint(
+        0, cfg.vocab_size, (B, PROMPT)).astype(np.int32))
+    toks, outs = [], {}                   # toks: the card's greedy ones
+    for dev, p in ((cuda_device, params), (torch.device("cpu"), params_c)):
+        cache = m.init_cache(B, PROMPT + STEPS, device=dev)
+        logits, cache = m.prefill(p, tok.to(dev), cache)
+        seq = [logits.float().cpu()]
+        for i in range(STEPS):
+            if dev.type == "cuda":
+                toks.append(torch.argmax(seq[-1], -1).to(torch.int32))
+            logits, cache = m.decode_step(p, toks[i][:, None].to(dev), cache,
+                                          PROMPT + i)
+            seq.append(logits.float().cpu())
+        outs[dev.type] = torch.stack(seq, 1)
+    assert outs["cuda"].shape == (B, STEPS + 1, cfg.padded_vocab)
+    np.testing.assert_allclose(outs["cuda"].numpy(), outs["cpu"].numpy(),
+                               rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["h2o-danube-3-4b", "minicpm-2b",
+                                  "mistral-nemo-12b", "qwen3-moe-235b-a22b"])
+def test_zoo_rest_generate_launches_flash_exactly(cuda_device, arch):
+    """One ``ServeEngine.generate`` of 6 new tokens at 2 bf16 layers after a
+    first one that captured the graphs: one tiled launch per layer in the
+    prefill and one launch per layer per decode step, split where G <= 8
+    and tiled for qwen3-moe's G = 16, counted by replay."""
+    from _zoo_rest import PROMPT
+    from repro_torch.kernels import flash_attention as kernel
+    from repro_torch.serving import ServeEngine
+
+    cfg, m = _zoo_rest_model(arch, dtype="bfloat16")
+    L = cfg.num_layers
+    want = (6 * L, 0) if cfg.num_heads // cfg.num_kv_heads > 8 else (L, 5 * L)
+    params = m.init(torch.Generator(device=cuda_device).manual_seed(0),
+                    device=cuda_device)
+    eng = ServeEngine(m, params, max_seq=64, batch=8, device=cuda_device)
+    batch = {"tokens": np.random.RandomState(2).randint(
+        0, cfg.vocab_size, (8, PROMPT)).astype(np.int32)}
+    eng.generate(batch, max_new_tokens=6)
+    before = (kernel.launches, kernel.launches_tiled, kernel.launches_split)
+    res = eng.generate(batch, max_new_tokens=6)
+    after = (kernel.launches, kernel.launches_tiled, kernel.launches_split)
+    assert (after[1] - before[1], after[2] - before[2]) == want
+    assert after[0] - before[0] == sum(want)
+    assert res.tokens.shape == (8, PROMPT + 6)
+    assert (res.tokens >= 0).all() and (res.tokens < cfg.padded_vocab).all()
+
+
 @pytest.mark.cuda
 def test_lm_distill_short_run_on_the_card(cuda_device):
     """The lm_active_distill twin on the card until 24 labels: every
